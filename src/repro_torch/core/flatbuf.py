@@ -1,0 +1,339 @@
+"""Flat-buffer aggregation path (port of ``repro/core/flatbuf.py``,
+unsharded).
+
+* ``ParamBundle`` packs a dict of tensors into one contiguous f32 vector
+  (leaves in sorted key order, JAX's pytree order, so packed vectors line
+  up with the JAX package), padded to a multiple of ``BLOCK`` with a zero
+  tail that stays zero through every merge.
+* ``FlatServerState`` owns a persistent ``(W_cap, N)`` row buffer and the
+  packed server mirror, and merges with one kernel pass:
+  ``fused_merge`` (``fedavg_mix_flat``: ``wvec[0]*server + wvec[1:] @
+  rows``) or, for alpha >= 1, ``fused_weighted_sum`` (``fedavg_agg_flat``,
+  which never reads the server buffer).
+
+JAX arrays are immutable; these are not.  The only in-place write on the
+merge path is ``fused_merge`` into the packed server mirror, which
+``_server_buffer`` hands over and forgets (the counterpart of JAX's
+donation).  ``unpack`` returns copies, so no weight dict handed out
+before a merge aliases a buffer the merge writes.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import fedavg_agg
+
+BLOCK = 512          # pack pads N up to a multiple
+
+
+def padded_size_for(n_params: int, n_shards: int = 1) -> int:
+    """Packed width of an ``n_params`` model: a multiple of ``BLOCK *
+    n_shards``."""
+    lane = BLOCK * max(1, int(n_shards))
+    return -(-int(n_params) // lane) * lane
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded aggregation substrate (mesh=) is not ported yet "
+            "(ROADMAP A11)")
+
+
+def packable(tree) -> bool:
+    """True for a non-empty dict of tensors (packs into one buffer)."""
+    return (isinstance(tree, Mapping) and bool(tree)
+            and all(isinstance(v, torch.Tensor) for v in tree.values()))
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``.  On the card the copy goes through
+    pinned memory without blocking the host, so it adds no sync."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class ParamBundle:
+    """Pack/unpack one model structure to/from a flat f32 buffer.
+
+    Keys, shapes, dtypes and offsets are fixed at construction."""
+
+    def __init__(self, template: Mapping[str, torch.Tensor], mesh=None):
+        _no_mesh(mesh)
+        if not packable(template):
+            raise ValueError("cannot bundle: expected a non-empty dict of "
+                             "tensors")
+        self.keys = tuple(sorted(template))
+        self.shapes = tuple(tuple(template[k].shape) for k in self.keys)
+        self.dtypes = tuple(template[k].dtype for k in self.keys)
+        self.sizes = tuple(int(np.prod(s, dtype=np.int64)) if s else 1
+                           for s in self.shapes)
+        off = np.concatenate([[0], np.cumsum(self.sizes)])
+        self.offsets = tuple(int(o) for o in off[:-1])
+        self.n_params = int(off[-1])
+        # bytes of the model at its native dtypes: what a raw (uncoded)
+        # wire transfer of this structure costs (core/transport.py)
+        self.raw_bytes = int(sum(n * torch.empty((), dtype=d).element_size()
+                                 for n, d in zip(self.sizes, self.dtypes)))
+        self.padded_size = padded_size_for(self.n_params)
+
+    def pack(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """tree -> new (padded_size,) f32 flat buffer (zero tail)."""
+        parts = [tree[k].reshape(-1).to(torch.float32) for k in self.keys]
+        pad = self.padded_size - self.n_params
+        if pad:
+            parts.append(parts[0].new_zeros(pad))
+        return torch.cat(parts)
+
+    def pack_many(self, trees: Sequence) -> torch.Tensor:
+        """[tree] * W -> (W, padded_size) stacked flat buffers."""
+        return torch.stack([self.pack(t) for t in trees])
+
+    def pack_into(self, rows: torch.Tensor, trees: Sequence) -> torch.Tensor:
+        """Pack W trees into the first W rows of ``rows`` (zeroing the
+        rest), in place; returns ``rows``."""
+        return self._set_rows(rows, [self.pack(t) for t in trees])
+
+    def _set_rows(self, rows: torch.Tensor, vecs: Sequence) -> torch.Tensor:
+        """Land packed vectors in rows [0..len(vecs)) and zero the stale
+        rows beyond: a non-finite value left by a past round would turn
+        0 * inf into NaN inside the merge."""
+        n = len(vecs)
+        if n:
+            torch.stack(tuple(vecs), out=rows[:n])
+        rows[n:].zero_()
+        return rows
+
+    def unpack(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(padded_size,) or (n_params,) buffer -> dict of new tensors at
+        the original dtypes (copies: never views into ``flat``)."""
+        return {k: flat[o:o + n].reshape(s).to(d, copy=True)
+                for k, o, n, s, d in zip(self.keys, self.offsets, self.sizes,
+                                         self.shapes, self.dtypes)}
+
+
+_BUNDLES: Dict[tuple, ParamBundle] = {}
+
+
+def bundle_for(template, mesh=None) -> ParamBundle:
+    """Memoised ParamBundle keyed on (keys, shapes, dtypes): the server
+    and its transport resolve to the SAME bundle."""
+    _no_mesh(mesh)
+    key = tuple((k, tuple(template[k].shape), str(template[k].dtype))
+                for k in sorted(template))
+    b = _BUNDLES.get(key)
+    if b is None:
+        b = _BUNDLES[key] = ParamBundle(template)
+    return b
+
+
+# --- fused merge ops -------------------------------------------------------
+# wvec = [server_scale, w_0 .. w_{Wcap-1}]; rows beyond the live W carry
+# weight 0, so capacity growth never changes the result.
+
+def _weights_on(w, device: torch.device) -> torch.Tensor:
+    if isinstance(w, torch.Tensor):
+        return w.to(device=device, dtype=torch.float32)
+    return to_device(np.asarray(w, np.float32), device)
+
+
+def fused_merge(server_flat: torch.Tensor, rows: torch.Tensor, wvec,
+                mesh=None) -> torch.Tensor:
+    """One pass ``wvec[0]*server + wvec[1:] @ rows``, written into
+    ``server_flat`` in place and returned: callers treat ``server_flat``
+    as consumed."""
+    _no_mesh(mesh)
+    return fedavg_agg.fedavg_mix_flat(
+        rows, _weights_on(wvec, rows.device), server_flat, out=server_flat)
+
+
+def fused_weighted_sum(rows: torch.Tensor, w, mesh=None) -> torch.Tensor:
+    """One pass ``w @ rows`` into a new vector, with no server term: the
+    alpha >= 1 replace path must not read the server buffer at all
+    (``0 * server`` would turn a non-finite server model into NaN instead
+    of replacing it)."""
+    _no_mesh(mesh)
+    return fedavg_agg.fedavg_agg_flat(rows, _weights_on(w, rows.device))
+
+
+def normalized_weights(weights: Sequence[float]) -> np.ndarray:
+    w = np.asarray(weights, dtype=np.float64)
+    s = w.sum()
+    if s <= 0:
+        raise ValueError("aggregation weights sum to zero")
+    return (w / s).astype(np.float32)
+
+
+def flat_state_for(weights, mesh=None) -> Optional["FlatServerState"]:
+    """The flat-buffer merge state for an aggregator over ``weights``, or
+    None when the weights are not a packable dict of tensors."""
+    if packable(weights):
+        return FlatServerState(weights, mesh=mesh)
+    return None
+
+
+_DELTA_WVEC = np.asarray([1.0, 1.0, -1.0], np.float32)
+
+
+class FlatServerState:
+    """Persistent flat-buffer merge state for one AggregationServer.
+
+    Keeps (a) the packed server model, mirrored against the weight dict
+    the server hands in (re-packed only when that dict is not the one the
+    last merge produced: an identity check), and (b) a pre-allocated
+    ``(W_cap, N)`` row buffer on the weights' device."""
+
+    def __init__(self, template, mesh=None):
+        _no_mesh(mesh)
+        self.bundle = bundle_for(template)
+        self.device = next(iter(template.values())).device
+        self._rows: Optional[torch.Tensor] = None
+        self._server_flat: Optional[torch.Tensor] = None
+        self._server_tree = None          # strong ref: the mirror's key
+        # cohort row window: recycled rows in a min-heap (claims reuse the
+        # LOWEST free index, so a sync round lands in rows [0..n) in
+        # arrival order, the merge_rows layout); released rows are zeroed
+        # lazily, batched right before the next merge
+        self._free: list = []
+        self._next_row = 0
+        self._dirty: set = set()
+        self._delta_w: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return 0 if self._rows is None else int(self._rows.shape[0])
+
+    def _ensure_capacity(self, w: int):
+        if self.capacity >= w:
+            return
+        new = torch.zeros((w, self.bundle.padded_size), dtype=torch.float32,
+                          device=self.device)
+        if self._rows is not None:
+            new[:self.capacity] = self._rows
+        self._rows = new
+
+    def _server_buffer(self, server_tree) -> torch.Tensor:
+        """The packed server model, handed over to an in-place merge: the
+        mirror is forgotten, so nothing else holds the buffer it writes."""
+        if (self._server_flat is None
+                or self._server_tree is not server_tree):
+            self._server_flat = self.bundle.pack(server_tree)
+        buf = self._server_flat
+        self._server_flat = None
+        return buf
+
+    def merge(self, server_tree, update_trees: Sequence,
+              weights: Sequence[float], alpha: float = 1.0):
+        """Fused ``(1-alpha)*server + alpha * sum_i w_hat_i * x_i``;
+        returns the merged weight dict."""
+        n = len(update_trees)
+        self._ensure_capacity(n)
+        self.bundle.pack_into(self._rows, update_trees)
+        return self._merge_rows_tail(server_tree, n, weights, alpha)
+
+    def merge_rows(self, server_tree, update_vecs: Sequence,
+                   weights: Sequence[float], alpha: float = 1.0):
+        """The same merge over already-packed ``(padded_size,)`` vectors."""
+        n = len(update_vecs)
+        self._ensure_capacity(n)
+        self.bundle._set_rows(self._rows, update_vecs)
+        return self._merge_rows_tail(server_tree, n, weights, alpha)
+
+    def _merge_rows_tail(self, server_tree, n: int,
+                         weights: Sequence[float], alpha: float):
+        w = normalized_weights(weights)
+        if alpha >= 1.0:
+            wv = np.zeros((self.capacity,), np.float32)
+            wv[:n] = w
+            merged = fused_weighted_sum(self._rows, wv)
+        else:
+            wvec = np.zeros((self.capacity + 1,), np.float32)
+            wvec[0] = 1.0 - alpha
+            wvec[1:1 + n] = alpha * w
+            merged = fused_merge(self._server_buffer(server_tree),
+                                 self._rows, wvec)
+        return self._finish(server_tree, merged)
+
+    def _finish(self, server_tree, merged: torch.Tensor):
+        """Merge epilogue: unpack (copies) and keep the packed result as
+        the mirror of the returned dict."""
+        out = self.bundle.unpack(merged)
+        self._server_flat, self._server_tree = merged, out
+        return out
+
+    # --- cohort row window --------------------------------------------
+    def win_claim(self) -> int:
+        """Claim a free row of the window for one in-flight update."""
+        if self._free:
+            return heapq.heappop(self._free)
+        row = self._next_row
+        self._next_row += 1
+        if row >= self.capacity:
+            # geometric growth (zero rows at weight 0 never change a merge)
+            self._ensure_capacity(max(row + 1, 2 * self.capacity, 8))
+        return row
+
+    def win_write(self, row: int, vec: torch.Tensor) -> None:
+        """Land one already-packed update vector in its claimed row."""
+        self._rows[row] = vec
+        self._dirty.discard(row)
+
+    def win_release(self, row: int) -> None:
+        """Recycle a row; its stale data is zeroed before the next merge."""
+        heapq.heappush(self._free, row)
+        self._dirty.add(row)
+
+    def _flush_dirty(self) -> None:
+        if not self._dirty:
+            return
+        self._rows[sorted(self._dirty)] = 0.0
+        self._dirty.clear()
+
+    def merge_window(self, server_tree, rows: Sequence[int],
+                     weights: Sequence[float], alpha: float = 1.0):
+        """Fused merge over the row window: ``rows[i]`` carries the update
+        weighted by ``weights[i]``; every other row gets weight 0."""
+        self._flush_dirty()
+        w = normalized_weights(weights)
+        idx = np.asarray(tuple(rows), np.intp)
+        if alpha >= 1.0:
+            wv = np.zeros((self.capacity,), np.float32)
+            wv[idx] = w
+            merged = fused_weighted_sum(self._rows, wv)
+        else:
+            wvec = np.zeros((self.capacity + 1,), np.float32)
+            wvec[0] = 1.0 - alpha
+            wvec[idx + 1] = alpha * w
+            merged = fused_merge(self._server_buffer(server_tree),
+                                 self._rows, wvec)
+        return self._finish(server_tree, merged)
+
+    def row_vec(self, row: int) -> torch.Tensor:
+        """A copy of one claimed row as a packed flat vector."""
+        return self._rows[row].clone()
+
+    def _delta_weights(self) -> torch.Tensor:
+        if self._delta_w is None:
+            self._delta_w = _weights_on(_DELTA_WVEC, self.device)
+        return self._delta_w
+
+    def apply_delta(self, cur_tree, new_tree, base_tree):
+        """``cur + (new - base)`` as one fused pass over packed buffers;
+        returns a weight dict."""
+        rows = self.bundle.pack_many((new_tree, base_tree))
+        cur = self.bundle.pack(cur_tree)
+        return self.bundle.unpack(
+            fused_merge(cur, rows, self._delta_weights()))
+
+    def delta_vec(self, cur_tree, new_vec, base_vec) -> torch.Tensor:
+        """``cur + (new - base)`` on packed vectors; returns the packed
+        result, written into the server mirror (which is consumed)."""
+        rows = torch.stack([new_vec, base_vec])
+        return fused_merge(self._server_buffer(cur_tree), rows,
+                           self._delta_weights())

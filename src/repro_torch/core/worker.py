@@ -1,0 +1,213 @@
+"""FL worker (thesis §3.1.5/§3.3; port of ``repro/core/worker.py``): holds
+a local model + data shard, obeys train instructions from its aggregation
+server, responds with weights via the warehouse's one-time-ticket channel.
+
+Numerics run for real (PyTorch on the setup's device); durations are
+simulated from the same profile statistics the estimator sees, but with
+the *true* per-worker speed.
+
+Not ported yet: the checkpoint bookkeeping of in-flight conversations and
+their resume (ROADMAP A10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+from .estimator import WorkerProfile
+from .events import EventLoop
+from .transport import Link, Payload, transmit
+from .warehouse import DataWarehouse, Pointer
+
+
+@dataclass
+class TrainResult:
+    worker_id: str
+    weights_ticket: str
+    base_version: int         # server version the worker trained from
+    epochs: int
+    n_batches: int
+    t_train: float            # measured training time (simulated clock)
+    t_up: float = 0.0         # measured uplink transmit time
+    up_bytes: int = 0         # exact wire bytes of the encoded response
+
+
+class FLWorker:
+    __slots__ = ("worker_id", "address", "profile", "data", "train_fn",
+                 "loop", "warehouse", "server_pointers", "_inflight",
+                 "_fetching", "busy", "_per_batch_time")
+
+    def __init__(self, worker_id: str, *, profile: WorkerProfile,
+                 data: Dict, train_fn: Callable, loop: EventLoop,
+                 per_batch_time: Optional[float] = None):
+        self.worker_id = worker_id
+        self.address = f"worker://{worker_id}"
+        self.profile = profile
+        self.data = data               # {"x", "y"}: tensors on the device
+        self.train_fn = train_fn       # (params, x, y, epochs) -> params
+        self.loop = loop
+        self.warehouse = DataWarehouse()
+        self.server_pointers: List[Pointer] = []   # ACL (thesis §3.3.3 step 4)
+        # in-flight uplink per server: (ticket, payload, link) from ticket
+        # issue until delivery
+        self._inflight: Dict[Pointer, tuple] = {}
+        # in-flight downlink fetch per server: (payload, link) from dispatch
+        # until the fetch-complete event
+        self._fetching: Dict[Pointer, tuple] = {}
+        self.busy = False
+        # ground-truth speed (may differ from the estimator's eq-3.4 guess)
+        self._per_batch_time = per_batch_time if per_batch_time is not None \
+            else 0.05 * 3.0 / max(profile.cpu_freq * profile.cpu_prop, 1e-9)
+
+    # --- relationship API (thesis §3.3.1) ---
+    def add_server(self, server_pointer: Pointer):
+        self.server_pointers.append(server_pointer)
+
+    def accepts(self, server_pointer: Pointer) -> bool:
+        return server_pointer in self.server_pointers
+
+    def remove_server(self, server_pointer: Pointer):
+        """Revoke a server's ACL entry: in-progress instructions from it
+        die silently at their next ``accepts`` check."""
+        if server_pointer in self.server_pointers:
+            self.server_pointers.remove(server_pointer)
+
+    def cancel_inflight(self, server_pointer: Pointer) -> None:
+        """Cancel this server's in-flight transfers (its round closed): an
+        unfinished fetch is dropped without advancing the downlink ack; an
+        in-transit uplink has its ticket revoked and its encoded mass
+        credited back into the link's error-feedback residual."""
+        fetch = self._fetching.pop(server_pointer, None)
+        if fetch is not None:
+            down, link = fetch
+            link.restore_downlink(down)
+            self.busy = False
+        entry = self._inflight.pop(server_pointer, None)
+        if entry is not None:
+            ticket, up, link = entry
+            self.warehouse.revoke_ticket(ticket)
+            link.restore_uplink(up)
+
+    def true_t_one(self) -> float:
+        return self._per_batch_time * max(self.profile.n_batches, 0)
+
+    def true_t_transmit(self, model_bytes: int) -> float:
+        return model_bytes / max(self.profile.bandwidth, 1.0)
+
+    # --- training API (thesis §3.3.3) ---
+    def train_async(self, server_pointer: Pointer, down: Payload,
+                    base_version: int, epochs: int, link: Link,
+                    on_done: Callable[[TrainResult], None]):
+        """Simulates one train instruction end to end: fetch (T_transmit
+        over the downlink payload bytes), train (T_one * r), encode the
+        response through the link's codec, and respond (T_transmit over
+        the uplink payload bytes).  ``on_done`` fires on the event loop.
+
+        Stateful (delta) downlinks schedule an explicit fetch-complete
+        event that decodes and advances the ack.  Codecs whose uplink size
+        is known before training run the rest as one event; top-k codecs
+        train first and schedule the respond leg after encoding."""
+        if not self.accepts(server_pointer) or self.profile.failed:
+            # a dispatch that never lands: un-debit the downlink EF state
+            link.restore_downlink(down)
+            return
+        self.busy = True
+        t_fetch = self.true_t_transmit(down.wire_bytes)
+        if link.needs_down_ack:
+            self._fetching[server_pointer] = (down, link)
+            transmit(self.loop, link, down, t_fetch,
+                     lambda: self._fetch_done(server_pointer, down,
+                                              base_version, epochs, link,
+                                              on_done),
+                     direction="down")
+            return
+        weights = link.decode_down(down)
+        self._after_fetch(server_pointer, weights, base_version, epochs,
+                          link, on_done, t_fetch)
+
+    def _fetch_done(self, server_pointer: Pointer, down: Payload,
+                    base_version: int, epochs: int, link: Link, on_done):
+        entry = self._fetching.get(server_pointer)
+        if entry is None or entry[0] is not down:
+            return      # this fetch was cancelled (round closed)
+        self._fetching.pop(server_pointer)
+        if self.profile.failed:          # died mid-fetch: never received
+            link.restore_downlink(down)
+            self.busy = False
+            return
+        weights = link.complete_fetch(down)
+        self._after_fetch(server_pointer, weights, base_version, epochs,
+                          link, on_done, 0.0)
+
+    def _train(self, weights, epochs: int):
+        if len(self.data["x"]):
+            return self.train_fn(weights, self.data["x"],
+                                 self.data["y"], epochs)
+        return weights              # no local data: echo (setup-3 zeros)
+
+    def _after_fetch(self, server_pointer: Pointer, weights,
+                     base_version: int, epochs: int, link: Link, on_done,
+                     t_fetch: float):
+        """Train + respond, scheduled ``t_fetch`` from now."""
+        t_train = self.true_t_one() * epochs
+        up_bytes = link.upfront_up_bytes()
+        if up_bytes is not None:
+            self.loop.schedule(
+                t_fetch + t_train + self.true_t_transmit(up_bytes),
+                self._finish, server_pointer, link, on_done, weights,
+                base_version, epochs, t_train, up_bytes)
+            return
+        self.loop.schedule(t_fetch + t_train, self._train_then_send,
+                           server_pointer, link, on_done, weights,
+                           base_version, epochs, t_train)
+
+    def _finish(self, server_pointer, link, on_done, weights, base_version,
+                epochs, t_train, up_bytes):
+        # died mid-training, or the server dropped this worker
+        if self.profile.failed or not self.accepts(server_pointer):
+            self.busy = False
+            return
+        up = link.encode_up(self._train(weights, epochs))
+        if up.wire_bytes != up_bytes:
+            raise RuntimeError(f"uplink size {up.wire_bytes} != the "
+                               f"upfront {up_bytes}")
+        ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
+        self.busy = False
+        on_done(TrainResult(self.worker_id, ticket, base_version, epochs,
+                            self.profile.n_batches, t_train,
+                            t_up=self.true_t_transmit(up.wire_bytes),
+                            up_bytes=up.wire_bytes))
+
+    def _train_then_send(self, server_pointer, link, on_done, weights,
+                         base_version, epochs, t_train):
+        if self.profile.failed or not self.accepts(server_pointer):
+            self.busy = False
+            return
+        up = link.encode_up(self._train(weights, epochs))
+        ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
+        self._inflight[server_pointer] = (ticket, up, link)
+        t_up = self.true_t_transmit(up.wire_bytes)
+        transmit(self.loop, link, up, t_up,
+                 lambda: self._send(server_pointer, link, on_done, ticket,
+                                    up, base_version, epochs, t_train, t_up),
+                 direction="up")
+
+    def _send(self, server_pointer, link, on_done, ticket, up, base_version,
+              epochs, t_train, t_up):
+        entry = self._inflight.get(server_pointer)
+        if entry is None or entry[0] != ticket:
+            # cancelled (round closed; ticket revoked, EF mass restored);
+            # a newer dispatch may already own the in-flight slot
+            if entry is None:
+                self.busy = False
+            return
+        self._inflight.pop(server_pointer)
+        if self.profile.failed:      # died mid-transmit
+            self.warehouse.revoke_ticket(ticket)
+            link.restore_uplink(up)
+            self.busy = False
+            return
+        self.busy = False
+        on_done(TrainResult(self.worker_id, ticket, base_version, epochs,
+                            self.profile.n_batches, t_train, t_up=t_up,
+                            up_bytes=up.wire_bytes))

@@ -1,0 +1,51 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Dispatch rule, one for every wrapper in this package:
+
+* a CPU tensor runs the plain version (``ref.py``);
+* a CUDA tensor on a compute-capability (9, 0) card launches the kernel;
+* anything else raises.
+
+There is no override: a CUDA tensor never reaches the plain version, and
+a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when ``tensors`` (all on one device) go to the CUDA kernel,
+    False when they go to the plain version; raises otherwise."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        cap = torch.cuda.get_device_capability(dev)
+        if cap == (9, 0):
+            return True
+        raise RuntimeError(f"the kernels are built for sm_90a; device "
+                           f"{dev} has compute capability {cap}")
+    raise RuntimeError(f"no kernel and no plain version for device {dev}")
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                      numel: int) -> None:
+    """Validate one kernel operand before its pointer is passed on."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.numel() != numel:
+        raise ValueError(f"{name}: expected {numel} elements, got "
+                         f"{t.numel()}")
+
+
+def check_status(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {status}")

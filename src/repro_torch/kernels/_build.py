@@ -1,0 +1,115 @@
+"""Build and load the CUDA kernels: ``nvcc`` into one shared library with
+a plain C interface, loaded with ``ctypes``.
+
+At first use, every ``csrc/*.cu`` is compiled (one ``nvcc`` each, in
+parallel) and linked for ``sm_90a`` into
+``build/repro_torch/<hash>/libreprotorch_kernels.so`` at the root of the
+checkout, keyed by a hash of the sources and flags, so an unchanged tree
+reuses its library.  A failed build or load raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libreprotorch_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v only reports registers, shared memory and spills per kernel
+COMPILE_FLAGS = ARCH_FLAGS + ("-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+# C entry point -> argument types; every one returns cudaError_t as int
+SIGNATURES = {
+    "fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
+    "fedavg_mix_launch": (_P, _P, _P, _P, _I64, _I64, _P),
+    "topk_quant_encode_launch": (_P, _P, _P, _P, _P, _I64, _P),
+    "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""           # nvcc's per-kernel resource report from that build
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the sources unless the library for this hash exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in _sources():
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    logs = []
+    for cmd, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{logs[-1]}")
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)          # atomic: concurrent builds agree
+    for obj in objs:
+        obj.unlink()
+    build_log = "".join(logs)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib

@@ -23,3 +23,10 @@ def hist_rec(history):
     of the same fields)."""
     return [(p.time.hex(), p.version, float(p.accuracy).hex(), p.n_updates,
              p.selected, p.up_bytes, p.down_bytes) for p in history]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card of compute capability (9, 0) (H100); "
+        "the test skips itself elsewhere")

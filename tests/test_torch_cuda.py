@@ -1,0 +1,101 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips itself unless a CUDA card of compute
+capability (9, 0) is present.  This file imports no JAX, so it runs on the
+card's machine:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: fedavg within 1e-6 (the kernel and the plain version sum the
+rows in the same order, so they normally agree bit for bit); encode and
+decode bit-exact (the kernels round every multiply and add like the plain
+version does).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import transport
+from repro_torch.kernels import fedavg_agg, ref, topk_quant
+
+
+def _rows(W, N, seed=0):
+    rng = np.random.RandomState(seed)
+    rows = rng.randn(W, N).astype(np.float32)
+    w = rng.rand(W).astype(np.float32) + 0.1
+    return rows, (w / w.sum()).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.fixture
+def h100():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs compute capability (9, 0)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N", [(30, 101_888), (2, 101_888), (3, 1000)])
+def test_cuda_fedavg_kernels_match_plain(h100, W, N):
+    rows, w = _rows(W, N)
+    rows_d, w_d = _t(rows).to(h100), _t(w).to(h100)
+    n0 = dict(fedavg_agg.LAUNCHES)
+    got = fedavg_agg.fedavg_agg_flat(rows_d, w_d)
+    plain = ref.reference_fedavg(rows_d, w_d)
+    assert torch.max(torch.abs(got - plain)).item() < 1e-6
+    server = torch.randn(N, device=h100)
+    wvec = torch.cat([torch.tensor([0.1], device=h100), w_d])
+    plain = ref.reference_fedavg_mix(rows_d, w_d, server, wvec[0])
+    fresh = fedavg_agg.fedavg_mix_flat(rows_d, wvec, server)
+    inplace = fedavg_agg.fedavg_mix_flat(rows_d, wvec, server, out=server)
+    torch.cuda.synchronize()
+    assert torch.max(torch.abs(fresh - plain)).item() < 1e-6
+    assert torch.equal(inplace, fresh)
+    assert fedavg_agg.LAUNCHES["agg"] == n0["agg"] + 1
+    assert fedavg_agg.LAUNCHES["mix"] == n0["mix"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [101_888, 1000])
+def test_cuda_codec_kernels_bit_exact(h100, N):
+    xd = torch.from_numpy(np.random.RandomState(N).randn(N)
+                          .astype(np.float32)).to(h100) * 0.01
+    sd = transport._int8_scale(xd)
+    td = transport.topk_threshold(xd, N // 10, N)
+    q, r = topk_quant.topk_quant_encode(xd, td, sd)
+    assert q.dtype == torch.int8 and r.dtype == torch.float32
+    qp, rp = ref.reference_topk_quant_encode(xd, td, sd)
+    assert torch.equal(q, qp) and torch.equal(r, rp)
+    base = torch.randn(N, device=h100)
+    assert torch.equal(topk_quant.dequant_add(q, sd, base),
+                       ref.reference_dequant_add(q, sd, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "async_delta"])
+def test_cuda_run_fl_matches_cpu_run(h100, mode):
+    """The main path on the card against the same run on the CPU: every
+    history field but accuracy equal, accuracy within 4 test samples."""
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    kw = dict(seed=0, noise=0.25, batch_size=32, het="strong")
+    mkw = ({"mode": "sync"} if mode == "sync"
+           else {"mode": "async", "async_delta": True})
+    card = make_setup(TABLE_4_1["mnist_even"], **kw, device=h100)
+    w0 = {k: v.cpu().numpy() for k, v in card.weights0.items()}
+    cpu = make_setup(TABLE_4_1["mnist_even"], **kw, weights0=w0,
+                     device="cpu")
+    n0 = dict(fedavg_agg.LAUNCHES)
+    hg = run_fl(card, epochs_per_round=3, max_rounds=4, **mkw)
+    hc = run_fl(cpu, epochs_per_round=3, max_rounds=4, **mkw)
+    assert fedavg_agg.LAUNCHES["agg"] > n0["agg"]
+    assert len(hg) == len(hc)
+    for g, c in zip(hg, hc):
+        assert (g.time, g.version, g.n_updates, g.selected, g.up_bytes,
+                g.down_bytes) == (c.time, c.version, c.n_updates,
+                                  c.selected, c.up_bytes, c.down_bytes)
+        assert abs(g.accuracy - c.accuracy) <= 4 / 512

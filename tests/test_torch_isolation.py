@@ -1,0 +1,76 @@
+"""The port stands alone: no module of ``src/repro_torch``, no
+``tools/torch_*.py`` script and not ``chip_smoke.py`` imports ``jax`` or
+the JAX package ``repro``; the port imports with both blocked; and its
+entry points do not fall back to the CPU when no device was asked for."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((ROOT / "tools").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_module_imports_neither_jax_nor_repro(path):
+    assert path.exists()
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import repro_torch.core, repro_torch.kernels.fedavg_agg, "
+            "repro_torch.kernels.topk_quant, repro_torch.kernels._build\n"
+            "assert 'repro_torch.core.experiment' in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_make_setup_without_device_needs_the_card():
+    from repro_torch.core import TABLE_4_1, make_setup
+    if torch.cuda.is_available():
+        setup = make_setup(TABLE_4_1["mnist_even"])
+        assert setup.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_setup(TABLE_4_1["mnist_even"])
+
+
+@pytest.mark.parametrize("kw", [dict(topology="1x2"),
+                                dict(checkpoint_every=2,
+                                     checkpoint_dir="ckpt"),
+                                dict(resume=True), dict(server_mesh=1),
+                                dict(cohort=4), dict(server_opt="fedavgm")],
+                         ids=lambda kw: next(iter(kw)))
+def test_unported_run_fl_options_raise(kw):
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    setup = make_setup(TABLE_4_1["mnist_even"], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_fl(setup, max_rounds=1, epochs_per_round=1, **kw)
+
+
+def test_cnn_model_is_not_ported():
+    from repro_torch.core import TABLE_4_1, make_setup
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        make_setup(TABLE_4_1["mnist_even"], model="cnn", device="cpu")
