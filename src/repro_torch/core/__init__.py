@@ -4,7 +4,8 @@ worker selection (Algorithms 1 & 2), eq-3.4 time estimation, the
 deterministic event-driven sync/async runtime and the wire-aware
 transport layer."""
 from . import (aggregation, estimator, events, flatbuf, population,
-               selection, server, transport, warehouse, worker)
+               selection, server, server_opt, transport, warehouse, worker)
 from .experiment import (TABLE_4_1, TABLE_4_2, FLSetup, build_experiment,
-                         heterogeneous_profiles, make_setup, run_fl,
-                         run_sequential_baseline, time_to_accuracy)
+                         heterogeneous_profiles, make_setup,
+                         repartition_setup, run_fl, run_sequential_baseline,
+                         time_to_accuracy)

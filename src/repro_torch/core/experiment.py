@@ -7,12 +7,13 @@ Every entry point runs on the setup's device: ``make_setup(device=None)``
 means the CUDA card, and raises when there is none.  Each worker's shard
 and the test set move to the device once, at setup.
 
-Not ported yet, and raising ``NotImplementedError``: ``model="cnn"``
-(ROADMAP A8), ``topology`` (A9), checkpoints and ``resume`` (A10),
-``server_mesh`` (A11), ``cohort`` (A6) and ``server_opt`` (A7).
+Not ported yet, and raising ``NotImplementedError``: ``topology``
+(ROADMAP A9), checkpoints and ``resume`` (A10), ``server_mesh`` (A11) and
+``cohort`` (A6).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -23,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.paper_cnn import CNNConfig, FAST_MNIST_CNN
 from repro_torch.data.synth import make_classification_dataset, partition_split
+from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import mlp as mlp_mod
 
 from .estimator import TimeEstimator, WorkerProfile
@@ -112,15 +114,18 @@ def make_setup(batches_per_worker: Sequence[int], *,
                device=None) -> FLSetup:
     """The data, profiles and initial weights of one experiment.
 
-    ``weights0`` injects the initial MLP weights (a dict of numpy arrays or
-    tensors, e.g. the JAX package's ``init_mlp`` exported as numpy);
-    without it ``init_mlp`` draws He-normal weights from a
-    ``torch.Generator`` seeded with ``seed``.  ``device=None`` means the
-    CUDA card and raises without one.  ``partition`` and ``fedprox_mu``
-    are as in the JAX package."""
-    if model != "mlp":
-        raise NotImplementedError(f"model={model!r} is not ported yet; the "
-                                  "CNN is ROADMAP A8")
+    ``model`` is ``"mlp"`` or ``"cnn"`` (the thesis' Listing 4.1 at
+    ``cfg``'s widths, trained by full-batch SGD at ``cfg.lr``).
+    ``weights0`` injects the initial weights (a dict of numpy arrays or
+    tensors, e.g. the JAX package's ``init_mlp``/``init_cnn`` exported as
+    numpy); without it they are drawn from a ``torch.Generator`` seeded
+    with ``seed``.  ``device=None`` means the CUDA card and raises without
+    one.  ``partition`` and ``fedprox_mu`` (MLP only) are as in the JAX
+    package."""
+    if model not in ("mlp", "cnn"):
+        raise ValueError(f"unknown model {model!r}; have 'mlp', 'cnn'")
+    if model == "cnn" and fedprox_mu:
+        raise ValueError("fedprox_mu is only wired for model='mlp'")
     device = resolve_device(device)
     total_batches = sum(batches_per_worker)
     x, y = make_classification_dataset(
@@ -130,22 +135,30 @@ def make_setup(batches_per_worker: Sequence[int], *,
     shards = partition_split(x[:-n_test], y[:-n_test], batches_per_worker,
                              partition=partition, batch_size=batch_size,
                              seed=seed, **(partition_kw or {}))
-    in_dim = cfg.image_hw * cfg.image_hw * cfg.channels
-    if weights0 is None:
-        gen = torch.Generator().manual_seed(seed)
-        weights0 = mlp_mod.init_mlp(gen, in_dim=in_dim, device=device)
+    if weights0 is not None:
+        weights0 = {k: (v.detach().cpu().numpy()
+                        if isinstance(v, torch.Tensor) else v)
+                    for k, v in weights0.items()}
+    if model == "cnn":
+        weights0 = (cnn_mod.init_cnn(torch.Generator().manual_seed(seed),
+                                     cfg, device=device)
+                    if weights0 is None
+                    else cnn_mod.params_from_numpy(weights0, device))
+        train_fn = functools.partial(cnn_train_wrapper, lr=cfg.lr,
+                                     device=device)
+        acc_fn = cnn_mod.cnn_accuracy
     else:
-        weights0 = mlp_mod.params_from_numpy(
-            {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                 else v) for k, v in weights0.items()}, device)
-    train_fn = functools.partial(mlp_train_wrapper, lr=mlp_lr,
-                                 mu=fedprox_mu, device=device)
+        in_dim = cfg.image_hw * cfg.image_hw * cfg.channels
+        weights0 = (mlp_mod.init_mlp(torch.Generator().manual_seed(seed),
+                                     in_dim=in_dim, device=device)
+                    if weights0 is None
+                    else mlp_mod.params_from_numpy(weights0, device))
+        train_fn = functools.partial(mlp_train_wrapper, lr=mlp_lr,
+                                     mu=fedprox_mu, device=device)
+        acc_fn = mlp_mod.mlp_accuracy
     tx = _on_device(test_x, device)
     ty = _on_device(test_y, device, torch.int64)
-    eval_fn = lambda w: float(mlp_mod.mlp_accuracy(w, tx, ty))
-    device_shards = [{"x": _on_device(s["x"], device),
-                      "y": _on_device(s["y"], device, torch.int64)}
-                     for s in shards]
+    eval_fn = lambda w: float(acc_fn(w, tx, ty))
     return FLSetup(cfg=cfg, weights0=weights0, shards=shards,
                    profiles=heterogeneous_profiles(len(batches_per_worker),
                                                    het, batches_per_worker,
@@ -155,7 +168,21 @@ def make_setup(batches_per_worker: Sequence[int], *,
                                        for p in weights0.values())),
                    train_fn=train_fn, eval_fn=eval_fn,
                    per_batch_server=per_batch_server, device=device,
-                   device_shards=device_shards)
+                   device_shards=_device_shards(shards, device))
+
+
+def _device_shards(shards: Sequence[Dict], device: torch.device
+                   ) -> List[Dict]:
+    return [{"x": _on_device(s["x"], device),
+             "y": _on_device(s["y"], device, torch.int64)} for s in shards]
+
+
+def cnn_train_wrapper(params, x, y, epochs, lr=0.01, device=None):
+    """Local training of one worker on the CNN: ``epochs`` full-batch SGD
+    steps.  Tensors already on ``device`` are used as they are."""
+    return cnn_mod.cnn_sgd_train(params, _on_device(x, device),
+                                 _on_device(y, device, torch.int64),
+                                 lr=lr, epochs=int(epochs))
 
 
 def mlp_train_wrapper(params, x, y, epochs, lr=0.1, mu=0.0, device=None):
@@ -182,6 +209,9 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
            transport_frac: float = 0.1,
            server_mesh: Optional[int] = None,
            cohort: Optional[int] = None, server_opt=None,
+           server_opt_kw: Optional[dict] = None,
+           partition: Optional[str] = None,
+           partition_kw: Optional[dict] = None,
            topology=None, max_events: int = 200_000,
            checkpoint_every: Optional[int] = None,
            checkpoint_dir: Optional[str] = None,
@@ -191,8 +221,18 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
 
     ``mode``/``selector``/``aggregator`` pick the thesis §2-3 machinery;
     ``transport``/``transport_down``/``transport_frac`` the wire codecs
-    (see ``core.transport``).  ``max_events`` caps the event loop (the run
-    raises rather than silently truncate the history)."""
+    (see ``core.transport``).  ``server_opt`` names a server-side
+    optimizer (``"fedavgm"``, ``"fedadam"``, ``"feddyn"``; see
+    ``core.server_opt``) with ``server_opt_kw`` its constructor kwargs;
+    None keeps the plain FedAvg install.  ``partition`` re-splits the
+    setup's pooled samples across its workers (``"dirichlet"`` with
+    ``partition_kw={"alpha": ..., "seed": ...}``, ``"quantity"``,
+    ``"iid"``; see :func:`repartition_setup`); None leaves the shards as
+    they are.  ``max_events`` caps the event loop (the run raises rather
+    than silently truncate the history)."""
+    if partition is not None:
+        setup = repartition_setup(setup, partition=partition,
+                                  **(partition_kw or {}))
     if topology is not None:
         _not_ported("topology", "A9")
     if checkpoint_every is not None or checkpoint_dir is not None or resume:
@@ -206,7 +246,8 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
         async_min_updates=async_min_updates, async_delta=async_delta,
         async_latest_table=async_latest_table, transport=transport,
         transport_down=transport_down, transport_frac=transport_frac,
-        server_mesh=server_mesh, cohort=cohort, server_opt=server_opt)
+        server_mesh=server_mesh, cohort=cohort, server_opt=server_opt,
+        server_opt_kw=server_opt_kw)
     server.start()
     loop.run(max_events=max_events)
     if loop.exhausted:
@@ -231,7 +272,8 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
                      transport_down: Optional[str] = None,
                      transport_frac: float = 0.1,
                      server_mesh: Optional[int] = None,
-                     cohort: Optional[int] = None, server_opt=None):
+                     cohort: Optional[int] = None, server_opt=None,
+                     server_opt_kw: Optional[dict] = None):
     """Build one single-server federation, wired but NOT started; returns
     ``(loop, server)``."""
     if server_mesh is not None:
@@ -254,7 +296,8 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
         async_alpha=async_alpha, async_stale_pow=async_stale_pow,
         async_min_updates=async_min_updates, async_delta=async_delta,
         async_latest_table=async_latest_table, transport=tr,
-        population=pop, cohort=cohort, server_opt=server_opt)
+        population=pop, cohort=cohort, server_opt=server_opt,
+        server_opt_kw=server_opt_kw)
     for prof, shard in zip(setup.profiles, setup.device_shards):
         w = FLWorker(prof.worker_id, profile=prof, data=shard,
                      train_fn=setup.train_fn, loop=loop,
@@ -262,6 +305,32 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
                      max(prof.cpu_freq * prof.cpu_prop, 1e-9))
         server.add_worker(w)
     return loop, server
+
+
+def repartition_setup(setup: FLSetup, *, partition: str, seed: int = 0,
+                      **kw) -> FLSetup:
+    """Re-split an existing setup's pooled training samples across the
+    same workers with a named partitioner (``data.synth.PARTITIONERS``):
+    pool every shard back together, re-partition, and return a copy of the
+    setup with only ``shards`` and ``device_shards`` replaced (weights,
+    profiles, test set and train_fn untouched, so two runs differing only
+    in ``partition=`` isolate the statistical-heterogeneity effect)."""
+    xs = [s["x"] for s in setup.shards]
+    ys = [s["y"] for s in setup.shards]
+    nonempty = [a for a in xs if len(a)]
+    if not nonempty:
+        return setup
+    all_x = np.concatenate(nonempty)
+    all_y = np.concatenate([a for a in ys if len(a)])
+    batches = [p.n_batches if len(s["x"]) else 0
+               for p, s in zip(setup.profiles, setup.shards)]
+    total = sum(batches)
+    batch_size = len(all_x) // max(total, 1)
+    shards = partition_split(all_x, all_y, batches, partition=partition,
+                             batch_size=batch_size, seed=seed, **kw)
+    return dataclasses.replace(
+        setup, shards=shards,
+        device_shards=_device_shards(shards, setup.device))
 
 
 def run_sequential_baseline(setup: FLSetup, *, epochs_per_round: int = 10,

@@ -14,8 +14,10 @@ unsharded).
 JAX arrays are immutable; these are not.  The only in-place write on the
 merge path is ``fused_merge`` into the packed server mirror, which
 ``_server_buffer`` hands over and forgets (the counterpart of JAX's
-donation).  ``unpack`` returns copies, so no weight dict handed out
-before a merge aliases a buffer the merge writes.
+donation); an attached server optimizer, whose ``prev`` anchor may be
+that buffer, is told (``ServerOpt.release``) and re-packs.  ``unpack``
+returns copies, so no weight dict handed out before a merge aliases a
+buffer the merge writes.
 """
 from __future__ import annotations
 
@@ -204,6 +206,9 @@ class FlatServerState:
         self._next_row = 0
         self._dirty: set = set()
         self._delta_w: Optional[torch.Tensor] = None
+        # optional core.server_opt.ServerOpt: transforms the packed merge
+        # result in _finish (set by the server)
+        self.server_opt = None
 
     @property
     def capacity(self) -> int:
@@ -226,6 +231,9 @@ class FlatServerState:
             self._server_flat = self.bundle.pack(server_tree)
         buf = self._server_flat
         self._server_flat = None
+        if self.server_opt is not None:
+            # the optimizer's prev anchor may be this very buffer
+            self.server_opt.release(buf)
         return buf
 
     def merge(self, server_tree, update_trees: Sequence,
@@ -261,10 +269,16 @@ class FlatServerState:
         return self._finish(server_tree, merged)
 
     def _finish(self, server_tree, merged: torch.Tensor):
-        """Merge epilogue: unpack (copies) and keep the packed result as
-        the mirror of the returned dict."""
+        """Merge epilogue: the optional server-optimizer pass in packed
+        space, unpack (copies), and keep the packed result as the mirror
+        of the returned dict.  With ``server_opt=None`` this is the plain
+        FedAvg install."""
+        if self.server_opt is not None:
+            merged = self.server_opt.step_vec(self, server_tree, merged)
         out = self.bundle.unpack(merged)
         self._server_flat, self._server_tree = merged, out
+        if self.server_opt is not None:
+            self.server_opt.note_result(merged, out)
         return out
 
     # --- cohort row window --------------------------------------------

@@ -11,9 +11,10 @@ aggregation (staleness-weighted, eq 2.4 family) and the responding worker
 is immediately re-dispatched.
 
 Responses decode straight to packed flat vectors and merge in one kernel
-pass (``FlatServerState``).  Not ported yet: server-side optimizers
-(ROADMAP A7), the sharded substrate (A11), cohorts (A6), the leaf role
-under a topology (A9) and checkpoint timers (A10).
+pass (``FlatServerState``), followed by the optional server-side
+optimizer (``core/server_opt.py``) in packed space.  Not ported yet: the
+sharded substrate (ROADMAP A11), cohorts (A6), the leaf role under a
+topology (A9) and checkpoint timers (A10).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Callable, Dict, List, Optional
 
 from . import aggregation as agg
 from . import flatbuf
+from . import server_opt as server_opt_mod
 from . import transport as transport_mod
 from .estimator import TimeEstimator
 from .events import EventLoop
@@ -55,7 +57,8 @@ class AggregationServer:
                  transport="raw", transport_down: Optional[str] = None,
                  mesh=None, name: str = "aggregator",
                  population: Optional[WorkerPopulation] = None,
-                 cohort: Optional[int] = None, server_opt=None):
+                 cohort: Optional[int] = None, server_opt=None,
+                 server_opt_kw: Optional[dict] = None):
         if mode not in ("sync", "async"):
             raise ValueError(f"unknown mode {mode!r}")
         if aggregator not in agg.UPDATE_WEIGHT_FNS:
@@ -64,9 +67,6 @@ class AggregationServer:
         if cohort is not None:
             raise NotImplementedError("cohort sampling is not ported yet "
                                       "(ROADMAP A6)")
-        if server_opt is not None:
-            raise NotImplementedError("server-side optimizers are not "
-                                      "ported yet (ROADMAP A7)")
         self.name = name
         self.address = f"server://{name}"
         self.weights = weights
@@ -98,6 +98,11 @@ class AggregationServer:
         self._flat = flatbuf.flat_state_for(weights, mesh=mesh)
         if self._flat is None:
             raise ValueError("weights must be a non-empty dict of tensors")
+        # optional server-side optimizer: with None the merge tail is the
+        # plain FedAvg install
+        self.server_opt = server_opt_mod.make_server_opt(
+            server_opt, **(server_opt_kw or {}))
+        self._flat.server_opt = self.server_opt
         if isinstance(transport, str):
             transport = transport_mod.Transport(weights, codec=transport,
                                                 down_codec=transport_down,

@@ -28,12 +28,15 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types; every one returns cudaError_t as int
 SIGNATURES = {
     "fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
     "fedavg_mix_launch": (_P, _P, _P, _P, _I64, _I64, _P),
     "topk_quant_encode_launch": (_P, _P, _P, _P, _P, _I64, _P),
     "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
+    "server_opt_mom_launch": (_P,) * 5 + (_F,) * 4 + (_I64, _P),
+    "server_opt_adam_launch": (_P,) * 7 + (_F,) * 4 + (_I64, _P),
 }
 
 _lock = threading.Lock()

@@ -54,3 +54,28 @@ def reference_dequant_add(q: torch.Tensor, scale, base: torch.Tensor
                           ) -> torch.Tensor:
     """``base + q * scale``: int8 ``q`` dequantised onto ``base``."""
     return base.float() + q.float() * scale
+
+
+def reference_server_opt(prev: torch.Tensor, merged: torch.Tensor,
+                         m: torch.Tensor, v, scalars, *, adam: bool):
+    """The fused server-optimizer step on ``d = merged - prev``.
+
+    momentum form (``adam=False``, scalars ``[am, bm, cd, lr]``):
+      ``m' = am*m + bm*d;  new = (prev + cd*d) + lr*m'``
+    adam form (``adam=True``, scalars ``[b1, b2, lr, tau, 0, 0]``):
+      ``m' = b1*m + (1-b1)*d;  v' = b2*v + ((1-b2)*d)*d;
+      new = prev + (lr*m') / (sqrt(v') + tau)``
+
+    Every operation is one rounded f32 op in this order, as in the JAX
+    oracle and the CUDA kernel.  Returns ``(new, m', v')`` with ``v'``
+    None in the momentum form."""
+    f32 = torch.float32
+    prev, merged, m = prev.float(), merged.float(), m.float()
+    sc = torch.as_tensor(scalars, dtype=f32).to(prev.device)
+    d = merged - prev
+    if adam:
+        mo = sc[0] * m + (1.0 - sc[0]) * d
+        vo = sc[1] * v.to(f32) + (1.0 - sc[1]) * d * d
+        return prev + sc[2] * mo / (torch.sqrt(vo) + sc[3]), mo, vo
+    mo = sc[0] * m + sc[1] * d
+    return prev + sc[2] * d + sc[3] * mo, mo, None

@@ -7,16 +7,16 @@ card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fedavg within 1e-6 (the kernel and the plain version sum the
-rows in the same order, so they normally agree bit for bit); encode and
-decode bit-exact (the kernels round every multiply and add like the plain
-version does).
+rows in the same order, so they normally agree bit for bit); encode,
+decode and the server-optimizer step bit-exact (the kernels round every
+operation like the plain version does).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import transport
-from repro_torch.kernels import fedavg_agg, ref, topk_quant
+from repro_torch.kernels import fedavg_agg, ref, server_opt, topk_quant
 
 
 def _rows(W, N, seed=0):
@@ -77,6 +77,37 @@ def test_cuda_codec_kernels_bit_exact(h100, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("adam", [False, True], ids=["momentum", "adam"])
+@pytest.mark.parametrize("N", [101_888, 29_184, 1000])
+def test_cuda_server_opt_kernel_bit_exact(h100, adam, N):
+    """B5a/B5b against the plain version, fresh and with the state written
+    in place; the FedAvgM, FedDyn and FedAdam scalars."""
+    rng = np.random.RandomState(N)
+    prev, merged, m, v = (_t(rng.randn(N).astype(np.float32)).to(h100)
+                          for _ in range(4))
+    v = v.abs()
+    scs = ([[0.9, 0.99, 0.05, 1e-3, 0.0, 0.0]] if adam
+           else [[0.9, 1.0, 0.0, 1.0], [1.0, 1.0, 1.0, 0.25]])
+    for sc in scs:
+        sc = np.asarray(sc, np.float32)
+        n0 = dict(server_opt.LAUNCHES)
+        got = server_opt.server_opt_step_flat(prev, merged, m, v, sc,
+                                              adam=adam)
+        plain = ref.reference_server_opt(prev, merged, m, v, sc, adam=adam)
+        m2, v2 = m.clone(), v.clone()
+        inplace = server_opt.server_opt_step_flat(
+            prev, merged, m2, v2, sc, adam=adam, m_out=m2, v_out=v2)
+        torch.cuda.synchronize()
+        for g, p, i in zip(got, plain, inplace):
+            if p is None:
+                assert g is None and i is None
+                continue
+            assert torch.equal(g, p) and torch.equal(i, p)
+        key = "adam" if adam else "mom"
+        assert server_opt.LAUNCHES[key] == n0[key] + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["sync", "async_delta"])
 def test_cuda_run_fl_matches_cpu_run(h100, mode):
     """The main path on the card against the same run on the CPU: every
@@ -93,6 +124,34 @@ def test_cuda_run_fl_matches_cpu_run(h100, mode):
     hg = run_fl(card, epochs_per_round=3, max_rounds=4, **mkw)
     hc = run_fl(cpu, epochs_per_round=3, max_rounds=4, **mkw)
     assert fedavg_agg.LAUNCHES["agg"] > n0["agg"]
+    assert len(hg) == len(hc)
+    for g, c in zip(hg, hc):
+        assert (g.time, g.version, g.n_updates, g.selected, g.up_bytes,
+                g.down_bytes) == (c.time, c.version, c.n_updates,
+                                  c.selected, c.up_bytes, c.down_bytes)
+        assert abs(g.accuracy - c.accuracy) <= 4 / 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["fedavgm", "fedadam"])
+def test_cuda_server_opt_run_matches_cpu_run(h100, opt):
+    """Async alpha 0.9 over a Dirichlet split with a server optimizer: the
+    kernel launches once per merge, and the history matches the CPU's."""
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    kw = dict(seed=0, noise=0.25, batch_size=32, het="strong")
+    rkw = dict(mode="async", async_alpha=0.9, async_latest_table=False,
+               aggregator="linear", epochs_per_round=3, max_rounds=4,
+               partition="dirichlet", partition_kw={"alpha": 0.3},
+               server_opt=opt)
+    card = make_setup(TABLE_4_1["mnist_even"], **kw, device=h100)
+    w0 = {k: v.cpu().numpy() for k, v in card.weights0.items()}
+    cpu = make_setup(TABLE_4_1["mnist_even"], **kw, weights0=w0,
+                     device="cpu")
+    key = "adam" if opt == "fedadam" else "mom"
+    n0 = server_opt.LAUNCHES[key]
+    hg = run_fl(card, **rkw)
+    hc = run_fl(cpu, **rkw)
+    assert server_opt.LAUNCHES[key] == n0 + 4
     assert len(hg) == len(hc)
     for g, c in zip(hg, hc):
         assert (g.time, g.version, g.n_updates, g.selected, g.up_bytes,

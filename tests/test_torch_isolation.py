@@ -38,7 +38,8 @@ def test_port_imports_with_jax_and_repro_blocked():
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "import repro_torch.core, repro_torch.kernels.fedavg_agg, "
-            "repro_torch.kernels.topk_quant, repro_torch.kernels._build\n"
+            "repro_torch.kernels.topk_quant, repro_torch.kernels.server_opt, "
+            "repro_torch.models.cnn, repro_torch.kernels._build\n"
             "assert 'repro_torch.core.experiment' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],
                           env={"PYTHONPATH": str(ROOT / "src"),
@@ -57,20 +58,30 @@ def test_make_setup_without_device_needs_the_card():
             make_setup(TABLE_4_1["mnist_even"])
 
 
-@pytest.mark.parametrize("kw", [dict(topology="1x2"),
-                                dict(checkpoint_every=2,
-                                     checkpoint_dir="ckpt"),
-                                dict(resume=True), dict(server_mesh=1),
-                                dict(cohort=4), dict(server_opt="fedavgm")],
-                         ids=lambda kw: next(iter(kw)))
-def test_unported_run_fl_options_raise(kw):
+UNPORTED = [
+    (dict(topology="1x2"), NotImplementedError, "ROADMAP"),
+    (dict(checkpoint_every=2, checkpoint_dir="ckpt"), NotImplementedError,
+     "ROADMAP"),
+    (dict(resume=True), NotImplementedError, "ROADMAP"),
+    (dict(server_mesh=1), NotImplementedError, "ROADMAP"),
+    (dict(cohort=4), NotImplementedError, "ROADMAP"),
+    # the three server optimizers are ported; any other name raises
+    (dict(server_opt="fedyogi"), ValueError, "unknown server_opt")]
+
+
+@pytest.mark.parametrize("kw,exc,match", UNPORTED,
+                         ids=[next(iter(kw)) for kw, _, _ in UNPORTED])
+def test_unported_run_fl_options_raise(kw, exc, match):
     from repro_torch.core import TABLE_4_1, make_setup, run_fl
     setup = make_setup(TABLE_4_1["mnist_even"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         run_fl(setup, max_rounds=1, epochs_per_round=1, **kw)
 
 
 def test_cnn_model_is_not_ported():
+    """The CNN itself is ported; what the JAX package does not wire for it
+    (worker-side FedProx) raises as it does there."""
     from repro_torch.core import TABLE_4_1, make_setup
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        make_setup(TABLE_4_1["mnist_even"], model="cnn", device="cpu")
+    with pytest.raises(ValueError, match="fedprox_mu"):
+        make_setup(TABLE_4_1["mnist_even"], model="cnn", fedprox_mu=0.01,
+                   device="cpu")

@@ -1,16 +1,20 @@
-"""How far apart two runs of the port's main path drift when their
-initial weights differ by one ulp in one element, on the CPU.
+"""How far apart two runs of the port drift when their initial weights
+differ by one ulp in one element, on the CPU.
 
-    PYTHONPATH=src python tools/torch_accuracy_spread.py [--perturbations 5]
+    PYTHONPATH=src python tools/torch_accuracy_spread.py [--phase main]
+        [--perturbations 5]
 
-Runs the main-path configuration of ``chip_smoke.py`` (TABLE_4_2 mnist_even,
-MNIST width, het strong, 10 local epochs, 20 rounds, raw transport) in the
-sync and time_based modes, once as it is and once per perturbation, and
-prints per perturbation the largest per-point accuracy gap, the gap of the
-mean of the last five points, and whether every non-accuracy history field
-stayed equal.  This spread is what any two numerically different but
-correct implementations (the card and the CPU) may differ by: it sets the
-accuracy tolerance of chip_smoke.py's card-versus-CPU check.
+Runs the card-versus-CPU-compared runs of one phase of ``chip_smoke.py``
+(``main``: the four raw runs of the 30-worker main path, 20 rounds;
+``hetero``: the Dirichlet alpha 0.3 server-optimizer and FedProx runs;
+``cnn``: the thesis CNN under FedAvg and FedAdam) once as they are and
+once per perturbation, and prints per perturbation the largest per-point
+accuracy gap, the gap of the mean of the last five points, and whether
+every non-accuracy history field stayed equal; then the largest of each
+per run.  This spread is what any
+two numerically different but correct implementations (the card and the
+CPU) may differ by: it sets ``SPREAD`` and so the accuracy bounds of
+chip_smoke.py's card-versus-CPU check.
 """
 import argparse
 import sys
@@ -18,50 +22,65 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
 
+import chip_smoke  # noqa: E402
+from repro_torch import core  # noqa: E402
 from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
-from repro_torch.core import TABLE_4_2, make_setup, run_fl  # noqa: E402
 
-MODES = {"sync": dict(mode="sync"),
-         "time_based": dict(mode="sync", selector="time_based",
-                            selector_kw={"r": 10, "T0": 0.0, "A": 0.01})}
-FIELDS = ("time", "version", "n_updates", "selected", "up_bytes",
-          "down_bytes")
+PERTURB = {"mlp": "w1", "cnn": "c2w"}     # the weight that gets the ulp
+
+
+def _setup(spec, weights0=None):
+    table, kw = chip_smoke.PHASES[spec["phase"]]
+    return core.make_setup(getattr(core, table)["mnist_even"], cfg=MNIST_CNN,
+                           model=spec["model"], seed=0, **kw,
+                           **spec["setup_kw"], weights0=weights0,
+                           device="cpu")
+
+
+def _run(setup, spec):
+    return core.run_fl(setup, epochs_per_round=chip_smoke.EPOCHS,
+                       max_rounds=spec["rounds"], **spec["run_kw"])
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=sorted(chip_smoke.PHASES),
+                    default="main")
     ap.add_argument("--perturbations", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    kw = dict(cfg=MNIST_CNN, model="mlp", het="strong", seed=0,
-              device="cpu")
-    base = make_setup(TABLE_4_2["mnist_even"], **kw)
-    w0 = {k: v.numpy().copy() for k, v in base.weights0.items()}
+    keys = [k for k, s in chip_smoke.RUNS.items()
+            if s["phase"] == args.phase and s["compare"]]
     rng = np.random.RandomState(args.seed)
-    worst_point = worst_last5 = 0.0
-    for mname, mkw in MODES.items():
-        h0 = run_fl(base, epochs_per_round=10, max_rounds=20, **mkw)
+    for key in keys:
+        spec = chip_smoke.RUNS[key]
+        base = _setup(spec)
+        w0 = {k: v.numpy().copy() for k, v in base.weights0.items()}
+        h0 = _run(base, spec)
         a0 = np.array([p.accuracy for p in h0])
-        for j in range(args.perturbations):
+        name = PERTURB[spec["model"]]
+        worst = np.zeros(2)
+        for _ in range(args.perturbations):
             w1 = {k: v.copy() for k, v in w0.items()}
-            i = rng.randint(w1["w1"].size)
-            w1["w1"].flat[i] = np.nextafter(w1["w1"].flat[i],
+            i = rng.randint(w1[name].size)
+            w1[name].flat[i] = np.nextafter(w1[name].flat[i],
                                             np.float32(1))
-            s1 = make_setup(TABLE_4_2["mnist_even"], **kw, weights0=w1)
-            h1 = run_fl(s1, epochs_per_round=10, max_rounds=20, **mkw)
+            h1 = _run(_setup(spec, w1), spec)
             a1 = np.array([p.accuracy for p in h1])
             point = float(np.abs(a0 - a1).max())
             last5 = float(abs(a0[-5:].mean() - a1[-5:].mean()))
             same = all(getattr(p, f) == getattr(q, f)
-                       for p, q in zip(h0, h1) for f in FIELDS)
-            worst_point, worst_last5 = (max(worst_point, point),
-                                        max(worst_last5, last5))
-            print(f"{mname} w1[{i}] +1 ulp: per-point gap {point:.4f}, "
-                  f"last-5 mean gap {last5:.4f}, other fields equal {same}")
-    print(f"largest per-point gap {worst_point:.4f}, largest last-5 mean "
-          f"gap {worst_last5:.4f}")
+                       for p, q in zip(h0, h1) for f in chip_smoke.FIELDS)
+            worst = np.maximum(worst, (point, last5))
+            print(f"{key} {name}[{i}] +1 ulp: per-point gap {point:.4f}, "
+                  f"last-5 mean gap {last5:.4f}, other fields equal {same}",
+                  flush=True)
+        print(f"{key}: largest per-point gap {worst[0]:.4f}, last-5 mean "
+              f"{worst[1]:.4f}", flush=True)
 
 
 if __name__ == "__main__":

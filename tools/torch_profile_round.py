@@ -1,17 +1,18 @@
-"""Where a round of the port's main path spends its time on the card.
+"""Where a round of the port's runs spends its time on the card.
 
     PYTHONPATH=src python tools/torch_profile_round.py [--rounds 2]
+        [--runs raw/sync,uplink_only/sync]
 
-Builds the main-path setup of ``chip_smoke.py`` (TABLE_4_2 mnist_even,
-MNIST width, het strong, 10 local epochs) on the CUDA card, runs one
-warm-up round, then profiles ``--rounds`` rounds of raw sync and of
-top-k+int8 uplink sync with ``torch.profiler`` (CPU and CUDA activities)
-and prints, per run: wall seconds per round (inflated by the profiler
-itself), the device's busy time (the sum of kernel times: one stream, so
-kernels do not overlap) and idle share, the time inside this repo's four
-kernels, kernel launches per round, the operators that take the most
-host time and the kernels that take the most device time.  It needs the card and raises
-without one.
+For each named run of ``chip_smoke.py`` (default: the main path's raw
+sync and top-k+int8 uplink sync; e.g. ``hetero/sync/fedadam`` or
+``cnn/sync/fedadam`` for the other phases) builds its setup on the CUDA
+card, runs one warm-up round, then profiles ``--rounds`` rounds with
+``torch.profiler`` (CPU and CUDA activities) and prints, per run: wall
+seconds per round (inflated by the profiler itself), the device's busy
+time (the sum of kernel times: one stream, so kernels do not overlap)
+and idle share, the time inside this repo's kernels, kernel launches per
+round, the operators that take the most host time and the kernels that
+take the most device time.  It needs the card and raises without one.
 """
 import argparse
 import subprocess
@@ -23,16 +24,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
+import chip_smoke  # noqa: E402
+from repro_torch import core  # noqa: E402
 from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
-from repro_torch.core import TABLE_4_2, make_setup, run_fl  # noqa: E402
 
 OWN_KERNELS = ("agg_vec4", "agg_scalar", "mix_vec4", "mix_scalar",
-               "encode_kernel", "decode_kernel")
-TRANSPORTS = {"raw": dict(transport="raw"),
-              "uplink_only": dict(transport="topk_ef+int8",
-                                  transport_down="raw", transport_frac=0.1)}
+               "encode_kernel", "decode_kernel", "mom_vec4", "mom_scalar",
+               "adam_vec4", "adam_scalar")
 
 
 def _device_us(evt) -> float:
@@ -43,6 +44,7 @@ def _device_us(evt) -> float:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--runs", default="raw/sync,uplink_only/sync")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_round: needs a CUDA card")
@@ -50,16 +52,19 @@ def main():
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True, timeout=60)
     print(f"card: {card.stdout.strip()}; torch {torch.__version__}")
-    setup = make_setup(TABLE_4_2["mnist_even"], cfg=MNIST_CNN, het="strong",
-                       seed=0, device="cuda")
-    for tname, tkw in TRANSPORTS.items():
-        run_fl(setup, epochs_per_round=10, max_rounds=1, **tkw)   # warm-up
+    for key in args.runs.split(","):
+        spec = chip_smoke.RUNS[key]
+        table, kw = chip_smoke.PHASES[spec["phase"]]
+        setup = core.make_setup(getattr(core, table)["mnist_even"],
+                                cfg=MNIST_CNN, model=spec["model"], seed=0,
+                                **kw, **spec["setup_kw"], device="cuda")
+        rkw = dict(epochs_per_round=chip_smoke.EPOCHS, **spec["run_kw"])
+        core.run_fl(setup, max_rounds=1, **rkw)              # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_fl(setup, epochs_per_round=10, max_rounds=args.rounds,
-                   **tkw)
+            core.run_fl(setup, max_rounds=args.rounds, **rkw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
@@ -71,7 +76,7 @@ def main():
                   if any(k in e.key for k in OWN_KERNELS)) / 1e6
         launches = sum(e.count for e in events
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-        print(f"\n{tname}/sync: {wall / args.rounds:.4f} s per round "
+        print(f"\n{key}: {wall / args.rounds:.4f} s per round "
               f"(profiled); device busy {busy:.4f} s of {wall:.4f} s, idle "
               f"share {1 - busy / wall:.3f}; this repo's kernels "
               f"{own * 1e3:.3f} ms; {launches / args.rounds:.0f} kernel "
