@@ -14,9 +14,14 @@ and prints no result):
    ragged N = 1000, within 1e-6; encode and decode at N = 101,888 and
    1000, bit-exact; the server-optimizer step at N = 101,888, 29,184 (the
    padded MNIST CNN) and 1000 with the FedAvgM, FedDyn and FedAdam
-   scalars, bit-exact, fresh and with its state written in place), then
-   time kernel, plain version and one-call library yardstick with CUDA
-   events (median of 50 cold-L2 runs after warm-up), beside the least
+   scalars, bit-exact, fresh and with its state written in place; flash
+   attention at gemma2-2b's global and local layers, yi-9b's and two f32
+   shapes with q at 8x the scale of k and v, elementwise within one bf16
+   ulp of the plain output plus 1e-4 in bf16 and 2e-5 in f32, and the
+   check must fail against a plain version given a fault: no softcap, the
+   window 32 keys wider, KV head h % Kv), then time kernel, plain
+   version and one-call library yardstick with CUDA events (median of 50
+   cold-L2 runs after warm-up; 10 for flash attention), beside the least
    time the card could take.
 4. Main path: the paper's 30-worker MNIST experiment at full MLP width
    (784-128-10, 101,770 parameters) through ``make_setup`` -> ``run_fl``,
@@ -44,18 +49,34 @@ one initial weight alone moves it (``SPREAD``, measured on the CPU with
 ``gap_bounds`` of the CPU at every point and in the mean of the last five
 points.  The top-k runs are not compared field by field (kept counts
 follow the numerics).
-7. Result: the ``kernels`` JSON line, the card line, and last the
+7. LM serving: gemma2-2b at full width and depth (26 layers, seeded
+   random weights on the card), attention through kernel B8: prefill of
+   2 prompts of 8192 tokens from ``synthetic_token_batches`` (cut from
+   ``SHAPES["prefill_32k"]``: batch 32 -> 2, 32,768 -> 8192 tokens), then
+   32 greedy decode steps, every counter at 0 before and read after.
+   Checks: B8 launches once per layer in the prefill and never in
+   decode; the prefill's last-token logits match the same prefill
+   through ``mha_chunked``; the last 4 decode steps match a full forward
+   over the 8224 positions; at one local/global pair (512-token prompt,
+   4 decode steps) the card matches a CPU run in this process; each within
+   its ``LM_LIMITS`` entry.  Each check is repeated with B8 given a fault
+   (``LM_FAULTS``); those in ``LM_CAUGHT`` must fail it.  Reports prefill
+   seconds and tokens/s, decode seconds per step, peak device memory and
+   the prefill's model FLOPs over its time as a share of the bf16 peak.
+8. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
 phase fails.
 """
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +87,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
 N_TIMED = 50
 EPOCHS = 10
 FIELDS = ("time", "version", "n_updates", "selected", "up_bytes",
@@ -169,6 +191,57 @@ REQUIRED = {
         "hetero/sync/fedadam", "hetero/async/fedadam",
         "hetero/sync_topk/fedadam", "cnn/sync/fedadam"]),
 }
+# B8 (flash attention) is checked at these shapes, (B, S, H, Kv, D, dtype,
+# window, softcap); the first three are timed.  gemma2-2b's global and
+# local layers and yi-9b's at the LM phase's prompt lengths, then two f32
+# shapes of tests/test_kernels.py.
+FLASH_SHAPES = {
+    "gemma2-2b global": (2, 8192, 8, 4, 256, torch.bfloat16, 0, 50.0),
+    "gemma2-2b local": (2, 8192, 8, 4, 256, torch.bfloat16, 4096, 50.0),
+    "yi-9b": (2, 4096, 32, 4, 128, torch.bfloat16, 0, 0.0),
+    "f32 (2,256,2,1,64)": (2, 256, 2, 1, 64, torch.float32, 0, 0.0),
+    "f32 window 64 softcap 50": (1, 128, 4, 2, 32, torch.float32, 64, 50.0),
+}
+# B8's limit, elementwise: |kernel - plain| <= rel * |plain| + abs.  f32:
+# 2e-5 (ROADMAP (b)).  bf16: one bf16 ulp of the plain output (2^-7 |x|
+# is at least an ulp anywhere in x's binade; both sides compute in f32
+# and round once, so another summation order flips at most the last bit)
+# plus 1e-4 for outputs near 0.
+FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+# q is drawn at 8x the scale of k and v: scores of std 8 reach the softcap
+# and peak the softmax, so a wrong cap, window edge or head map moves
+# outputs by O(1).  Each timed shape must fail the limit against its plain
+# version with the fault named here (a control of the check).
+FLASH_Q_SCALE = 8.0
+FLASH_FAULTS = {"gemma2-2b global": "no softcap",
+                "gemma2-2b local": "window + 32 keys",
+                "yi-9b": "head map h % Kv"}
+N_TIMED_FLASH = 10
+# The LM phase: gemma2-2b at full width and depth, cut from
+# SHAPES["prefill_32k"] (32 prompts of 32,768 tokens) to 2 of 8192, then
+# LM_DECODE greedy decode steps; the card-vs-CPU repeat keeps the width
+# and one local/global pair, with a 512-token prompt and 4 decode steps.
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 2, 8192, 32
+LM_CHECKED_STEPS = 4          # decode steps held against a full forward
+LM_CUT = dict(n_layers=2, prompt=512, decode=4)
+# The LM checks, each a relative gap (max |a - b| / max |b| over the
+# logits, bf16 end to end) and its limit: the kernel prefill against
+# mha_chunked's (which rounds P to bf16), decode against a full forward,
+# and card against CPU at the cut depth.  Each check is also run with B8
+# given a fault (LM_FAULTS, a control); the faults listed in LM_CAUGHT
+# must exceed the check's limit.  The limits sit between the sound and the
+# caught readings of an H100 run (both in PERF.md).  With random weights the scores stay far below the softcap, so "no
+# softcap" moves the logits less than bf16 noise: B8's own check (q at 8x)
+# catches it instead.  At 512 tokens the 4096 window never bites.
+LM_LIMITS = {"kernel_vs_xla": 0.03, "decode_vs_forward": 0.03,
+             "card_vs_cpu": 0.02}
+LM_FAULTS = ("no softcap", "window + 32 keys", "no window",
+             "head map h % Kv")
+LM_CAUGHT = {"kernel_vs_xla": LM_FAULTS[1:],
+             "decode_vs_forward": LM_FAULTS[1:],
+             "card_vs_cpu": ("head map h % Kv",)}
+
 # server_opt -> the launch counter of its form (B5a momentum, B5b adam)
 OPT_COUNTER = {"fedavgm": "mom", "feddyn": "mom", "fedadam": "adam"}
 OPT_SCALARS = {"fedavgm": [0.9, 1.0, 0.0, 1.0],
@@ -183,6 +256,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def attention_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention over S positions
+    needs: query i sees min(i + 1, window) keys."""
+    i = np.arange(S, dtype=np.int64)
+    seen = i + 1 if not window else np.minimum(i + 1, window)
+    return int(seen.sum())
+
+
 class Timer:
     """Median CUDA-event time of one call, with L2 flushed before each.
 
@@ -194,11 +275,11 @@ class Timer:
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, n: int = N_TIMED) -> float:
         for _ in range(5):
             fn()
         pairs = []
-        for _ in range(N_TIMED):
+        for _ in range(n):
             torch.cuda._sleep(2_000_000)
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
@@ -211,9 +292,9 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -223,10 +304,18 @@ def max_err(a, b) -> float:
 
 def launch_counters():
     """Counter key -> the wrapper module's LAUNCHES dict."""
-    from repro_torch.kernels import fedavg_agg, server_opt, topk_quant
+    from repro_torch.kernels import (fedavg_agg, flash_attention, server_opt,
+                                     topk_quant)
     return {"agg": fedavg_agg.LAUNCHES, "mix": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
-            "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES}
+            "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES,
+            "flash": flash_attention.LAUNCHES}
+
+
+def zero_counters():
+    for c in launch_counters().values():
+        for k in c:
+            c[k] = 0
 
 
 def check_server_opt(dev, g, errs):
@@ -389,9 +478,143 @@ def check_kernels(dev):
               f"{records[name]['plain_ms']:.4f} ms, library "
               f"{records[name]['library_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
+    records["flash_attention"] = check_flash(dev, timer)
     # the comparison launches above do not count toward the paths' runs:
     # each run sets every counter to 0 before it starts
     return records
+
+
+def fault_args(fault, k, v, window, cap, n_heads):
+    """(k, v, window, softcap) with which a correct attention computes the
+    faulty one named ``fault``; None leaves them as they are."""
+    if fault == "no softcap":
+        cap = 0.0
+    elif fault == "no window":
+        window = 0
+    elif fault == "window + 32 keys":
+        window = window + 32 if window else 0
+    elif fault == "head map h % Kv":
+        rep = n_heads // k.shape[2]
+        k, v = k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1)
+    elif fault is not None:
+        raise ValueError(fault)
+    return k, v, window, cap
+
+
+@contextlib.contextmanager
+def attention_fault(fault):
+    """Send the model's B8 calls through the kernel with ``fault`` applied:
+    a control, what the LM checks must catch."""
+    from repro_torch.models import attention
+    real = attention.fa
+
+    def faulty(q, k, v, *, causal, window, softcap):
+        k, v, window, softcap = fault_args(fault, k, v, window, softcap,
+                                           q.shape[2])
+        return real.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+    attention.fa = types.SimpleNamespace(flash_attention=faulty)
+    try:
+        yield
+    finally:
+        attention.fa = real
+
+
+def flash_ratio(got, want) -> float:
+    """max |got - want| / (rel |want| + abs) under FLASH_TOL: the check
+    passes at <= 1."""
+    rel, tol = FLASH_TOL[want.dtype]
+    want = want.double()
+    return float(((got.double() - want).abs() / (rel * want.abs() + tol))
+                 .max())
+
+
+def check_flash(dev, timer):
+    """B8 against its plain version at every FLASH_SHAPES shape, and the
+    plain version given FLASH_FAULTS' fault against the kernel (it must
+    fail); kernel, plain and (at yi-9b's shape, which has no softcap)
+    PyTorch's scaled_dot_product_attention timed at the first three.
+    Returns the record of the gemma2-2b global shape, the others under
+    "shapes"."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(1)
+    shapes = []
+    for i, (label, (B, S, H, Kv, D, dt, window, cap)) in enumerate(
+            FLASH_SHAPES.items()):
+        q, k, v = (torch.randn(B, S, n, D, device=dev, generator=g)
+                   for n in (H, Kv, Kv))
+        q, k, v = (q * FLASH_Q_SCALE).to(dt), k.to(dt), v.to(dt)
+        kw = dict(window=window, softcap=cap)
+
+        def kern():
+            return fa.flash_attention(q, k, v, **kw)
+
+        def plain():
+            return ref.reference_flash_attention(q, k, v, **kw)
+        got, want = kern(), plain()
+        err, ratio = max_err(got, want), flash_ratio(got, want)
+        rel, tol = FLASH_TOL[dt]
+        rec = {"shape": label, "B": B, "S": S, "H": H, "Kv": Kv, "D": D,
+               "dtype": str(dt), "window": window, "softcap": cap,
+               "q_scale": FLASH_Q_SCALE, "max_abs_err": err,
+               "max_abs_out": float(want.float().abs().max()),
+               "limit": f"{rel:g} |plain| + {tol:g}", "ratio": ratio}
+        print(f"check flash_attention {label}: max |kernel - plain| = "
+              f"{err:g}, max |kernel - plain| / ({rel:g} |plain| + {tol:g})"
+              f" = {ratio:.4f} (limit 1)")
+        if not ratio <= 1.0:
+            raise AssertionError(f"flash_attention {label}: |kernel - "
+                                 f"plain| reaches {ratio} x the limit")
+        fault = FLASH_FAULTS.get(label)
+        if fault:
+            fk, fv, fw, fc = fault_args(fault, k, v, window, cap, H)
+            bad = ref.reference_flash_attention(q, fk, fv, window=fw,
+                                                softcap=fc)
+            rec["control"] = {"fault": fault,
+                              "ratio": flash_ratio(got, bad)}
+            # mha_chunked rounds P to bf16: a reading, not a check
+            rec["mha_chunked_ratio"] = flash_ratio(attention.mha_chunked(
+                q, k, v, window=window, softcap_val=cap), want)
+            print(f"check flash_attention {label}: control ({fault}) "
+                  f"ratio {rec['control']['ratio']:.4g}; mha_chunked "
+                  f"(bf16 P) ratio {rec['mha_chunked_ratio']:.4g}")
+            if not rec["control"]["ratio"] > 1.0:
+                raise AssertionError(f"flash_attention {label}: the check "
+                                     f"does not catch {fault}")
+            del bad, fk, fv
+        del got, want
+        if i < 3:
+            # q and o, k and v, each moved once
+            n_bytes = 2 * B * S * (H + Kv) * D * q.element_size()
+            flops = 4 * B * H * D * attention_pairs(S, window)
+            b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+            lib_ms = None
+            if not cap and not window:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                    N_TIMED_FLASH)
+            rec.update(ms=timer(kern, N_TIMED_FLASH),
+                       plain_ms=timer(plain, N_TIMED_FLASH), bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms, flops=flops)
+            print(f"time flash_attention {label}: kernel {rec['ms']:.4f} ms "
+                  f"({flops / rec['ms'] / 1e9:.1f} TFLOP/s), plain "
+                  f"{rec['plain_ms']:.4f} ms, library {lib_ms} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})")
+        shapes.append(rec)
+        del q, k, v
+    main = shapes[0]
+    return {"name": "flash_attention", "route": "cuda", "ok": True,
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:93",
+            "launches": 0, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shapes": shapes}
 
 
 class Setups:
@@ -428,9 +651,7 @@ def drive(key, setup, report):
     from repro_torch.core import run_fl
     spec = RUNS[key]
     counters = launch_counters()
-    for c in counters.values():
-        for k in c:
-            c[k] = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     h = run_fl(setup, epochs_per_round=EPOCHS, max_rounds=spec["rounds"],
@@ -518,6 +739,181 @@ def run_phase(phase, setups, report):
             compare_with_cpu(key, setups.get(RUNS[key], "cpu"), report)
 
 
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _rel_gap(got, want) -> float:
+    """max |got - want| / max |want| over logits, in f32."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-3))
+
+
+def _greedy_run(models, params, cfg, prompt, n_steps, next_tokens=None):
+    """Prefill ``prompt`` then ``n_steps`` decode steps, fed the greedy
+    token or, if given, ``next_tokens[:, i]``.  Returns (prefill logits,
+    per-step logits, fed tokens, prefill seconds, decode seconds)."""
+    S = prompt.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = models.prefill_step(params, {"tokens": prompt}, cfg=cfg,
+                                        max_len=S + n_steps)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    first, steps, fed = logits, [], []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        tok = (logits[:, -1].argmax(-1, keepdim=True) if next_tokens is None
+               else next_tokens[:, i:i + 1])
+        fed.append(tok)
+        logits, state = models.serve_step(params, state, tok, S + i, cfg=cfg)
+        steps.append(logits[:, 0])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return first[:, 0], steps, torch.cat(fed, dim=1), t_prefill, t_decode
+
+
+def run_lm(dev, rec):
+    """Phase 7: gemma2-2b serving at full width and depth through B8;
+    fills ``rec`` and returns B8's launches on the main path."""
+    from repro_torch import configs, models
+    from repro_torch.data import lm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import analytics
+    from repro_torch.models import transformer
+    cfg = configs.get_config(LM_ARCH).replace(attn_impl="pallas")
+    params = models.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = next(lm.synthetic_token_batches(
+        vocab=cfg.vocab_size, batch=LM_BATCH, seq_len=LM_PROMPT + LM_DECODE,
+        seed=0))
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    prompt = tokens[:, :LM_PROMPT]
+    max_len = LM_PROMPT + LM_DECODE
+    # warm-up (cuBLAS handles, the allocator's pools): one prefill
+    models.prefill_step(params, {"tokens": prompt}, cfg=cfg, max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: counters at 0, prefill, LM_DECODE greedy steps
+    zero_counters()
+    first, steps, fed, t_prefill, t_decode = _greedy_run(
+        models, params, cfg, prompt, LM_DECODE)
+    after = fa.LAUNCHES["flash"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec.update({
+        "arch": LM_ARCH, "n_params": n_params,
+        "n_params_model": cfg.n_params(), "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+        "cut_from": "SHAPES['prefill_32k']: batch 32 -> 2, seq_len "
+                    "32768 -> 8192",
+        "launches": {k: c[k] for k, c in launch_counters().items()},
+        "prefill_s": t_prefill,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_prefill,
+        "decode_s_per_step": t_decode / LM_DECODE,
+        "max_memory_allocated": peak})
+    mf = analytics.model_flops(LM_ARCH, "prefill_32k", batch=LM_BATCH,
+                               seq_len=LM_PROMPT)["model_flops_total"]
+    rec.update(prefill_model_flops=mf,
+               prefill_mfu=mf / t_prefill / BF16_FLOPS)
+    print(f"lm {LM_ARCH}: {n_params:,} parameters; prefill {LM_BATCH} x "
+          f"{LM_PROMPT} tokens in {t_prefill:.4f} s "
+          f"({rec['prefill_tokens_per_s']:.1f} tokens/s, model FLOPs "
+          f"{mf:.4g} = {rec['prefill_mfu']:.4f} of {BF16_FLOPS:.3g} FLOP/s); "
+          f"decode {rec['decode_s_per_step']:.4f} s per step; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; B8 launches "
+          f"{after}")
+    # check 1: B8 once per layer in prefill, never in decode
+    if after != cfg.n_layers:
+        raise AssertionError(f"B8 launched {after} times in one prefill and "
+                             f"{LM_DECODE} decode steps, expected "
+                             f"{cfg.n_layers} (one per layer, none in decode)")
+    if not all(torch.isfinite(x).all() for x in [first] + steps):
+        raise AssertionError("non-finite logits")
+
+    # check 2: the same prefill through mha_chunked ("xla")
+    t0 = time.perf_counter()
+    xla, _ = models.prefill_step(params, {"tokens": prompt},
+                                 cfg=cfg.replace(attn_impl="xla"),
+                                 max_len=max_len)
+    torch.cuda.synchronize()
+    rec["xla_prefill_s"] = time.perf_counter() - t0
+    xla = xla[:, 0]
+    print(f"lm: mha_chunked prefill {rec['xla_prefill_s']:.4f} s")
+
+    # check 3: the last decode steps against a full forward over the
+    # prompt and the fed tokens (8224 positions: a ragged last tile)
+    seq = torch.cat([prompt, fed], dim=1)
+
+    def forward_tail():
+        h, _, _ = models.forward(params, cfg, tokens=seq)
+        return transformer.logits_from_hidden(
+            params, cfg, h[:, -LM_CHECKED_STEPS:])
+
+    def gaps(fault):
+        with attention_fault(fault):
+            pre, _ = models.prefill_step(params, {"tokens": prompt},
+                                         cfg=cfg, max_len=max_len)
+            full = forward_tail()
+        return {"kernel_vs_xla": [_rel_gap(pre[:, 0], xla)],
+                "decode_vs_forward": [
+                    _rel_gap(steps[-LM_CHECKED_STEPS + i], full[:, i])
+                    for i in range(LM_CHECKED_STEPS)]}
+    sound = {"kernel_vs_xla": [_rel_gap(first, xla)]}
+    full = forward_tail()
+    sound["decode_vs_forward"] = [
+        _rel_gap(steps[-LM_CHECKED_STEPS + i], full[:, i])
+        for i in range(LM_CHECKED_STEPS)]
+    del full
+    controls = {f: gaps(f) for f in LM_FAULTS}
+    del params
+
+    # check 4: full width, one local/global pair, card against CPU
+    cut = cfg.replace(n_layers=LM_CUT["n_layers"])
+    card = models.init_params(torch.Generator(device=dev).manual_seed(1),
+                              cut, device=dev)
+    cpu = _tree_to(card, "cpu")
+    p_len, n_dec = LM_CUT["prompt"], LM_CUT["decode"]
+    toks = tokens[:, :p_len + n_dec]
+
+    def cut_run(prm, d):
+        t = toks.to(d)
+        f0, st, _, _, _ = _greedy_run(models, prm, cut, t[:, :p_len], n_dec,
+                                      next_tokens=t[:, p_len:])
+        return [f0] + st
+    want = cut_run(cpu, "cpu")
+    sound["card_vs_cpu"] = [_rel_gap(a.cpu(), b)
+                            for a, b in zip(cut_run(card, dev), want)]
+    for f in LM_FAULTS:
+        with attention_fault(f):
+            controls[f]["card_vs_cpu"] = [
+                _rel_gap(a.cpu(), b) for a, b in zip(cut_run(card, dev), want)]
+
+    rec["gaps"], rec["controls"], rec["limits"] = sound, controls, LM_LIMITS
+    for check, limit in LM_LIMITS.items():
+        print(f"lm check {check}: gap {max(sound[check]):.5f} (limit "
+              f"{limit}); controls " + ", ".join(
+                  f"{f} {max(controls[f][check]):.5f}" for f in LM_FAULTS))
+        if not max(sound[check]) <= limit:
+            raise AssertionError(f"lm {check}: gaps {sound[check]} > "
+                                 f"{limit}")
+        for f in LM_CAUGHT[check]:
+            if not max(controls[f][check]) > limit:
+                raise AssertionError(f"lm {check}: the check does not catch "
+                                     f"{f} ({controls[f][check]})")
+    return after
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -540,7 +936,7 @@ def main() -> int:
     print(_build.build_log.strip())
 
     records = check_kernels(dev)
-    runs = {}
+    runs, lm_rec = {}, {}
     try:
         setups = Setups(dev)
         for phase in PHASES:
@@ -553,12 +949,15 @@ def main() -> int:
                     raise AssertionError(f"{name} never launched in {key}")
             records[name]["launches"] = sum(r["launches"][ctr]
                                             for r in runs.values())
+        t0 = time.perf_counter()
+        records["flash_attention"]["launches"] = run_lm(dev, lm_rec)
+        print(f"phase lm: {time.perf_counter() - t0:.1f} s")
     finally:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_report.json").write_text(json.dumps(
-            {"card": card, "kernels": list(records.values()), "runs": runs},
-            indent=1))
+            {"card": card, "kernels": list(records.values()), "runs": runs,
+             "lm": lm_rec}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

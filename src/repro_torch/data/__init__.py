@@ -1,1 +1,2 @@
+from .lm import synthetic_token_batches
 from .synth import federated_split, make_classification_dataset

@@ -37,6 +37,10 @@ SIGNATURES = {
     "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
     "server_opt_mom_launch": (_P,) * 5 + (_F,) * 4 + (_I64, _P),
     "server_opt_adam_launch": (_P,) * 7 + (_F,) * 4 + (_I64, _P),
+    # q, k, v, o; B, S, T, H, Kv, D; 12 strides; causal, window; scale,
+    # softcap; dtype; stream
+    "flash_attention_launch": (_P,) * 4 + (_I64,) * 6 + (_I64,) * 12
+    + (_I64, _I64, _F, _F, _I64, _P),
 }
 
 _lock = threading.Lock()

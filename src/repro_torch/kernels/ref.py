@@ -5,11 +5,17 @@ Each repeats its kernel's arithmetic operation for operation: the fedavg
 sums run over the rows in the fixed order 0..W-1, and every multiply and
 add is a separate rounded PyTorch op, so on the card the kernels agree
 with these bit for bit.  The CPU wrappers run these; ``chip_smoke.py``
-holds each kernel against them.
+holds each kernel against them.  The attention versions cannot agree
+bit for bit (the kernel sums its dot products in another order); they
+repeat the kernel's arithmetic in every other respect.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30          # the masked-score sentinel of the attention kernels
 
 
 def _weighted_rows(stacked: torch.Tensor, weights: torch.Tensor
@@ -79,3 +85,83 @@ def reference_server_opt(prev: torch.Tensor, merged: torch.Tensor,
         return prev + sc[2] * mo / (torch.sqrt(vo) + sc[3]), mo, vo
     mo = sc[0] * m + sc[1] * d
     return prev + sc[2] * d + sc[3] * mo, mo, None
+
+
+def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                   window: int) -> torch.Tensor:
+    """(len(qpos), len(kpos)) bool: which keys each query may see."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    return mask
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """O(S^2) attention, the counterpart of the JAX package's
+    ``reference_attention``.  q: (B,S,H,D); k, v: (B,T,Kv,D); query head h
+    reads KV head ``h // (H // Kv)``.  Computed in f32, returned in q's
+    dtype."""
+    B, S, H, D = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    rep = H // Kv
+    kr = k.float().repeat_interleave(rep, dim=2)
+    vr = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(max(S, T), device=q.device)
+    s = torch.where(attention_mask(pos[:S], pos[:T], causal, window), s,
+                    NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+
+
+def reference_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0
+                              ) -> torch.Tensor:
+    """The plain version of the flash-attention kernel (B8): online softmax
+    over KV tiles of 64 keys, every query row at once.
+
+    The kernel's arithmetic: q cast to f32 and scaled by ``1/sqrt(D)``
+    before ``q k^T``; then ``softcap * tanh(s / softcap)``; then the
+    causal / window mask with the finite sentinel -1e30; ``(m, l, acc)``
+    and P in f32; ``acc / max(l, 1e-30)`` cast to q's dtype.  The kernel
+    skips the tiles that lie wholly outside a query tile's band and sizes
+    its tiles by head_dim; here every tile is visited, which changes
+    nothing: a fully masked tile before the band adds terms that the first
+    real key multiplies by ``exp(-1e30 - m) = 0``, and one after it adds
+    ``exp(-1e30 - m) = 0``.
+    q: (B,S,H,D); k, v: (B,T,Kv,D); head h reads KV head ``h // (H//Kv)``.
+    """
+    B, S, H, D = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    rep = H // Kv
+    f32 = torch.float32
+    qf = (q.to(f32) * (1.0 / math.sqrt(D))).reshape(B, S, Kv, rep, D)
+    m = torch.full((B, Kv, rep, S), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Kv, rep, S), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Kv, rep, S, D), dtype=f32, device=q.device)
+    pos = torch.arange(max(S, T), device=q.device)
+    block_k = 64
+    for k0 in range(0, T, block_k):
+        kb = k[:, k0:k0 + block_k].to(f32)                  # (B,bk,Kv,D)
+        vb = v[:, k0:k0 + block_k].to(f32)
+        s = torch.einsum("bsgrd,bkgd->bgrsk", qf, kb)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = attention_mask(pos[:S], pos[k0:k0 + block_k], causal, window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bgrsk,bkgd->bgrsd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]        # (B,Kv,rep,S,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)

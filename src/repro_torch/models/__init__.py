@@ -1,1 +1,4 @@
-"""Models of the port: the MLP classifier of the FL experiments."""
+"""Models of the port: the MLP and CNN classifiers of the FL experiments,
+and the LM serving path (attention family) of ``transformer.py``."""
+from .transformer import (forward, init_decode_state, init_params,
+                          params_from_numpy, prefill_step, serve_step)

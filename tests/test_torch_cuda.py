@@ -9,14 +9,20 @@ card's machine:
 Tolerances: fedavg within 1e-6 (the kernel and the plain version sum the
 rows in the same order, so they normally agree bit for bit); encode,
 decode and the server-optimizer step bit-exact (the kernels round every
-operation like the plain version does).
+operation like the plain version does); flash attention elementwise
+within 2e-5 in f32 (ROADMAP (b)) and within 2^-7 |plain| + 1e-4 in bf16:
+one bf16 ulp of the plain output, since both sides compute in f32 and
+round once, and another summation order flips at most the last bit.  q is
+drawn at 8x the scale of k and v, so that the scores reach the softcap
+and the softmax is peaked.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import transport
-from repro_torch.kernels import fedavg_agg, ref, server_opt, topk_quant
+from repro_torch.kernels import (fedavg_agg, flash_attention, ref,
+                                 server_opt, topk_quant)
 
 
 def _rows(W, N, seed=0):
@@ -158,3 +164,94 @@ def test_cuda_server_opt_run_matches_cpu_run(h100, opt):
                 g.down_bytes) == (c.time, c.version, c.n_updates,
                                   c.selected, c.up_bytes, c.down_bytes)
         assert abs(g.accuracy - c.accuracy) <= 4 / 512
+
+
+# (B, S, H, Kv, D, dtype, window, softcap): the JAX tests' widths, gemma2's
+# head_dim 256 in f32 (the largest block), a window of 40 that leaves the
+# first KV tiles of later query tiles wholly masked, and a ragged S
+FLASH_CASES = [
+    (2, 128, 4, 2, 32, torch.float32, 0, 0.0),
+    (2, 256, 2, 1, 64, torch.bfloat16, 0, 0.0),
+    (2, 64, 8, 8, 16, torch.float32, 32, 30.0),
+    (1, 256, 4, 2, 256, torch.float32, 40, 50.0),
+    (2, 512, 8, 4, 256, torch.bfloat16, 128, 50.0),
+    (1, 384, 8, 2, 128, torch.bfloat16, 0, 0.0),
+    (2, 200, 4, 2, 128, torch.float32, 72, 0.0),
+]
+
+
+FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+
+
+def _assert_flash_close(got, plain):
+    rel, tol = FLASH_TOL[plain.dtype]
+    d = (got.double() - plain.double()).abs()
+    assert bool((d <= rel * plain.double().abs() + tol).all()), \
+        float(d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,D,dtype,window,cap", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(h100, B, S, H, Kv, D, dtype,
+                                            window, cap):
+    rng = np.random.RandomState(S + D)
+    q, k, v = (_t(rng.randn(B, S, n, D).astype(np.float32) * scale)
+               .to(h100, dtype) for n, scale in ((H, 8), (Kv, 1), (Kv, 1)))
+    n0 = flash_attention.LAUNCHES["flash"]
+    got = flash_attention.flash_attention(q, k, v, window=window,
+                                          softcap=cap)
+    plain = ref.reference_flash_attention(q, k, v, window=window,
+                                          softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash"] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_flash_close(got, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_views(h100):
+    """q, k, v as views of one fused (B, S, H + 2 Kv, D) projection: the
+    kernel reads them through their strides, with no copy."""
+    B, S, H, Kv, D = 2, 192, 4, 2, 64
+    qkv = torch.randn(B, S, H + 2 * Kv, D, device=h100)
+    qkv[:, :, :H] *= 8
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Kv], qkv[:, :, H + Kv:]
+    got = flash_attention.flash_attention(q, k, v, softcap=50.0)
+    plain = ref.reference_flash_attention(q, k, v, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "yi-9b"])
+def test_cuda_prefill_launches_flash_once_per_layer(h100, arch):
+    """A REDUCED prefill on the card goes through the kernel once per layer
+    and decode never; its logits match the same run on the CPU (the
+    kernel's plain version) within 0.04 of max|logit| (bf16 end to end)."""
+    from repro_torch import configs, models
+    # yi's REDUCED head_dim (8) is below the kernel's smallest (16)
+    cfg = configs.get_config(arch, reduced=True).replace(
+        head_dim=16, attn_impl="pallas")
+    params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(h100)
+                for k, v in tree.items()}
+    card = to(params)
+    toks = _t(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 96)))
+    n0 = flash_attention.LAUNCHES["flash"]
+    lg, st = models.prefill_step(card, {"tokens": toks[:, :64].to(h100)},
+                                 cfg=cfg, max_len=96)
+    assert flash_attention.LAUNCHES["flash"] == n0 + cfg.n_layers
+    for t in range(64, 68):
+        lg, st = models.serve_step(card, st, toks[:, t:t + 1].to(h100), t,
+                                   cfg=cfg)
+    assert flash_attention.LAUNCHES["flash"] == n0 + cfg.n_layers
+    lc, sc = models.prefill_step(params, {"tokens": toks[:, :64]}, cfg=cfg,
+                                 max_len=96)
+    for t in range(64, 68):
+        lc, sc = models.serve_step(params, sc, toks[:, t:t + 1], t, cfg=cfg)
+    err = (lg.float().cpu() - lc.float()).abs().max() / lc.float().abs().max()
+    assert float(err) < 0.04

@@ -39,8 +39,13 @@ def test_port_imports_with_jax_and_repro_blocked():
             "sys.modules['repro'] = None\n"
             "import repro_torch.core, repro_torch.kernels.fedavg_agg, "
             "repro_torch.kernels.topk_quant, repro_torch.kernels.server_opt, "
-            "repro_torch.models.cnn, repro_torch.kernels._build\n"
-            "assert 'repro_torch.core.experiment' in sys.modules\n")
+            "repro_torch.models.cnn, repro_torch.kernels._build, "
+            "repro_torch.kernels.flash_attention, repro_torch.models, "
+            "repro_torch.models.attention, repro_torch.models.layers, "
+            "repro_torch.configs, repro_torch.data.lm, "
+            "repro_torch.launch.analytics\n"
+            "assert 'repro_torch.core.experiment' in sys.modules\n"
+            "assert 'repro_torch.models.transformer' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],
                           env={"PYTHONPATH": str(ROOT / "src"),
                                "PATH": "/usr/bin:/bin"},
