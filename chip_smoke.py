@@ -19,10 +19,15 @@ and prints no result):
    shapes with q at 8x the scale of k and v, elementwise within one bf16
    ulp of the plain output plus 1e-4 in bf16 and 2e-5 in f32, and the
    check must fail against a plain version given a fault: no softcap, the
-   window 32 keys wider, KV head h % Kv), then time kernel, plain
-   version and one-call library yardstick with CUDA events (median of 50
-   cold-L2 runs after warm-up; 10 for flash attention), beside the least
-   time the card could take.
+   window 32 keys wider, KV head h % Kv); the WKV recurrence (B9) at
+   rwkv6-3b's width (2 x 8192 tokens, 40 heads of 64, chunk 16) in bf16
+   and f32 and at three small f32 shapes, elementwise within ``WKV_TOL``,
+   and the check must fail against a plain version given each of
+   ``WKV_FAULTS`` (no bonus, no state carried across chunks, an inclusive
+   cumsum); then time kernel, plain version and one-call library
+   yardstick with CUDA events (median of 50 cold-L2 runs after warm-up;
+   10 for flash attention and WKV, whose sequential ``reference_wkv`` is
+   timed too), beside the least time the card could take.
 4. Main path: the paper's 30-worker MNIST experiment at full MLP width
    (784-128-10, 101,770 parameters) through ``make_setup`` -> ``run_fl``,
    20 rounds x 10 local epochs, in sync / async / async_delta /
@@ -63,7 +68,21 @@ follow the numerics).
    (``LM_FAULTS``); those in ``LM_CAUGHT`` must fail it.  Reports prefill
    seconds and tokens/s, decode seconds per step, peak device memory and
    the prefill's model FLOPs over its time as a share of the bf16 peak.
-8. Result: the ``kernels`` JSON line, the card line, and last the
+8. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
+   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 7 is:
+   prefill of 2 prompts of 8192 tokens, then 64 greedy decode steps,
+   every counter at 0 before and read after.  Its blocks run the plain
+   ``wkv_chunked``, as the JAX package's do, so no kernel of ours may
+   launch there.  Checks: the last 4 decode steps against a full forward
+   over the 8256 positions; at two layers (512-token prompt, 4 decode
+   steps) the card against a CPU run in this process; each within its
+   ``RWKV_LIMITS`` entry, and each must fail with the WKV state zeroed
+   after the prefill (the control).  Then B9's own path: ``ops.wkv`` on
+   layer 0's streams of the prefill (time_mix's r, k, v, w and bonus),
+   counters at 0 before and read after (one launch), held against the y
+   of ``wkv_chunked`` within ``WKV_TOL`` (a plain version with no carry
+   must fail).  Reports as phase 7.
+9. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
@@ -241,6 +260,42 @@ LM_FAULTS = ("no softcap", "window + 32 keys", "no window",
 LM_CAUGHT = {"kernel_vs_xla": LM_FAULTS[1:],
              "decode_vs_forward": LM_FAULTS[1:],
              "card_vs_cpu": ("head map h % Kv",)}
+# B9 (the WKV recurrence) is checked at these shapes, (B, S, H, K, chunk,
+# dtype): rwkv6-3b's 40 heads of 64 over the rwkv6 phase's 2 x 8192 tokens
+# at ops.wkv's chunk of 16, in bf16 (timed) and f32, then the three f32
+# shapes of tests/test_kernels.py.  Inputs: r, k, v 0.5 N; w = exp(-exp(-4
+# + 0.5 N)) ~ 0.98, the decay rwkv6's decay_base of -4 gives, so the state
+# carries across thousands of tokens, far past one chunk; u 0.5 + 0.1 N.
+WKV_SHAPES = {
+    "rwkv6-3b bf16": (2, 8192, 40, 64, 16, torch.bfloat16),
+    "rwkv6-3b f32": (2, 8192, 40, 64, 16, torch.float32),
+    "f32 (2,64,2,16) chunk 16": (2, 64, 2, 16, 16, torch.float32),
+    "f32 (2,128,3,32) chunk 32": (2, 128, 3, 32, 32, torch.float32),
+    "f32 (2,64,1,8) chunk 8": (2, 64, 1, 8, 8, torch.float32),
+}
+# B9's limit, elementwise: |kernel - plain| <= rel |plain| + abs max|plain|.
+# Both sides compute in f32 and round once; bf16: one bf16 ulp of the plain
+# output; f32: a bound relative to the largest output.  Set from an H100
+# run's readings (PERF.md).
+WKV_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# the plain version given each fault must fail the limit (the controls)
+WKV_FAULTS = ("u = 0", "no carry", "inclusive cumsum")
+N_TIMED_WKV = 10
+# The rwkv6 phase: rwkv6-3b at full width and depth, cut from
+# SHAPES["prefill_32k"] as the LM phase is (2 prompts of 8192 tokens), then
+# RWKV_DECODE greedy steps: 8256 positions in all, a multiple of
+# wkv_chunked's chunk of 64, so a full forward over them checks decode.
+RWKV_ARCH = "rwkv6-3b"
+RWKV_N_PARAMS = 2_931_837_440        # the JAX package's init tree
+RWKV_BATCH, RWKV_PROMPT, RWKV_DECODE = 2, 8192, 64
+RWKV_CUT = dict(n_layers=2, prompt=512, decode=4)
+# relative logit gaps as in LM_LIMITS; each check's control (the WKV state
+# zeroed after the prefill) must exceed its limit.  Twice the sound reading
+# of an H100 run, rounded up to a hundredth (PERF.md): decode against the
+# forward read 0.1055 (control 1.2167), card against CPU 0.0120 (control
+# 1.1565).  Decode's gap is bf16 noise that grows with depth and steps: in
+# f32 the two agree within 1e-5 at 32 layers (CPU).
+RWKV_LIMITS = {"decode_vs_forward": 0.22, "card_vs_cpu": 0.03}
 
 # server_opt -> the launch counter of its form (B5a momentum, B5b adam)
 OPT_COUNTER = {"fedavgm": "mom", "feddyn": "mom", "fedadam": "adam"}
@@ -304,12 +359,12 @@ def max_err(a, b) -> float:
 
 def launch_counters():
     """Counter key -> the wrapper module's LAUNCHES dict."""
-    from repro_torch.kernels import (fedavg_agg, flash_attention, server_opt,
-                                     topk_quant)
+    from repro_torch.kernels import (fedavg_agg, flash_attention,
+                                     rwkv6_kernel, server_opt, topk_quant)
     return {"agg": fedavg_agg.LAUNCHES, "mix": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
             "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES,
-            "flash": flash_attention.LAUNCHES}
+            "flash": flash_attention.LAUNCHES, "wkv": rwkv6_kernel.LAUNCHES}
 
 
 def zero_counters():
@@ -479,6 +534,7 @@ def check_kernels(dev):
               f"{records[name]['library_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
     records["flash_attention"] = check_flash(dev, timer)
+    records["wkv"] = check_wkv(dev, timer)
     # the comparison launches above do not count toward the paths' runs:
     # each run sets every counter to 0 before it starts
     return records
@@ -617,6 +673,158 @@ def check_flash(dev, timer):
             "library_ms": main["library_ms"], "shapes": shapes}
 
 
+def wkv_inputs(g, B, S, H, K, dt):
+    """r, k, v, w, u of B9's check (see WKV_SHAPES), drawn on g's device."""
+    dev = g.device
+    r, k, v = ((0.5 * torch.randn(B, S, H, K, device=dev, generator=g))
+               .to(dt) for _ in range(3))
+    w = torch.exp(-torch.exp(-4.0 + 0.5 * torch.randn(
+        B, S, H, K, device=dev, generator=g)))
+    u = 0.5 + 0.1 * torch.randn(H, K, device=dev, generator=g)
+    return r, k, v, w, u
+
+
+def wkv_ops(B, S, H, K, C) -> int:
+    """Operations B9's function needs (each multiply, add, exp and log one):
+    per chunk and (b, h) the log decay and cumsum, the C(C-1)/2 decayed
+    pairs over K channels, the bonus, y's intra-chunk and state terms, the
+    decayed k and the (K, K) state update."""
+    pairs = C * (C - 1) // 2
+    per_chunk = (4 * C * K + 6 * pairs * K + 3 * C * K
+                 + 2 * (C * (C + 1) // 2) * K + 2 * C * K + 2 * C * K * K
+                 + 4 * C * K + K * K * (2 + 2 * C))
+    return per_chunk * B * H * (S // C)
+
+
+def wkv_ratio(got, want) -> float:
+    """max |got - want| / (rel |want| + abs max|want|) under WKV_TOL: the
+    check passes at <= 1."""
+    rel, tol = WKV_TOL[want.dtype]
+    want = want.double()
+    d = (got.double() - want).abs()
+    return float((d / (rel * want.abs() + tol * want.abs().max())).max())
+
+
+def _wkv_inclusive(r, k, v, w, u, chunk):
+    """B9's plain version with the cumsum made inclusive (A_t includes
+    lw_t): ``ref.reference_wkv_chunked`` with that one line changed."""
+    f32 = torch.float32
+    B, S, H, K = r.shape
+    uf = u.to(f32)[None, :, None, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)[..., None]
+    state = torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        rb, kb, vb, wb = (t[:, c0:c0 + chunk].transpose(1, 2).to(f32)
+                          for t in (r, k, v, w))
+        lw = torch.log(torch.clamp(wb, 1e-12, 1.0))
+        A = torch.cumsum(lw, dim=2)                       # the fault
+        Atot = A[:, :, -1] + lw[:, :, -1]
+        D = A[:, :, :, None, :] - A[:, :, None, :, :] - lw[:, :, None, :, :]
+        E = torch.where(tri, torch.exp(D), 0.0)
+        y = torch.einsum("bhtk,bhtik,bhik->bhti", rb, E, kb) @ vb + \
+            torch.sum(rb * uf * kb, dim=-1)[..., None] * vb
+        y = y + (rb * torch.exp(A)) @ state
+        kdec = kb * torch.exp(Atot[:, :, None, :] - A - lw)
+        state = state * torch.exp(Atot)[..., None] + \
+            kdec.transpose(2, 3) @ vb
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, dim=1).to(r.dtype)
+
+
+def wkv_fault(fault, r, k, v, w, u, chunk):
+    """B9's plain version given ``fault`` (a control, what the checks must
+    catch): the bonus u dropped, no state carried from chunk to chunk, or
+    an inclusive cumsum."""
+    from repro_torch.kernels import ref
+    chunk = min(chunk, r.shape[1])
+    if fault == "u = 0":
+        return ref.reference_wkv_chunked(r, k, v, w, torch.zeros_like(u),
+                                         chunk=chunk)
+    if fault == "no carry":
+        return torch.cat([ref.reference_wkv_chunked(
+            *(t[:, s:s + chunk] for t in (r, k, v, w)), u, chunk=chunk)
+            for s in range(0, r.shape[1], chunk)], dim=1)
+    if fault == "inclusive cumsum":
+        return _wkv_inclusive(r, k, v, w, u, chunk)
+    raise ValueError(fault)
+
+
+def check_wkv(dev, timer):
+    """B9 against its plain version at every WKV_SHAPES shape, and each
+    WKV_FAULTS fault of the plain version against the kernel (each must
+    fail the limit); at the rwkv6 shapes also the sequential
+    ``reference_wkv`` (a reading) and kernel, plain version and (bf16)
+    ``reference_wkv`` timed.  No single PyTorch call computes WKV: no
+    library time.  Returns the record of the bf16 rwkv6 shape, the others
+    under "shapes"."""
+    from repro_torch.kernels import ref, rwkv6_kernel
+    g = torch.Generator(device=dev).manual_seed(2)
+    shapes = []
+    for label, (B, S, H, K, C, dt) in WKV_SHAPES.items():
+        r, k, v, w, u = wkv_inputs(g, B, S, H, K, dt)
+
+        def kern():
+            return rwkv6_kernel.wkv(r, k, v, w, u, chunk=C)
+
+        def plain():
+            return ref.reference_wkv_chunked(r, k, v, w, u, chunk=C)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        rel, tol = WKV_TOL[dt]
+        rec = {"shape": label, "B": B, "S": S, "H": H, "K": K, "chunk": C,
+               "dtype": str(dt), "max_abs_err": max_err(got, want),
+               "max_abs_out": float(want.float().abs().max()),
+               "limit": f"{rel:g} |plain| + {tol:g} max|plain|",
+               "ratio": wkv_ratio(got, want),
+               "controls": {f: wkv_ratio(got, wkv_fault(f, r, k, v, w, u, C))
+                            for f in WKV_FAULTS}}
+        print(f"check wkv {label}: max |kernel - plain| = "
+              f"{rec['max_abs_err']:g} (max |plain| "
+              f"{rec['max_abs_out']:.4g}), ratio {rec['ratio']:.4f} to "
+              f"{rec['limit']} (limit 1); controls " + ", ".join(
+                  f"{f} {x:.4g}" for f, x in rec["controls"].items()))
+        if not rec["ratio"] <= 1.0:
+            raise AssertionError(f"wkv {label}: |kernel - plain| reaches "
+                                 f"{rec['ratio']} x the limit")
+        for f, x in rec["controls"].items():
+            if not x > 1.0:
+                raise AssertionError(f"wkv {label}: the check does not "
+                                     f"catch {f} ({x})")
+        if S == 8192:
+            seq = ref.reference_wkv(r, k, v, w, u)
+            rec["plain_vs_sequential"] = max_err(want, seq)
+            print(f"check wkv {label}: max |plain - reference_wkv| = "
+                  f"{rec['plain_vs_sequential']:g} (a reading)")
+            esize = r.element_size()
+            n_bytes = B * S * H * K * (4 * esize + 4) + H * K * 4
+            ops = wkv_ops(B, S, H, K, C)
+            b_ms, b_by = bound_ms(n_bytes, ops)
+            rec.update(ms=timer(kern, N_TIMED_WKV),
+                       plain_ms=timer(plain, N_TIMED_WKV), bound_ms=b_ms,
+                       bound_by=b_by, bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                       ops=ops, library_ms=None)
+            if dt == torch.bfloat16:
+                rec["reference_wkv_ms"] = timer(
+                    lambda: ref.reference_wkv(r, k, v, w, u), 3)
+            print(f"time wkv {label}: kernel {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.4f} ms, reference_wkv "
+                  f"{rec.get('reference_wkv_ms')} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}; bytes alone {rec['bytes_ms']:.4f} ms)")
+            del seq
+        shapes.append(rec)
+        del r, k, v, w, got, want
+    main = shapes[0]
+    return {"name": "wkv", "route": "cuda", "ok": True,
+            "source": "src/repro_torch/kernels/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6_kernel.py:77",
+            "launches": 0, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
 class Setups:
     """One setup per (phase, model, make_setup extras) and device; every
     device starts from the card's initial weights of that model."""
@@ -750,28 +958,46 @@ def _rel_gap(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-3))
 
 
-def _greedy_run(models, params, cfg, prompt, n_steps, next_tokens=None):
-    """Prefill ``prompt`` then ``n_steps`` decode steps, fed the greedy
-    token or, if given, ``next_tokens[:, i]``.  Returns (prefill logits,
-    per-step logits, fed tokens, prefill seconds, decode seconds)."""
-    S = prompt.shape[1]
+def _prefill(models, params, cfg, prompt, max_len):
+    """(last-token logits, decode state, seconds) of one prefill."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, state = models.prefill_step(params, {"tokens": prompt}, cfg=cfg,
-                                        max_len=S + n_steps)
+                                        max_len=max_len)
     torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    first, steps, fed = logits, [], []
+    return logits, state, time.perf_counter() - t0
+
+
+def _decode(models, params, cfg, logits, state, start, n_steps,
+            next_tokens=None):
+    """``n_steps`` decode steps from position ``start`` (``state`` is
+    written in place), fed the greedy token of the previous logits or, if
+    given, ``next_tokens[:, i]``.  Returns (per-step logits, fed tokens,
+    seconds)."""
+    steps, fed = [], []
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n_steps):
         tok = (logits[:, -1].argmax(-1, keepdim=True) if next_tokens is None
                else next_tokens[:, i:i + 1])
         fed.append(tok)
-        logits, state = models.serve_step(params, state, tok, S + i, cfg=cfg)
+        logits, state = models.serve_step(params, state, tok, start + i,
+                                          cfg=cfg)
         steps.append(logits[:, 0])
     torch.cuda.synchronize()
-    t_decode = time.perf_counter() - t0
-    return first[:, 0], steps, torch.cat(fed, dim=1), t_prefill, t_decode
+    return steps, torch.cat(fed, dim=1), time.perf_counter() - t0
+
+
+def _greedy_run(models, params, cfg, prompt, n_steps, next_tokens=None):
+    """Prefill ``prompt`` then ``n_steps`` decode steps (see ``_decode``).
+    Returns (prefill logits, per-step logits, fed tokens, prefill seconds,
+    decode seconds)."""
+    S = prompt.shape[1]
+    logits, state, t_prefill = _prefill(models, params, cfg, prompt,
+                                        S + n_steps)
+    steps, fed, t_decode = _decode(models, params, cfg, logits, state, S,
+                                   n_steps, next_tokens)
+    return logits[:, 0], steps, fed, t_prefill, t_decode
 
 
 def run_lm(dev, rec):
@@ -906,6 +1132,164 @@ def run_lm(dev, rec):
     return after
 
 
+def _tree_clone(tree):
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def run_rwkv(dev, rec):
+    """Phase 8: rwkv6-3b serving at full width and depth (its blocks run
+    ``wkv_chunked``, as the JAX package's do), then B9 through
+    ``ops.wkv`` on the prefill's own layer-0 streams.  Fills ``rec`` and
+    returns B9's launches on that path."""
+    from repro_torch import configs, models
+    from repro_torch.data import lm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analytics
+    from repro_torch.models import layers, rwkv6, transformer
+    cfg = configs.get_config(RWKV_ARCH)
+    params = models.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != RWKV_N_PARAMS:
+        raise AssertionError(f"{RWKV_ARCH}: {n_params:,} parameters, the "
+                             f"JAX init tree has {RWKV_N_PARAMS:,}")
+    batch = next(lm.synthetic_token_batches(
+        vocab=cfg.vocab_size, batch=RWKV_BATCH,
+        seq_len=RWKV_PROMPT + RWKV_DECODE, seed=0))
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    prompt = tokens[:, :RWKV_PROMPT]
+    max_len = RWKV_PROMPT + RWKV_DECODE
+    models.prefill_step(params, {"tokens": prompt}, cfg=cfg,
+                        max_len=max_len)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the model's path: counters at 0, prefill, RWKV_DECODE greedy steps;
+    # the control's state (WKV zeroed after the prefill) is copied aside,
+    # since decode writes the state in place
+    zero_counters()
+    logits, state, t_prefill = _prefill(models, params, cfg, prompt, max_len)
+    zeroed = _tree_clone(state)
+    zeroed["tm"]["wkv"].zero_()
+    steps, fed, t_decode = _decode(models, params, cfg, logits, state,
+                                   RWKV_PROMPT, RWKV_DECODE)
+    launches = {k: c[k] for k, c in launch_counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    mf = analytics.model_flops(RWKV_ARCH, "prefill_32k", batch=RWKV_BATCH,
+                               seq_len=RWKV_PROMPT)["model_flops_total"]
+    rec.update({
+        "arch": RWKV_ARCH, "n_params": n_params,
+        "n_params_model": cfg.n_params(), "batch": RWKV_BATCH,
+        "prompt": RWKV_PROMPT, "decode_steps": RWKV_DECODE,
+        "cut_from": "SHAPES['prefill_32k']: batch 32 -> 2, seq_len "
+                    "32768 -> 8192",
+        "launches": launches, "prefill_s": t_prefill,
+        "prefill_tokens_per_s": RWKV_BATCH * RWKV_PROMPT / t_prefill,
+        "decode_s_per_step": t_decode / RWKV_DECODE,
+        "max_memory_allocated": peak, "prefill_model_flops": mf,
+        "prefill_mfu": mf / t_prefill / BF16_FLOPS})
+    print(f"rwkv {RWKV_ARCH}: {n_params:,} parameters; prefill "
+          f"{RWKV_BATCH} x {RWKV_PROMPT} tokens in {t_prefill:.4f} s "
+          f"({rec['prefill_tokens_per_s']:.1f} tokens/s, model FLOPs "
+          f"{mf:.4g} = {rec['prefill_mfu']:.4f} of {BF16_FLOPS:.3g} FLOP/s); "
+          f"decode {rec['decode_s_per_step']:.4f} s per step; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the {RWKV_ARCH} steps launched {launches}: "
+                             f"its blocks run wkv_chunked; B9 runs only "
+                             f"through ops.wkv and B8 not at all")
+    if not all(torch.isfinite(x).all() for x in [logits] + steps):
+        raise AssertionError("non-finite logits")
+
+    # check 1: the last decode steps against a full forward over the
+    # prompt and the fed tokens; the control decodes the same tokens from
+    # the zeroed state
+    seq = torch.cat([prompt, fed], dim=1)
+    h, _, _ = models.forward(params, cfg, tokens=seq)
+    full = transformer.logits_from_hidden(params, cfg,
+                                          h[:, -LM_CHECKED_STEPS:])
+    del h
+    ctrl, _, _ = _decode(models, params, cfg, logits, zeroed, RWKV_PROMPT,
+                         RWKV_DECODE, next_tokens=fed)
+
+    def tail_gaps(st):
+        return [_rel_gap(st[-LM_CHECKED_STEPS + i], full[:, i])
+                for i in range(LM_CHECKED_STEPS)]
+    sound = {"decode_vs_forward": tail_gaps(steps)}
+    controls = {"decode_vs_forward": tail_gaps(ctrl)}
+    del full, state, zeroed
+
+    # check 3: B9 through ops.wkv on layer 0's streams of the prefill
+    # (time_mix's own r, k, v, w and bonus), against the y its
+    # wkv_chunked computes; the path's launches counted alone
+    p0 = transformer._index(params["blocks"], 0)
+    tm = p0["rwkv"]["tm"]
+    x0 = layers.rmsnorm(p0["ln1"], layers.embed(
+        params["embed"], prompt, scale=cfg.post_block_norm))
+    r, k, v, w, _ = rwkv6._streams(tm, x0, cfg.n_heads, cfg.ssm_head_dim)
+    model_y, _ = rwkv6.wkv_chunked(r, k, v, w, tm["bonus"])
+    zero_counters()
+    b9_y = ops.wkv(r, k, v, w, tm["bonus"])
+    torch.cuda.synchronize()
+    b9_launches = {n: c[n] for n, c in launch_counters().items()}
+    b9 = {"launches": b9_launches, "ratio": wkv_ratio(b9_y, model_y),
+          "max_abs_err": max_err(b9_y, model_y),
+          "max_abs_out": float(model_y.float().abs().max()),
+          "control": {"no carry": wkv_ratio(wkv_fault(
+              "no carry", r, k, v, w, tm["bonus"], 16), model_y)}}
+    print(f"rwkv check b9_on_model_streams: max |ops.wkv - wkv_chunked| = "
+          f"{b9['max_abs_err']:g} (max |y| {b9['max_abs_out']:.4g}), ratio "
+          f"{b9['ratio']:.4f} (limit 1); control no carry "
+          f"{b9['control']['no carry']:.4g}; launches {b9_launches}")
+    if b9_launches["wkv"] != 1 or sum(b9_launches.values()) != 1:
+        raise AssertionError(f"ops.wkv launched {b9_launches}, expected B9 "
+                             f"once")
+    if not b9["ratio"] <= 1.0:
+        raise AssertionError(f"B9 on the model's streams: {b9['ratio']} x "
+                             f"the limit")
+    if not b9["control"]["no carry"] > 1.0:
+        raise AssertionError("B9 on the model's streams: the check does not "
+                             "catch no carry")
+    del params, r, k, v, w, model_y, b9_y, x0, p0, tm
+
+    # check 2: full width, two layers, card against CPU
+    cut = cfg.replace(n_layers=RWKV_CUT["n_layers"])
+    card = models.init_params(torch.Generator(device=dev).manual_seed(1),
+                              cut, device=dev)
+    cpu = _tree_to(card, "cpu")
+    p_len, n_dec = RWKV_CUT["prompt"], RWKV_CUT["decode"]
+    toks = tokens[:, :p_len + n_dec]
+
+    def cut_run(prm, d, zero_wkv=False):
+        t = toks.to(d)
+        lg, st, _ = _prefill(models, prm, cut, t[:, :p_len], p_len + n_dec)
+        if zero_wkv:
+            st["tm"]["wkv"].zero_()
+        out, _, _ = _decode(models, prm, cut, lg, st, p_len, n_dec,
+                            next_tokens=t[:, p_len:])
+        return [lg[:, 0]] + out
+    want = cut_run(cpu, "cpu")
+    sound["card_vs_cpu"] = [_rel_gap(a.cpu(), b)
+                            for a, b in zip(cut_run(card, dev), want)]
+    controls["card_vs_cpu"] = [_rel_gap(a.cpu(), b) for a, b in
+                               zip(cut_run(card, dev, zero_wkv=True), want)]
+
+    rec.update(gaps=sound, controls=controls, limits=RWKV_LIMITS,
+               b9_on_model_streams=b9)
+    for check, limit in RWKV_LIMITS.items():
+        print(f"rwkv check {check}: gap {max(sound[check]):.5f} (limit "
+              f"{limit}); control (WKV state zeroed after the prefill) "
+              f"{max(controls[check]):.5f}")
+        if not max(sound[check]) <= limit:
+            raise AssertionError(f"rwkv {check}: gaps {sound[check]} > "
+                                 f"{limit}")
+        if not max(controls[check]) > limit:
+            raise AssertionError(f"rwkv {check}: the check does not catch "
+                                 f"a zeroed WKV state ({controls[check]})")
+    return b9_launches["wkv"]
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -936,7 +1320,7 @@ def main() -> int:
     print(_build.build_log.strip())
 
     records = check_kernels(dev)
-    runs, lm_rec = {}, {}
+    runs, lm_rec, rwkv_rec = {}, {}, {}
     try:
         setups = Setups(dev)
         for phase in PHASES:
@@ -952,12 +1336,15 @@ def main() -> int:
         t0 = time.perf_counter()
         records["flash_attention"]["launches"] = run_lm(dev, lm_rec)
         print(f"phase lm: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        records["wkv"]["launches"] = run_rwkv(dev, rwkv_rec)
+        print(f"phase rwkv: {time.perf_counter() - t0:.1f} s")
     finally:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_report.json").write_text(json.dumps(
             {"card": card, "kernels": list(records.values()), "runs": runs,
-             "lm": lm_rec}, indent=1))
+             "lm": lm_rec, "rwkv": rwkv_rec}, indent=1))
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

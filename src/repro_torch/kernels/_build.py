@@ -41,6 +41,8 @@ SIGNATURES = {
     # softcap; dtype; stream
     "flash_attention_launch": (_P,) * 4 + (_I64,) * 6 + (_I64,) * 12
     + (_I64, _I64, _F, _F, _I64, _P),
+    # r, k, v, w, u, y; B, S, H, K, chunk; 15 strides; dtype; stream
+    "wkv_launch": (_P,) * 6 + (_I64,) * 5 + (_I64,) * 15 + (_I64, _P),
 }
 
 _lock = threading.Lock()

@@ -5,9 +5,9 @@ Each repeats its kernel's arithmetic operation for operation: the fedavg
 sums run over the rows in the fixed order 0..W-1, and every multiply and
 add is a separate rounded PyTorch op, so on the card the kernels agree
 with these bit for bit.  The CPU wrappers run these; ``chip_smoke.py``
-holds each kernel against them.  The attention versions cannot agree
-bit for bit (the kernel sums its dot products in another order); they
-repeat the kernel's arithmetic in every other respect.
+holds each kernel against them.  The attention and WKV versions cannot
+agree bit for bit (the kernels sum their dot products in another order);
+they repeat the kernels' arithmetic in every other respect.
 """
 from __future__ import annotations
 
@@ -165,3 +165,65 @@ def reference_flash_attention(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]        # (B,Kv,rep,S,D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def reference_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The sequential WKV recurrence, the ground truth of the chunked forms
+    (the counterpart of the JAX package's ``reference_wkv``): for each t,
+    ``y_t = r_t . (state + u k_t v_t^T)``, then ``state = state * w_t +
+    k_t v_t^T``, from a zero state, in f32.  r, k, v, w: (B,S,H,K); u:
+    (H,K).  Returns y (B,S,H,K) in r's dtype."""
+    f32 = torch.float32
+    B, S, H, K = r.shape
+    r, k, v, w = (t.to(f32) for t in (r, k, v, w))
+    uf = u.to(f32)[None, :, :, None]
+    state = torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,K,V)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + uf * kv))
+        state = state * w[:, t, :, :, None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype)
+
+
+def reference_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          w: torch.Tensor, u: torch.Tensor, chunk: int = 16
+                          ) -> torch.Tensor:
+    """The plain version of the WKV kernel (B9): the arithmetic of the TPU
+    kernel ``_wkv_kernel``, every (batch, head) at once, chunk after chunk
+    from a zero (K, K) state.
+
+    Per chunk, in f32: ``lw = log(clip(w, 1e-12, 1))``; the exclusive
+    cumsum ``A = cumsum(lw) - lw`` and ``Atot = A[-1] + lw[-1]``; the
+    pairwise decays ``exp(A_t - A_i - lw_i)`` kept for ``i < t`` only;
+    ``y = scores @ v + (r . u k) v``, then ``y += (r exp(A)) @ state``
+    (the state as it was before this chunk); then ``state = state
+    exp(Atot) + (k exp(Atot - A - lw))^T @ v``.
+    r, k, v, w: (B,S,H,K) with ``S % min(chunk, S) == 0``; u: (H,K).
+    Returns y (B,S,H,K) in r's dtype."""
+    f32 = torch.float32
+    B, S, H, K = r.shape
+    C = min(chunk, S)
+    uf = u.to(f32)[None, :, None, :]                            # (1,H,1,K)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                     diagonal=-1)[None, None, :, :, None]       # i < t
+    state = torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+    ys = []
+    for c0 in range(0, S, C):
+        rb, kb, vb, wb = (t[:, c0:c0 + C].transpose(1, 2).to(f32)
+                          for t in (r, k, v, w))                # (B,H,C,K)
+        lw = torch.log(torch.clamp(wb, 1e-12, 1.0))
+        A = torch.cumsum(lw, dim=2) - lw
+        Atot = A[:, :, -1] + lw[:, :, -1]                       # (B,H,K)
+        D = A[:, :, :, None, :] - A[:, :, None, :, :] - lw[:, :, None, :, :]
+        E = torch.where(tri, torch.exp(D), 0.0)                 # (B,H,C,C,K)
+        scores = torch.einsum("bhtk,bhtik,bhik->bhti", rb, E, kb)
+        diag = torch.sum(rb * uf * kb, dim=-1)                  # (B,H,C)
+        y = scores @ vb + diag[..., None] * vb
+        y = y + (rb * torch.exp(A)) @ state
+        kdec = kb * torch.exp(Atot[:, :, None, :] - A - lw)
+        state = state * torch.exp(Atot)[..., None] + \
+            kdec.transpose(2, 3) @ vb
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, dim=1).to(r.dtype)

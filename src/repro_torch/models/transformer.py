@@ -1,5 +1,5 @@
-"""The LM serving path for attention-block models without experts (port
-of ``repro/models/transformer.py``): parameters, ``forward``,
+"""The LM serving path for attention-block models without experts and for
+rwkv6 (port of ``repro/models/transformer.py``): parameters, ``forward``,
 ``prefill_step`` and ``serve_step``.
 
 The JAX package's layout is kept, so ``params_from_numpy`` is a straight
@@ -9,11 +9,12 @@ projections, bf16 everywhere.  A Python loop over the stacked blocks takes
 the place of ``lax.scan``; for gemma2 each pair runs its local (window)
 layer, then its global layer.
 
-A decode step writes the KV caches of its state IN PLACE (see
-``attention.cache_write``) and returns that same state.
+A decode step writes its state IN PLACE (the KV caches through
+``attention.cache_write``; rwkv6's shift and WKV states by copy) and
+returns that same state.
 
 Not ported yet (ROADMAP A13), each raising ``NotImplementedError``: the
-rwkv6 and mamba2 block types and mixture-of-experts configs.  The loss and
+mamba2 block type and mixture-of-experts configs.  The loss and
 ``train_step`` are training and wait for a later slice.
 """
 from __future__ import annotations
@@ -26,12 +27,13 @@ import torch
 from repro_torch import resolve_device
 
 from . import attention as attn_mod
+from . import rwkv6 as rwkv_mod
 from .layers import (COMPUTE_DTYPE, dense_init, embed, glu_mlp, rmsnorm,
                      softcap)
 
 
 def _check_supported(cfg) -> None:
-    if cfg.block_type != "attn":
+    if cfg.block_type not in ("attn", "rwkv6"):
         raise NotImplementedError(
             f"{cfg.name}: block_type {cfg.block_type!r} is not ported to "
             f"repro_torch yet (ROADMAP A13)")
@@ -82,18 +84,22 @@ def init_params(generator: torch.Generator, cfg, device=None):
     def zeros(*shape):
         return torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
 
-    blocks = {
-        "ln1": {"scale": zeros(*lead, d)},
-        "ln2": {"scale": zeros(*lead, d)},
-        "attn": attn_mod.attn_init(generator, d, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.hd, lead=lead, device=device),
-        "mlp": {
+    blocks = {"ln1": {"scale": zeros(*lead, d)},
+              "ln2": {"scale": zeros(*lead, d)}}
+    if cfg.block_type == "rwkv6":
+        blocks["rwkv"] = rwkv_mod.rwkv6_init(
+            generator, d, cfg.d_ff, cfg.n_heads, cfg.ssm_head_dim, lead=lead,
+            device=device)
+    else:
+        blocks["attn"] = attn_mod.attn_init(
+            generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, lead=lead,
+            device=device)
+        blocks["mlp"] = {
             "wi_gate": dense_init(generator, lead + (d, cfg.d_ff), d, device),
             "wi_up": dense_init(generator, lead + (d, cfg.d_ff), d, device),
             "wo": dense_init(generator, lead + (cfg.d_ff, d), cfg.d_ff,
                              device),
-        },
-    }
+        }
     if cfg.post_block_norm:
         blocks["post_ln1"] = {"scale": zeros(*lead, d)}
         blocks["post_ln2"] = {"scale": zeros(*lead, d)}
@@ -146,6 +152,19 @@ def _attn_block_apply(p, x, cfg, *, window, cache=None, cur_pos=None):
     return x + f, kv
 
 
+def _rwkv_block_apply(p, x, cfg, state=None):
+    """One rwkv6 block: time mix and channel mix, each on its own pre-norm.
+    Returns (x, the block's new state)."""
+    st_tm = state["tm"] if state is not None else None
+    a, new_tm = rwkv_mod.time_mix(p["rwkv"]["tm"], rmsnorm(p["ln1"], x),
+                                  cfg.n_heads, cfg.ssm_head_dim, st_tm)
+    x = x + a
+    st_cm = state["cm"] if state is not None else None
+    f, new_cm = rwkv_mod.channel_mix(p["rwkv"]["cm"], rmsnorm(p["ln2"], x),
+                                     st_cm)
+    return x + f, {"tm": new_tm, "cm": new_cm}
+
+
 def _kv_from_full(k, v, cache_len: int):
     """Full-sequence K/V (B,S,Kv,hd) as a decode cache of ``cache_len``
     slots: ring layout when cache_len < S (slot = pos % C), zero headroom
@@ -170,10 +189,22 @@ def _kv_from_full(k, v, cache_len: int):
 
 def init_decode_state(cfg, batch: int, context_len: int,
                       dtype=COMPUTE_DTYPE, device=None):
-    """Zeroed decode state: ``{"kv": {"k", "v", "slot_pos"}}`` stacked like
-    the blocks, each cache ``cfg.kv_cache_len(context_len)`` slots."""
+    """Zeroed decode state, stacked like the blocks: ``{"kv": {"k", "v",
+    "slot_pos"}}``, each cache ``cfg.kv_cache_len(context_len)`` slots; for
+    rwkv6 ``{"tm": {"shift", "wkv"}, "cm": {"shift"}}`` (the WKV state in
+    f32, ``context_len`` unused)."""
     _check_supported(cfg)
     device = resolve_device(device)
+    if cfg.block_type == "rwkv6":
+        L, D, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.ssm_head_dim
+
+        def shift():
+            return torch.zeros((L, batch, 1, D), dtype=dtype, device=device)
+        return {"tm": {"shift": shift(),
+                       "wkv": torch.zeros((L, batch, H, K, K),
+                                          dtype=torch.float32,
+                                          device=device)},
+                "cm": {"shift": shift()}}
     C = cfg.kv_cache_len(context_len)
     lead = _lead(cfg)
     shape = lead + (batch, C, cfg.n_kv_heads, cfg.hd)
@@ -196,6 +227,8 @@ def forward(params, cfg, *, tokens=None, embeds=None, state=None,
     * train:    state=None, return_cache=False
     * prefill:  state=None, return_cache=True  (decode state built from K/V)
     * decode:   state=<decode state>, S == 1; the state is updated in place
+
+    rwkv6 prefills from a zero state; ``cur_pos`` is not used there.
     """
     _check_supported(cfg)
     dev = params["embed"]["embedding"].device
@@ -212,16 +245,32 @@ def forward(params, cfg, *, tokens=None, embeds=None, state=None,
     elif return_cache:
         C = cache_len or cfg.kv_cache_len(S)
         new_state = init_decode_state(cfg, B, C, dtype=x.dtype, device=dev)
-    for idx, window in _block_indices(cfg):
-        cache = _index(state["kv"], idx) if decode else None
-        x, kv = _attn_block_apply(_index(params["blocks"], idx), x, cfg,
-                                  window=window, cache=cache,
-                                  cur_pos=cur_pos)
-        if return_cache and not decode:
-            for name, t in _kv_from_full(*kv, C).items():
-                new_state["kv"][name][idx].copy_(t)
+    if cfg.block_type == "rwkv6":
+        for i in range(cfg.n_layers):
+            x, st = _rwkv_block_apply(_index(params["blocks"], i), x, cfg,
+                                      _index(state, i) if decode else None)
+            if new_state is not None:
+                _copy_into(new_state, st, i)
+    else:
+        for idx, window in _block_indices(cfg):
+            cache = _index(state["kv"], idx) if decode else None
+            x, kv = _attn_block_apply(_index(params["blocks"], idx), x, cfg,
+                                      window=window, cache=cache,
+                                      cur_pos=cur_pos)
+            if return_cache and not decode:
+                for name, t in _kv_from_full(*kv, C).items():
+                    new_state["kv"][name][idx].copy_(t)
     x = rmsnorm(params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=dev), new_state
+
+
+def _copy_into(stacked, tree, i) -> None:
+    """Write ``tree``'s tensors into entry ``i`` of the stacked ``stacked``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _copy_into(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
 
 
 def logits_from_hidden(params, cfg, h):

@@ -14,8 +14,16 @@ within 2e-5 in f32 (ROADMAP (b)) and within 2^-7 |plain| + 1e-4 in bf16:
 one bf16 ulp of the plain output, since both sides compute in f32 and
 round once, and another summation order flips at most the last bit.  q is
 drawn at 8x the scale of k and v, so that the scores reach the softcap
-and the softmax is peaked.
+and the softmax is peaked.  WKV (B9) elementwise within chip_smoke.py's
+``WKV_TOL``: in bf16 one bf16 ulp of the plain output plus 1e-5 of its
+largest |value|, in f32 1e-5 of the largest |value| (both sides compute
+in f32 and round once); and that limit must fail against the plain
+version given each of chip_smoke's faults (no bonus, no state carried
+across chunks, an inclusive cumsum).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +31,10 @@ import torch
 from repro_torch.core import transport
 from repro_torch.kernels import (fedavg_agg, flash_attention, ref,
                                  server_opt, topk_quant)
+
+# chip_smoke.py holds B9's limit (wkv_ratio) and its faults (wkv_fault)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
 def _rows(W, N, seed=0):
@@ -255,3 +267,73 @@ def test_cuda_prefill_launches_flash_once_per_layer(h100, arch):
         lc, sc = models.serve_step(params, sc, toks[:, t:t + 1], t, cfg=cfg)
     err = (lg.float().cpu() - lc.float()).abs().max() / lc.float().abs().max()
     assert float(err) < 0.04
+
+
+# B9 (WKV): (B, S, H, K, chunk, dtype): rwkv6-3b's heads at ops.wkv's
+# chunk, tests/test_kernels.py's f32 shapes, K = 16 (one block per head),
+# and a chunk of 64 (over 48 KB of shared memory: the opt-in path)
+WKV_CASES = [
+    (2, 1024, 40, 64, 16, torch.bfloat16),
+    (2, 512, 4, 64, 16, torch.float32),
+    (2, 64, 2, 16, 16, torch.float32),
+    (2, 128, 3, 32, 32, torch.float32),
+    (2, 64, 1, 8, 8, torch.float32),
+    (1, 256, 2, 64, 64, torch.bfloat16),
+]
+
+
+def _wkv_case(h100, B, S, H, K, dtype, seed=0):
+    """chip_smoke's B9 inputs: w ~ 0.98, so the state carries far."""
+    rng = np.random.RandomState(seed)
+    r, k, v = (_t(0.5 * rng.randn(B, S, H, K).astype(np.float32))
+               .to(h100, dtype) for _ in range(3))
+    w = _t(np.exp(-np.exp(-4 + 0.5 * rng.randn(B, S, H, K))).astype(
+        np.float32)).to(h100)
+    u = _t((0.5 + 0.1 * rng.randn(H, K)).astype(np.float32)).to(h100)
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,chunk,dtype", WKV_CASES)
+def test_cuda_wkv_matches_plain(h100, B, S, H, K, chunk, dtype):
+    from repro_torch.kernels import rwkv6_kernel
+    r, k, v, w, u = _wkv_case(h100, B, S, H, K, dtype)
+    n0 = rwkv6_kernel.LAUNCHES["wkv"]
+    got = rwkv6_kernel.wkv(r, k, v, w, u, chunk=chunk)
+    plain = ref.reference_wkv_chunked(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_kernel.LAUNCHES["wkv"] == n0 + 1
+    assert got.dtype == dtype and got.shape == r.shape
+    assert chip_smoke.wkv_ratio(got, plain) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_reads_strided_views(h100):
+    """r, k, v as views of one (B, S, H, 3K) projection: read through
+    their strides, with no copy."""
+    from repro_torch.kernels import rwkv6_kernel
+    B, S, H, K = 2, 256, 4, 64
+    rkv = (0.5 * torch.randn(B, S, H, 3 * K, device=h100)).bfloat16()
+    r, k, v = rkv[..., :K], rkv[..., K:2 * K], rkv[..., 2 * K:]
+    _, _, _, w, u = _wkv_case(h100, B, S, H, K, torch.bfloat16)
+    got = rwkv6_kernel.wkv(r, k, v, w, u)
+    plain = ref.reference_wkv_chunked(r, k, v, w, u, chunk=16)
+    torch.cuda.synchronize()
+    assert chip_smoke.wkv_ratio(got, plain) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["u = 0", "no carry", "inclusive cumsum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_wkv_check_catches_faults(h100, fault, dtype):
+    """The limit that the kernel meets fails a plain version given each
+    of chip_smoke's faults."""
+    from repro_torch.kernels import rwkv6_kernel
+    r, k, v, w, u = _wkv_case(h100, 2, 512, 4, 64, dtype, seed=1)
+    got = rwkv6_kernel.wkv(r, k, v, w, u)
+    bad = chip_smoke.wkv_fault(fault, r, k, v, w, u, 16)
+    torch.cuda.synchronize()
+    plain = ref.reference_wkv_chunked(r, k, v, w, u)
+    assert chip_smoke.wkv_ratio(got, plain) <= 1.0
+    assert chip_smoke.wkv_ratio(got, bad) > 1.0

@@ -43,7 +43,8 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.flash_attention, repro_torch.models, "
             "repro_torch.models.attention, repro_torch.models.layers, "
             "repro_torch.configs, repro_torch.data.lm, "
-            "repro_torch.launch.analytics\n"
+            "repro_torch.launch.analytics, repro_torch.kernels.ops, "
+            "repro_torch.kernels.rwkv6_kernel, repro_torch.models.rwkv6\n"
             "assert 'repro_torch.core.experiment' in sys.modules\n"
             "assert 'repro_torch.models.transformer' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],

@@ -37,8 +37,8 @@ TOL = 0.04
 DECODE_REL = 0.08        # tests/test_decode_consistency.py's bound
 ATTN_ARCHS = ["gemma2-2b", "yi-9b", "deepseek-67b", "starcoder2-15b",
               "internvl2-26b", "musicgen-medium"]
-UNPORTED_ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "rwkv6-3b",
-                  "zamba2-7b"]
+# rwkv6-3b is ported: tests/test_torch_rwkv6.py holds it against JAX
+UNPORTED_ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
 
 
 def _np_params(cfg, seed=0):

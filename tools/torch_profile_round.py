@@ -1,7 +1,7 @@
 """Where a round of the port's runs spends its time on the card.
 
     PYTHONPATH=src python tools/torch_profile_round.py [--rounds 2]
-        [--runs raw/sync,uplink_only/sync] [--prefill]
+        [--runs raw/sync,uplink_only/sync] [--prefill [ARCH]]
 
 For each named run of ``chip_smoke.py`` (default: the main path's raw
 sync and top-k+int8 uplink sync; e.g. ``hetero/sync/fedadam`` or
@@ -12,10 +12,13 @@ seconds per round (inflated by the profiler itself), the device's busy
 time (the sum of kernel times: one stream, so kernels do not overlap)
 and idle share, the time inside this repo's kernels, kernel launches per
 round, the operators that take the most host time and the kernels that
-take the most device time.  With ``--prefill`` it profiles instead one
-prefill of ``chip_smoke.py``'s LM phase (gemma2-2b at full width, 2
-prompts of 8192 tokens, kernel B8 for attention) after a warm-up one, and
-splits the device time into B8, cuBLAS's GEMMs and the rest.  It needs the
+take the most device time.  With ``--prefill [ARCH]`` it profiles instead
+one full-width prefill of 2 prompts of 8192 tokens after a warm-up one:
+gemma2-2b (the default, ``chip_smoke.py``'s LM phase, kernel B8 for
+attention), whose device time it splits into B8, cuBLAS's GEMMs and the
+rest, or rwkv6-3b (its rwkv6 phase), whose device time it splits into the
+plain ``wkv_chunked`` (every kernel launched inside it, its own batched
+products included), cuBLAS's GEMMs outside it and the rest.  It needs the
 card and raises without one.
 """
 import argparse
@@ -25,7 +28,7 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -37,7 +40,8 @@ from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
 
 OWN_KERNELS = ("agg_vec4", "agg_scalar", "mix_vec4", "mix_scalar",
                "encode_kernel", "decode_kernel", "mom_vec4", "mom_scalar",
-               "adam_vec4", "adam_scalar", "flash_fwd")
+               "adam_vec4", "adam_scalar", "flash_fwd", "wkv_fwd")
+SPAN = "wkv_chunked"      # the profiler range around rwkv6's plain WKV
 # cuBLAS's GEMM kernels, by the names they carry on Hopper
 GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
 
@@ -60,37 +64,89 @@ def _profile(fn):
     return prof, wall
 
 
-def profile_prefill():
-    """One full-width gemma2-2b prefill: B8's share of device time against
-    cuBLAS's GEMMs and everything else."""
+def _is_gemm(name: str) -> bool:
+    return any(n in name.lower() for n in GEMM_NAMES)
+
+
+def _span_kernels(evt):
+    """The kernels launched under the CPU event ``evt`` and its children."""
+    out = list(evt.kernels)
+    for child in evt.cpu_children:
+        out.extend(_span_kernels(child))
+    return out
+
+
+def profile_prefill(arch: str):
+    """One full-width prefill of ``arch`` (gemma2-2b or rwkv6-3b): the
+    device time of B8 or of ``wkv_chunked`` against cuBLAS's GEMMs and
+    everything else, and the idle share."""
     from repro_torch import configs, models
     from repro_torch.data import lm
-    cfg = configs.get_config(chip_smoke.LM_ARCH).replace(attn_impl="pallas")
+    from repro_torch.models import rwkv6
+    cfg = configs.get_config(arch)
+    rwkv = cfg.block_type == "rwkv6"
+    if rwkv:
+        batch_n, prompt = chip_smoke.RWKV_BATCH, chip_smoke.RWKV_PROMPT
+        max_len = prompt + chip_smoke.RWKV_DECODE
+    else:
+        cfg = cfg.replace(attn_impl="pallas")
+        batch_n, prompt = chip_smoke.LM_BATCH, chip_smoke.LM_PROMPT
+        max_len = prompt + chip_smoke.LM_DECODE
     params = models.init_params(torch.Generator("cuda").manual_seed(0), cfg,
                                 device="cuda")
     batch = next(lm.synthetic_token_batches(
-        vocab=cfg.vocab_size, batch=chip_smoke.LM_BATCH,
-        seq_len=chip_smoke.LM_PROMPT, seed=0))
+        vocab=cfg.vocab_size, batch=batch_n, seq_len=prompt, seed=0))
     tokens = torch.from_numpy(batch["tokens"]).to("cuda")
-    max_len = chip_smoke.LM_PROMPT + chip_smoke.LM_DECODE
 
     def prefill():
         return models.prefill_step(params, {"tokens": tokens}, cfg=cfg,
                                    max_len=max_len)
     prefill()                                              # warm-up
-    prof, wall = _profile(prefill)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    plain = rwkv6.wkv_chunked
+
+    def spanned(*args, **kw):
+        with record_function(SPAN):
+            return plain(*args, **kw)
+    rwkv6.wkv_chunked = spanned
+    try:
+        prof, wall = _profile(prefill)
+    finally:
+        rwkv6.wkv_chunked = plain
+    # the span also shows as a device row (its extent on the card's
+    # timeline): kernels only
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != SPAN]
     busy = sum(_device_us(e) for e in kernels) / 1e3
-    flash = sum(_device_us(e) for e in kernels if "flash_fwd" in e.key) / 1e3
-    gemm = sum(_device_us(e) for e in kernels
-               if any(n in e.key.lower() for n in GEMM_NAMES)) / 1e3
-    print(f"\nprefill {chip_smoke.LM_ARCH} B={chip_smoke.LM_BATCH} "
-          f"S={chip_smoke.LM_PROMPT}: wall {wall * 1e3:.3f} ms (profiled), "
-          f"device busy {busy:.3f} ms, idle share {1 - busy / wall / 1e3:.3f}"
-          f"\n  B8 flash_fwd {flash:.3f} ms ({flash / busy:.4f} of busy), "
-          f"cuBLAS GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), other "
-          f"{busy - flash - gemm:.3f} ms ({(busy - flash - gemm) / busy:.4f})")
+    gemm = sum(_device_us(e) for e in kernels if _is_gemm(e.key)) / 1e3
+    print(f"\nprefill {arch} B={batch_n} S={prompt}: wall {wall * 1e3:.3f} "
+          f"ms (profiled), device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall / 1e3:.3f}; unprofiled wall {bare * 1e3:.3f} "
+          f"ms, idle share against it {1 - busy / bare / 1e3:.3f}")
+    if rwkv:
+        inside = [k for e in prof.events() if e.name == SPAN
+                  and e.device_type == torch.autograd.DeviceType.CPU
+                  for k in _span_kernels(e)]
+        wkv = sum(k.duration for k in inside) / 1e3
+        wkv_gemm = sum(k.duration for k in inside if _is_gemm(k.name)) / 1e3
+        rest = busy - wkv - (gemm - wkv_gemm)
+        print(f"  wkv_chunked {wkv:.3f} ms ({wkv / busy:.4f} of busy; its "
+              f"cuBLAS products {wkv_gemm:.3f} ms, {len(inside)} kernels), "
+              f"cuBLAS GEMMs outside it {gemm - wkv_gemm:.3f} ms "
+              f"({(gemm - wkv_gemm) / busy:.4f}), other {rest:.3f} ms "
+              f"({rest / busy:.4f})")
+    else:
+        flash = sum(_device_us(e) for e in kernels
+                    if "flash_fwd" in e.key) / 1e3
+        print(f"  B8 flash_fwd {flash:.3f} ms ({flash / busy:.4f} of busy), "
+              f"cuBLAS GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), other "
+              f"{busy - flash - gemm:.3f} ms "
+              f"({(busy - flash - gemm) / busy:.4f})")
     for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
         print(f"  device {_device_us(e) / 1e3:9.3f} ms  {e.count:7d}x  "
               f"{e.key[:70]}")
@@ -100,8 +156,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--runs", default="raw/sync,uplink_only/sync")
-    ap.add_argument("--prefill", action="store_true",
-                    help="profile one LM prefill instead of FL rounds")
+    ap.add_argument("--prefill", nargs="?", const=chip_smoke.LM_ARCH,
+                    metavar="ARCH", choices=(chip_smoke.LM_ARCH,
+                                             chip_smoke.RWKV_ARCH),
+                    help="profile one LM prefill of ARCH (default "
+                         f"{chip_smoke.LM_ARCH}) instead of FL rounds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_round: needs a CUDA card")
@@ -110,7 +169,7 @@ def main():
                           capture_output=True, text=True, timeout=60)
     print(f"card: {card.stdout.strip()}; torch {torch.__version__}")
     if args.prefill:
-        profile_prefill()
+        profile_prefill(args.prefill)
         return
     for key in args.runs.split(","):
         spec = chip_smoke.RUNS[key]
