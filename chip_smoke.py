@@ -8,10 +8,13 @@ and prints no result):
 
 1. Card identity: ``nvidia-smi`` name and power limit; compute capability
    (9, 0) is required.
-2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   and print nvcc's ``-Xptxas -v`` report; B8's tensor-core body
+   (``flash_wgmma``) must not spill registers.
 3. Kernels: hold each kernel against its plain PyTorch version on the
-   card at the paths' shapes (fedavg W = 30 and 2, N = 101,888 and a
-   ragged N = 1000, within 1e-6; encode and decode at N = 101,888 and
+   card at the paths' shapes (fedavg W = 30 and 2, N = 101,888, the
+   scalar path's 101,890 and a ragged N = 1000: the aggregate bit-exact,
+   the mix within 1e-6; encode and decode at N = 101,888 and
    1000, bit-exact; the server-optimizer step at N = 101,888, 29,184 (the
    padded MNIST CNN) and 1000 with the FedAvgM, FedDyn and FedAdam
    scalars, bit-exact, fresh and with its state written in place; flash
@@ -27,7 +30,9 @@ and prints no result):
    cumsum); then time kernel, plain version and one-call library
    yardstick with CUDA events (median of 50 cold-L2 runs after warm-up;
    10 for flash attention and WKV, whose sequential ``reference_wkv`` is
-   timed too), beside the least time the card could take.
+   timed too; kernel and library in turns: library, kernel, kernel,
+   library), beside the least time the card could take and the time
+   before B2's and B8's redesign.
 4. Main path: the paper's 30-worker MNIST experiment at full MLP width
    (784-128-10, 101,770 parameters) through ``make_setup`` -> ``run_fl``,
    20 rounds x 10 local epochs, in sync / async / async_delta /
@@ -59,11 +64,12 @@ follow the numerics).
    2 prompts of 8192 tokens from ``synthetic_token_batches`` (cut from
    ``SHAPES["prefill_32k"]``: batch 32 -> 2, 32,768 -> 8192 tokens), then
    32 greedy decode steps, every counter at 0 before and read after.
-   Checks: B8 launches once per layer in the prefill and never in
-   decode; the prefill's last-token logits match the same prefill
-   through ``mha_chunked``; the last 4 decode steps match a full forward
-   over the 8224 positions; at one local/global pair (512-token prompt,
-   4 decode steps) the card matches a CPU run in this process; each within
+   Checks: B8 launches once per layer in the prefill, every launch
+   through its tensor-core body, and never in decode; the prefill's
+   last-token logits match the same prefill through ``mha_chunked``; the
+   last 4 decode steps match a full forward over the 8224 positions; at
+   one local/global pair (512-token prompt, 4 decode steps) the card
+   matches a CPU run in this process; each within
    its ``LM_LIMITS`` entry.  Each check is repeated with B8 given a fault
    (``LM_FAULTS``); those in ``LM_CAUGHT`` must fail it.  Reports prefill
    seconds and tokens/s, decode seconds per step, peak device memory and
@@ -91,6 +97,7 @@ phase fails.
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -304,6 +311,29 @@ OPT_SCALARS = {"fedavgm": [0.9, 1.0, 0.0, 1.0],
                "fedadam": [0.9, 0.99, 0.05, 1e-3, 0.0, 0.0]}
 
 
+def ptxas_report(log: str, name: str) -> dict:
+    """nvcc -Xptxas -v's registers, barriers, static shared memory, stack
+    and spills of each entry function whose mangled name holds ``name``
+    (the dynamic shared memory of a launch is not in it)."""
+    out = {}
+    for block in log.split("ptxas info    : Compiling entry function '")[1:]:
+        kern = block.split("'", 1)[0]
+        if name not in kern:
+            continue
+        info = {}
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("barriers", r"used (\d+) barriers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, block)
+            if m:
+                info[key] = int(m.group(1))
+        out[kern] = info
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -346,6 +376,19 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
+    def turns(self, kern, lib, n: int = N_TIMED):
+        """``kern`` and the library call ``lib`` (or None) timed in turns,
+        library, kernel, kernel, library: returns the kernel's and the
+        library's mean of their two medians (None without a library) and
+        the four readings."""
+        if lib is None:
+            return self(kern, n), None, None
+        first = self(lib, n)
+        k = [self(kern, n), self(kern, n)]
+        lb = [first, self(lib, n)]
+        return (statistics.mean(k), statistics.mean(lb),
+                {"kernel": k, "library": lb})
+
 
 def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -364,7 +407,9 @@ def launch_counters():
     return {"agg": fedavg_agg.LAUNCHES, "mix": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
             "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES,
-            "flash": flash_attention.LAUNCHES, "wkv": rwkv6_kernel.LAUNCHES}
+            "flash": flash_attention.LAUNCHES,
+            "flash_wgmma": flash_attention.LAUNCHES,
+            "wkv": rwkv6_kernel.LAUNCHES}
 
 
 def zero_counters():
@@ -407,7 +452,8 @@ def check_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     N = 101_888
     errs = {k: 0.0 for k in REQUIRED}
-    for W, n in ((30, N), (2, N), (30, 1000), (3, 1000)):
+    # 101,890: the scalar path (N % 4 != 0) at the main path's width
+    for W, n in ((30, N), (2, N), (30, 101_890), (30, 1000), (3, 1000)):
         rows = torch.randn(W, n, device=dev, generator=g)
         w = torch.rand(W, device=dev, generator=g)
         w /= w.sum()
@@ -440,7 +486,7 @@ def check_kernels(dev):
             errs["dequant_add"] = max(errs["dequant_add"], e)
     check_server_opt(dev, g, errs)
     torch.cuda.synchronize()
-    limits = {"fedavg_agg_flat": 1e-6, "fedavg_mix_flat": 1e-6,
+    limits = {"fedavg_agg_flat": 0.0, "fedavg_mix_flat": 1e-6,
               "topk_quant_encode": 0.0, "dequant_add": 0.0,
               "server_opt_step_flat_mom": 0.0,
               "server_opt_step_flat_adam": 0.0}
@@ -521,15 +567,17 @@ def check_kernels(dev):
     for name, (kern, plain, lib, n_bytes, flops) in cases.items():
         b_ms, b_by = bound_ms(n_bytes, flops)
         src, tpu = sources[name]
+        ms, lib_ms, turns = timer.turns(kern, lib)
         records[name] = {
             "name": name, "route": "cuda", "ok": True,
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": 0, "max_abs_err": errs[name],
-            "ms": timer(kern), "plain_ms": timer(plain),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if lib is None else timer(lib)}
-        print(f"time {name}: kernel {records[name]['ms']:.4f} ms, plain "
+            "ms": ms,
+            "plain_ms": timer(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "turns": turns}
+        print(f"time {name}: kernel {records[name]['ms']:.6f} ms, plain "
               f"{records[name]['plain_ms']:.4f} ms, library "
               f"{records[name]['library_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
@@ -647,16 +695,18 @@ def check_flash(dev, timer):
             n_bytes = 2 * B * S * (H + Kv) * D * q.element_size()
             flops = 4 * B * H * D * attention_pairs(S, window)
             b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
-            lib_ms = None
+            lib = None
             if not cap and not window:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True),
-                    N_TIMED_FLASH)
-            rec.update(ms=timer(kern, N_TIMED_FLASH),
-                       plain_ms=timer(plain, N_TIMED_FLASH), bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms, flops=flops)
+
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+            ms, lib_ms, turns = timer.turns(kern, lib, N_TIMED_FLASH)
+            rec.update(ms=ms, plain_ms=timer(plain, N_TIMED_FLASH),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       flops=flops, turns=turns)
             print(f"time flash_attention {label}: kernel {rec['ms']:.4f} ms "
                   f"({flops / rec['ms'] / 1e9:.1f} TFLOP/s), plain "
                   f"{rec['plain_ms']:.4f} ms, library {lib_ms} ms, bound "
@@ -668,7 +718,8 @@ def check_flash(dev, timer):
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:93",
             "launches": 0, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shapes": shapes}
 
@@ -820,7 +871,8 @@ def check_wkv(dev, timer):
             "source": "src/repro_torch/kernels/csrc/wkv.cu",
             "replaces": "src/repro/kernels/rwkv6_kernel.py:77",
             "launches": 0, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shapes": shapes}
 
@@ -1028,6 +1080,7 @@ def run_lm(dev, rec):
     first, steps, fed, t_prefill, t_decode = _greedy_run(
         models, params, cfg, prompt, LM_DECODE)
     after = fa.LAUNCHES["flash"]
+    wgmma = fa.LAUNCHES["flash_wgmma"]
     peak = torch.cuda.max_memory_allocated(dev)
     rec.update({
         "arch": LM_ARCH, "n_params": n_params,
@@ -1050,12 +1103,16 @@ def run_lm(dev, rec):
           f"{mf:.4g} = {rec['prefill_mfu']:.4f} of {BF16_FLOPS:.3g} FLOP/s); "
           f"decode {rec['decode_s_per_step']:.4f} s per step; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; B8 launches "
-          f"{after}")
+          f"{after}, {wgmma} of them the tensor-core body")
     # check 1: B8 once per layer in prefill, never in decode
     if after != cfg.n_layers:
         raise AssertionError(f"B8 launched {after} times in one prefill and "
                              f"{LM_DECODE} decode steps, expected "
                              f"{cfg.n_layers} (one per layer, none in decode)")
+    # gemma2-2b is bf16 at head_dim 256: every launch takes the wgmma body
+    if wgmma != after:
+        raise AssertionError(f"only {wgmma} of B8's {after} prefill launches "
+                             f"ran the tensor-core body")
     if not all(torch.isfinite(x).all() for x in [first] + steps):
         raise AssertionError("non-finite logits")
 
@@ -1299,6 +1356,7 @@ def _leaves(tree):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
@@ -1318,6 +1376,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().relative_to(ROOT)})")
     print(_build.build_log.strip())
+    ptxas = ptxas_report(_build.build_log, "flash_wgmma")
+    if not ptxas:
+        raise AssertionError("no -Xptxas -v report of flash_wgmma in "
+                             f"{_build.LOG_NAME} beside the library")
+    for kern, info in ptxas.items():
+        print(f"ptxas {kern}: {info}")
+        if info.get("spill_stores") or info.get("spill_loads"):
+            raise AssertionError(f"{kern} spills registers: {info}")
 
     records = check_kernels(dev)
     runs, lm_rec, rwkv_rec = {}, {}, {}
@@ -1342,9 +1408,12 @@ def main() -> int:
     finally:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
+        seconds = time.perf_counter() - t_script
         (out / "chip_smoke_report.json").write_text(json.dumps(
-            {"card": card, "kernels": list(records.values()), "runs": runs,
+            {"card": card, "seconds": seconds,
+             "kernels": list(records.values()), "runs": runs,
              "lm": lm_rec, "rwkv": rwkv_rec}, indent=1))
+    print(f"script: {seconds:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,13 +41,16 @@ SIGNATURES = {
     # softcap; dtype; stream
     "flash_attention_launch": (_P,) * 4 + (_I64,) * 6 + (_I64,) * 12
     + (_I64, _I64, _F, _F, _I64, _P),
+    # dtype, D -> 1 when the launch runs the tensor-core body
+    "flash_attention_wgmma_body": (_I64, _I64),
     # r, k, v, w, u, y; B, S, H, K, chunk; 15 strides; dtype; stream
     "wkv_launch": (_P,) * 6 + (_I64,) * 5 + (_I64,) * 15 + (_I64, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""           # nvcc's per-kernel resource report from that build
+build_log = ""           # nvcc's per-kernel resource report of the library
+LOG_NAME = "ptxas.log"   # that report, kept beside the library
 
 
 def _nvcc() -> str:
@@ -79,7 +82,9 @@ def build() -> Path:
     ``nvcc -c`` per source, all started together, then one link."""
     global build_log
     out = library_path()
+    log = out.with_name(LOG_NAME)
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
@@ -103,10 +108,14 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    build_log = "".join(logs)
+    # the report goes beside the library, first: a later load reads it back
+    log_tmp = log.with_name(f"{LOG_NAME}.{tag}")
+    log_tmp.write_text(build_log)
+    os.replace(log_tmp, log)
     os.replace(tmp, out)          # atomic: concurrent builds agree
     for obj in objs:
         obj.unlink()
-    build_log = "".join(logs)
     return out
 
 

@@ -3,9 +3,11 @@ logit-softcap, GQA).
 
 ``flash_attention`` replaces the TPU kernel of
 ``repro/kernels/flash_attention.py::flash_attention``.  On a CUDA tensor it
-launches ``csrc/flash_attention.cu``; on a CPU tensor it runs the plain
-version ``ref.reference_flash_attention``.  See
-the CUDA source for the design and its bound.
+launches ``csrc/flash_attention.cu``: its tensor-core body for bf16 at
+head dims 64, 128 and 256, its SIMT f32 body otherwise (the source picks
+by dtype and head_dim).  On a CPU tensor it runs the plain version
+``ref.reference_flash_attention``.  See the CUDA source for the design and
+its bound.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ import torch
 
 from . import check_status, ref, use_kernel
 
-# kernel launches: a run shows it went through the kernel
-LAUNCHES = {"flash": 0}
+# kernel launches: a run shows it went through the kernel; "flash" counts
+# every launch, "flash_wgmma" those of the tensor-core body (bf16 at head
+# dims 64, 128 and 256), so a run also shows which body ran
+LAUNCHES = {"flash": 0, "flash_wgmma": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +65,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
+    wgmma = bool(lib().flash_attention_wgmma_body(_DTYPES[q.dtype], D))
+    if wgmma:
+        # TMA reads strides and base addresses in multiples of 16 bytes
+        q, k, v = (t if _tma_ready(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib().flash_attention_launch(
@@ -71,4 +79,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _DTYPES[q.dtype], stream)
     check_status(status, "flash_attention")
     LAUNCHES["flash"] += 1
+    LAUNCHES["flash_wgmma"] += wgmma
     return out
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Strides and base address in multiples of 16 bytes."""
+    step = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(t.stride(i) > 0 and t.stride(i) % step == 0
+                    for i in range(3)))

@@ -12,6 +12,10 @@ differs; 3e-2 absolute in bf16, where the output is rounded to bf16 (one
 ulp is 2^-8 relative) and ``mha_chunked``, ``naive_attention`` and
 ``decode_attention`` also round P to bf16 before PV.
 """
+import math
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +27,10 @@ from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.models import attention as tattn
+
+# chip_smoke.py holds B8's card limit (FLASH_TOL, flash_ratio)
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2
 DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
@@ -140,9 +148,80 @@ def test_reference_attention_matches_jax():
 
 
 def test_flash_on_cpu_counts_no_launch():
-    n0 = fa.LAUNCHES["flash"]
+    n0 = dict(fa.LAUNCHES)
     fa.flash_attention(*_torch(_qkv(6, S=64), torch.float32))
-    assert fa.LAUNCHES["flash"] == n0
+    fa.flash_attention(*_torch(_qkv(6, S=64, D=64), torch.bfloat16))
+    assert fa.LAUNCHES == n0
+
+
+def _wgmma_emulation(q, k, v, *, window=0, softcap=0.0, block_k=64,
+                     split_p=True):
+    """The arithmetic of B8's tensor-core body for bf16 (causal), in plain
+    PyTorch: S = q k^T from the bf16 values with f32 sums (a bf16 x bf16
+    product is exact in f32), scaled by 1/sqrt(D) afterwards; softcap,
+    mask and online softmax in f32 over KV tiles of ``block_k``; P V as
+    ``p_hi V + p_lo V`` with ``p_hi = bf16(p)``, ``p_lo = bf16(p - p_hi)``.
+    ``split_p=False`` takes a single bf16 P instead (the control)."""
+    B, S, H, D = q.shape
+    Kv = k.shape[2]
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, S, Kv, H // Kv, D)
+    m = torch.full((B, Kv, H // Kv, S), ref.NEG_INF)
+    l = torch.zeros((B, Kv, H // Kv, S))
+    acc = torch.zeros((B, Kv, H // Kv, S, D))
+    pos = torch.arange(S)
+    for k0 in range(0, S, block_k):
+        kb, vb = (t[:, k0:k0 + block_k].to(f32) for t in (k, v))
+        s = torch.einsum("bsgrd,bkgd->bgrsk", qf, kb) * (1.0 / math.sqrt(D))
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(ref.attention_mask(pos, pos[k0:k0 + block_k], True,
+                                           window), s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        p_hi = p.to(torch.bfloat16).to(f32)
+        parts = [p_hi]
+        if split_p:
+            parts.append((p - p_hi).to(torch.bfloat16).to(f32))
+        acc = acc * corr[..., None]
+        for part in parts:
+            acc = acc + torch.einsum("bgrsk,bkgd->bgrsd", part, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+# (B, S, H, Kv, D, window, softcap): D 64/128/256, GQA rep 1/2/8, windows
+# whose edge falls inside a 64-key tile, softcap on and off, ragged S
+WGMMA_CASES = [
+    (1, 128, 2, 2, 64, 0, 0.0),
+    (1, 130, 4, 2, 128, 40, 50.0),
+    (1, 96, 8, 1, 256, 0, 50.0),
+    (2, 200, 8, 1, 64, 72, 0.0),
+    (1, 160, 4, 2, 256, 100, 30.0),
+    (1, 77, 2, 1, 128, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Kv,D,window,cap", WGMMA_CASES)
+def test_flash_tensor_core_arithmetic_within_card_limit(B, S, H, Kv, D,
+                                                        window, cap):
+    """B8's bf16 tensor-core arithmetic (bf16 products, f32 sums, late
+    scale, P as p_hi + p_lo) stays within chip_smoke's bf16 limit of the
+    plain version, with q at 8x; a single bf16 P exceeds it."""
+    rng = np.random.RandomState(S + D)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, D).astype(np.float32)
+                                * sc).to(torch.bfloat16)
+               for n, sc in ((H, chip_smoke.FLASH_Q_SCALE), (Kv, 1),
+                             (Kv, 1)))
+    want = ref.reference_flash_attention(q, k, v, window=window, softcap=cap)
+    got = _wgmma_emulation(q, k, v, window=window, softcap=cap)
+    assert chip_smoke.flash_ratio(got, want) <= 1.0
+    single = _wgmma_emulation(q, k, v, window=window, softcap=cap,
+                              split_p=False)
+    assert chip_smoke.flash_ratio(single, want) > 1.0
 
 
 @pytest.mark.parametrize("case", ["T!=S", "H%Kv", "f16", "mixed", "window<0",

@@ -7,7 +7,8 @@ card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fedavg within 1e-6 (the kernel and the plain version sum the
-rows in the same order, so they normally agree bit for bit); encode,
+rows in the same order, so they normally agree bit for bit), and the
+aggregate (B2) bit for bit at every width and row count tested; encode,
 decode and the server-optimizer step bit-exact (the kernels round every
 operation like the plain version does); flash attention elementwise
 within 2e-5 in f32 (ROADMAP (b)) and within 2^-7 |plain| + 1e-4 in bf16:
@@ -180,7 +181,10 @@ def test_cuda_server_opt_run_matches_cpu_run(h100, opt):
 
 # (B, S, H, Kv, D, dtype, window, softcap): the JAX tests' widths, gemma2's
 # head_dim 256 in f32 (the largest block), a window of 40 that leaves the
-# first KV tiles of later query tiles wholly masked, and a ragged S
+# first KV tiles of later query tiles wholly masked, and a ragged S; then
+# for the tensor-core body (bf16 at D 64/128/256) S not a multiple of a
+# block's query rows (128 or 192) or a tile's 64 keys, window edges inside
+# a tile and GQA rep 1, 2 and 8; and bf16 at D = 32 (the SIMT body)
 FLASH_CASES = [
     (2, 128, 4, 2, 32, torch.float32, 0, 0.0),
     (2, 256, 2, 1, 64, torch.bfloat16, 0, 0.0),
@@ -189,6 +193,14 @@ FLASH_CASES = [
     (2, 512, 8, 4, 256, torch.bfloat16, 128, 50.0),
     (1, 384, 8, 2, 128, torch.bfloat16, 0, 0.0),
     (2, 200, 4, 2, 128, torch.float32, 72, 0.0),
+    (1, 200, 2, 2, 64, torch.bfloat16, 0, 0.0),
+    (2, 330, 4, 2, 64, torch.bfloat16, 100, 50.0),
+    (1, 77, 8, 1, 128, torch.bfloat16, 0, 0.0),
+    (2, 300, 4, 2, 128, torch.bfloat16, 72, 30.0),
+    (1, 260, 8, 1, 256, torch.bfloat16, 0, 50.0),
+    (1, 450, 4, 4, 256, torch.bfloat16, 200, 50.0),
+    (2, 190, 16, 2, 256, torch.bfloat16, 40, 0.0),
+    (1, 96, 4, 2, 32, torch.bfloat16, 24, 30.0),
 ]
 
 
@@ -209,15 +221,69 @@ def test_cuda_flash_attention_matches_plain(h100, B, S, H, Kv, D, dtype,
     rng = np.random.RandomState(S + D)
     q, k, v = (_t(rng.randn(B, S, n, D).astype(np.float32) * scale)
                .to(h100, dtype) for n, scale in ((H, 8), (Kv, 1), (Kv, 1)))
-    n0 = flash_attention.LAUNCHES["flash"]
+    n0 = dict(flash_attention.LAUNCHES)
     got = flash_attention.flash_attention(q, k, v, window=window,
                                           softcap=cap)
     plain = ref.reference_flash_attention(q, k, v, window=window,
                                           softcap=cap)
     torch.cuda.synchronize()
-    assert flash_attention.LAUNCHES["flash"] == n0 + 1
+    # every launch counts under "flash"; the tensor-core body's also under
+    # "flash_wgmma"
+    wgmma = int(dtype == torch.bfloat16 and D in (64, 128, 256))
+    assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
+                                        "flash_wgmma": n0["flash_wgmma"]
+                                        + wgmma}
     assert got.dtype == dtype and got.shape == q.shape
     _assert_flash_close(got, plain)
+
+
+# B8 without the causal mask, (B, S, H, Kv, D, window, softcap), bf16 so
+# the tensor-core body runs: its query tiles are issued in order and keys
+# right of the query are seen; ragged S and window edges inside a tile
+FLASH_NONCAUSAL_CASES = [
+    (2, 200, 4, 2, 64, 0, 0.0),
+    (1, 330, 8, 1, 128, 100, 0.0),
+    (1, 77, 8, 8, 128, 40, 30.0),
+    (2, 190, 8, 4, 256, 0, 50.0),
+    (1, 256, 4, 2, 256, 72, 50.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,D,window,cap", FLASH_NONCAUSAL_CASES)
+def test_cuda_flash_attention_non_causal_matches_plain(h100, B, S, H, Kv, D,
+                                                       window, cap):
+    rng = np.random.RandomState(S + D + 1)
+    q, k, v = (_t(rng.randn(B, S, n, D).astype(np.float32) * scale)
+               .to(h100, torch.bfloat16)
+               for n, scale in ((H, 8), (Kv, 1), (Kv, 1)))
+    n0 = dict(flash_attention.LAUNCHES)
+    got = flash_attention.flash_attention(q, k, v, causal=False,
+                                          window=window, softcap=cap)
+    plain = ref.reference_flash_attention(q, k, v, causal=False,
+                                          window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
+                                        "flash_wgmma": n0["flash_wgmma"] + 1}
+    _assert_flash_close(got, plain)
+    # a control: the causal plain version differs beyond the limit
+    causal = ref.reference_flash_attention(q, k, v, window=window,
+                                           softcap=cap)
+    with pytest.raises(AssertionError):
+        _assert_flash_close(got, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 30, 64])
+@pytest.mark.parametrize("N", [4, 101_888, 101_890, 1_048_576])
+def test_cuda_fedavg_agg_bit_exact(h100, W, N):
+    """B2 equals reference_fedavg bit for bit: vector (N % 4 == 0) and
+    scalar (101,890) paths, row counts below, at and above a 16-row
+    group."""
+    rows, w = _rows(W, N, seed=W)
+    rows_d, w_d = _t(rows).to(h100), _t(w).to(h100)
+    got = fedavg_agg.fedavg_agg_flat(rows_d, w_d)
+    assert torch.equal(got, ref.reference_fedavg(rows_d, w_d))
 
 
 @pytest.mark.cuda
@@ -237,14 +303,16 @@ def test_cuda_flash_attention_reads_strided_views(h100):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["gemma2-2b", "yi-9b"])
-def test_cuda_prefill_launches_flash_once_per_layer(h100, arch):
+@pytest.mark.parametrize("head_dim", [16, 64])
+def test_cuda_prefill_launches_flash_once_per_layer(h100, arch, head_dim):
     """A REDUCED prefill on the card goes through the kernel once per layer
-    and decode never; its logits match the same run on the CPU (the
+    and decode never, through the tensor-core body at head_dim 64 and the
+    SIMT body at 16; its logits match the same run on the CPU (the
     kernel's plain version) within 0.04 of max|logit| (bf16 end to end)."""
     from repro_torch import configs, models
     # yi's REDUCED head_dim (8) is below the kernel's smallest (16)
     cfg = configs.get_config(arch, reduced=True).replace(
-        head_dim=16, attn_impl="pallas")
+        head_dim=head_dim, attn_impl="pallas")
     params = models.init_params(torch.Generator().manual_seed(0), cfg,
                                 device="cpu")
 
@@ -253,14 +321,17 @@ def test_cuda_prefill_launches_flash_once_per_layer(h100, arch):
                 for k, v in tree.items()}
     card = to(params)
     toks = _t(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 96)))
-    n0 = flash_attention.LAUNCHES["flash"]
+    n0 = dict(flash_attention.LAUNCHES)
+    wgmma = cfg.n_layers if head_dim == 64 else 0
+    after_prefill = {"flash": n0["flash"] + cfg.n_layers,
+                     "flash_wgmma": n0["flash_wgmma"] + wgmma}
     lg, st = models.prefill_step(card, {"tokens": toks[:, :64].to(h100)},
                                  cfg=cfg, max_len=96)
-    assert flash_attention.LAUNCHES["flash"] == n0 + cfg.n_layers
+    assert flash_attention.LAUNCHES == after_prefill
     for t in range(64, 68):
         lg, st = models.serve_step(card, st, toks[:, t:t + 1].to(h100), t,
                                    cfg=cfg)
-    assert flash_attention.LAUNCHES["flash"] == n0 + cfg.n_layers
+    assert flash_attention.LAUNCHES == after_prefill
     lc, sc = models.prefill_step(params, {"tokens": toks[:, :64]}, cfg=cfg,
                                  max_len=96)
     for t in range(64, 68):

@@ -40,7 +40,9 @@ from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
 
 OWN_KERNELS = ("agg_vec4", "agg_scalar", "mix_vec4", "mix_scalar",
                "encode_kernel", "decode_kernel", "mom_vec4", "mom_scalar",
-               "adam_vec4", "adam_scalar", "flash_fwd", "wkv_fwd")
+               "adam_vec4", "adam_scalar", "flash_fwd", "flash_wgmma",
+               "wkv_fwd")
+B8_NAMES = ("flash_fwd", "flash_wgmma")   # B8's SIMT and tensor-core bodies
 SPAN = "wkv_chunked"      # the profiler range around rwkv6's plain WKV
 # cuBLAS's GEMM kernels, by the names they carry on Hopper
 GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
@@ -142,8 +144,8 @@ def profile_prefill(arch: str):
               f"({rest / busy:.4f})")
     else:
         flash = sum(_device_us(e) for e in kernels
-                    if "flash_fwd" in e.key) / 1e3
-        print(f"  B8 flash_fwd {flash:.3f} ms ({flash / busy:.4f} of busy), "
+                    if any(n in e.key for n in B8_NAMES)) / 1e3
+        print(f"  B8 {flash:.3f} ms ({flash / busy:.4f} of busy), "
               f"cuBLAS GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), other "
               f"{busy - flash - gemm:.3f} ms "
               f"({(busy - flash - gemm) / busy:.4f})")
