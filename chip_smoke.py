@@ -23,11 +23,16 @@ and prints no result):
    ulp of the plain output plus 1e-4 in bf16 and 2e-5 in f32, and the
    check must fail against a plain version given a fault: no softcap, the
    window 32 keys wider, KV head h % Kv); the WKV recurrence (B9) at
-   rwkv6-3b's width (2 x 8192 tokens, 40 heads of 64, chunk 16) in bf16
-   and f32 and at three small f32 shapes, elementwise within ``WKV_TOL``,
-   and the check must fail against a plain version given each of
-   ``WKV_FAULTS`` (no bonus, no state carried across chunks, an inclusive
-   cumsum); then time kernel, plain version and one-call library
+   rwkv6-3b's width (2 x 8192 tokens, 40 heads of 64) at ops.wkv's chunk
+   of 16 in bf16 and f32 and at three small f32 shapes, elementwise within
+   ``WKV_TOL``, and in the model's form (chunk 64, from a nonzero s0,
+   returning the final state) in bf16 and f32, the state within
+   ``WKV_STATE_TOL`` of its largest entry and s0 left unwritten; the check
+   must fail against a plain version given each of ``WKV_FAULTS`` (no
+   bonus, no state carried across chunks, an inclusive cumsum) and, in
+   the state form, ``WKV_STATE_FAULTS`` (also s0 ignored, and the final
+   state taken before the last chunk's update); then time kernel, plain
+   version and one-call library
    yardstick with CUDA events (median of 50 cold-L2 runs after warm-up;
    10 for flash attention and WKV, whose sequential ``reference_wkv`` is
    timed too; kernel and library in turns: library, kernel, kernel,
@@ -77,17 +82,20 @@ follow the numerics).
 8. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
    weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 7 is:
    prefill of 2 prompts of 8192 tokens, then 64 greedy decode steps,
-   every counter at 0 before and read after.  Its blocks run the plain
-   ``wkv_chunked``, as the JAX package's do, so no kernel of ours may
-   launch there.  Checks: the last 4 decode steps against a full forward
-   over the 8256 positions; at two layers (512-token prompt, 4 decode
-   steps) the card against a CPU run in this process; each within its
-   ``RWKV_LIMITS`` entry, and each must fail with the WKV state zeroed
-   after the prefill (the control).  Then B9's own path: ``ops.wkv`` on
-   layer 0's streams of the prefill (time_mix's r, k, v, w and bonus),
-   counters at 0 before and read after (one launch), held against the y
-   of ``wkv_chunked`` within ``WKV_TOL`` (a plain version with no carry
-   must fail).  Reports as phase 7.
+   every counter at 0 before and read after.  The prefill's blocks run B9
+   in its state form (chunk 64): exactly one launch a layer after the
+   prefill, and no kernel of ours in decode (the plain ``wkv_step``, as in
+   JAX); the full forward over the 8256 positions launches B9 once a
+   layer too.  Checks: the last 4 decode steps against that forward; at
+   two layers (512-token prompt, 4 decode steps) the card against a CPU
+   run in this process (whose blocks run the plain ``wkv_chunked``); each
+   within its ``RWKV_LIMITS`` entry, and each must fail with the WKV state
+   zeroed after the prefill (the control).  Then B9 on layer 0's streams
+   of the prefill (time_mix's r, k, v, w and bonus) against the plain
+   ``wkv_chunked``: through ``ops.wkv`` (chunk 16, zero state; counters
+   at 0 before and read after: one launch), y within ``WKV_TOL`` (a plain
+   version with no carry must fail); and in the state form, y and the
+   final state within their limits.  Reports as phase 7.
 9. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -268,26 +276,47 @@ LM_CAUGHT = {"kernel_vs_xla": LM_FAULTS[1:],
              "decode_vs_forward": LM_FAULTS[1:],
              "card_vs_cpu": ("head map h % Kv",)}
 # B9 (the WKV recurrence) is checked at these shapes, (B, S, H, K, chunk,
-# dtype): rwkv6-3b's 40 heads of 64 over the rwkv6 phase's 2 x 8192 tokens
-# at ops.wkv's chunk of 16, in bf16 (timed) and f32, then the three f32
-# shapes of tests/test_kernels.py.  Inputs: r, k, v 0.5 N; w = exp(-exp(-4
-# + 0.5 N)) ~ 0.98, the decay rwkv6's decay_base of -4 gives, so the state
-# carries across thousands of tokens, far past one chunk; u 0.5 + 0.1 N.
+# dtype, state form): rwkv6-3b's 40 heads of 64 over the rwkv6 phase's 2 x
+# 8192 tokens at ops.wkv's chunk of 16 (y from a zero state), in bf16
+# (timed) and f32, then the three f32 shapes of tests/test_kernels.py; and
+# the same width at the model's chunk of 64 in the state form time_mix
+# runs (wkv_state: from a nonzero s0, returning the final state), in bf16
+# (timed) and f32.  Inputs: r, k, v 0.5 N; w = exp(-exp(-4 + 0.5 N)) ~
+# 0.98, the decay rwkv6's decay_base of -4 gives, so the state carries
+# across thousands of tokens, far past one chunk; u 0.5 + 0.1 N; s0 1.25
+# N, about the spread of the state these streams build up (0.25 / (1 -
+# 0.98^2) per entry).
 WKV_SHAPES = {
-    "rwkv6-3b bf16": (2, 8192, 40, 64, 16, torch.bfloat16),
-    "rwkv6-3b f32": (2, 8192, 40, 64, 16, torch.float32),
-    "f32 (2,64,2,16) chunk 16": (2, 64, 2, 16, 16, torch.float32),
-    "f32 (2,128,3,32) chunk 32": (2, 128, 3, 32, 32, torch.float32),
-    "f32 (2,64,1,8) chunk 8": (2, 64, 1, 8, 8, torch.float32),
+    "rwkv6-3b bf16": (2, 8192, 40, 64, 16, torch.bfloat16, False),
+    "rwkv6-3b f32": (2, 8192, 40, 64, 16, torch.float32, False),
+    "f32 (2,64,2,16) chunk 16": (2, 64, 2, 16, 16, torch.float32, False),
+    "f32 (2,128,3,32) chunk 32": (2, 128, 3, 32, 32, torch.float32, False),
+    "f32 (2,64,1,8) chunk 8": (2, 64, 1, 8, 8, torch.float32, False),
+    "rwkv6-3b prefill bf16": (2, 8192, 40, 64, 64, torch.bfloat16, True),
+    "rwkv6-3b prefill f32": (2, 8192, 40, 64, 64, torch.float32, True),
 }
 # B9's limit, elementwise: |kernel - plain| <= rel |plain| + abs max|plain|.
 # Both sides compute in f32 and round once; bf16: one bf16 ulp of the plain
 # output; f32: a bound relative to the largest output.  Set from an H100
 # run's readings (PERF.md).
 WKV_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
-# the plain version given each fault must fail the limit (the controls)
+# B9's final state (f32 in both dtypes): |kernel - plain| <= WKV_STATE_TOL
+# max|plain|.  Both sides compute the state in f32 from the same rounded
+# inputs and differ only in the order of f32 sums: each chunk's 64-term
+# increment, then 128 chunks of decayed carry (w < 1, so earlier errors
+# shrink), which leaves ~1e-6 relative to the largest entry (an H100 run
+# reads 3.7e-7, PERF.md); a fault moves the state by far more.
+WKV_STATE_TOL = 1e-5
+# the plain version given each fault must fail the limit (the controls);
+# in the state form also these two, which only a state can show
 WKV_FAULTS = ("u = 0", "no carry", "inclusive cumsum")
+WKV_STATE_FAULTS = WKV_FAULTS + ("s0 ignored",
+                                 "final state before the last chunk's update")
 N_TIMED_WKV = 10
+# exps and logs a second on the SFUs: 16 a clock on each of the 132 SMs
+# (CUDA C++ Programming Guide, throughput of compute capability 9.0) at
+# the 1.98 GHz that the 67 TFLOP/s f32 rate implies (132 x 128 x 2 x f)
+SFU_RATE = 132 * 16 * 1.98e9
 # The rwkv6 phase: rwkv6-3b at full width and depth, cut from
 # SHAPES["prefill_32k"] as the LM phase is (2 prompts of 8192 tokens), then
 # RWKV_DECODE greedy steps: 8256 positions in all, a multiple of
@@ -582,7 +611,7 @@ def check_kernels(dev):
               f"{records[name]['library_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
     records["flash_attention"] = check_flash(dev, timer)
-    records["wkv"] = check_wkv(dev, timer)
+    records.update(check_wkv(dev, timer))
     # the comparison launches above do not count toward the paths' runs:
     # each run sets every counter to 0 before it starts
     return records
@@ -747,6 +776,33 @@ def wkv_ops(B, S, H, K, C) -> int:
     return per_chunk * B * H * (S // C)
 
 
+def wkv_sfu(B, S, H, K, C) -> int:
+    """The exps and logs among ``wkv_ops``, which run on the SFUs: per chunk
+    and (b, h) the C(C-1)/2 pairwise decays and, per position and channel,
+    the log decay, exp(A) and the decayed k's exp; exp(Atot) per channel."""
+    return (C * (C - 1) // 2 * K + 3 * C * K + K) * B * H * (S // C)
+
+
+def wkv_bound(B, S, H, K, C, esize, with_state):
+    """B9's least time on the card: bytes (r, k, v and y at ``esize``, w
+    f32, u, and with the state form s0 read and the final state written,
+    f32) at the HBM rate, its operations at the f32 rate and its exps and
+    logs on the SFUs; the largest binds (the last two are operations)."""
+    n_bytes = B * S * H * K * (4 * esize + 4) + H * K * 4
+    if with_state:
+        n_bytes += 2 * B * H * K * K * 4
+    ops = wkv_ops(B, S, H, K, C)
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "f32 rate": ops / F32_FLOPS * 1e3,
+             "sfu": wkv_sfu(B, S, H, K, C) / SFU_RATE * 1e3}
+    binds = max(times, key=times.get)
+    return {"bound_ms": times[binds],
+            "bound_by": "bytes" if binds == "bytes" else "operations",
+            "binds": binds, "bytes_ms": times["bytes"],
+            "ops_ms": times["f32 rate"], "sfu_ms": times["sfu"], "ops": ops,
+            "n_bytes": n_bytes}
+
+
 def wkv_ratio(got, want) -> float:
     """max |got - want| / (rel |want| + abs max|want|) under WKV_TOL: the
     check passes at <= 1."""
@@ -756,21 +812,42 @@ def wkv_ratio(got, want) -> float:
     return float((d / (rel * want.abs() + tol * want.abs().max())).max())
 
 
-def _wkv_inclusive(r, k, v, w, u, chunk):
-    """B9's plain version with the cumsum made inclusive (A_t includes
-    lw_t): ``ref.reference_wkv_chunked`` with that one line changed."""
+def state_ratio(got, want) -> float:
+    """max |got - want| / (WKV_STATE_TOL max|want|): passes at <= 1."""
+    want = want.double()
+    return float((got.double() - want).abs().max()
+                 / (WKV_STATE_TOL * want.abs().max()))
+
+
+def wkv_fault_state(fault, r, k, v, w, u, chunk, s0=None):
+    """B9's plain version (``ref.reference_wkv_chunked``'s arithmetic)
+    given ``fault``, a control that the checks must catch: the bonus u
+    dropped; no state carried from chunk to chunk (each starts from s0);
+    an inclusive cumsum (A_t includes lw_t); s0 ignored (a zero state); or
+    the final state taken before the last chunk's update.  Returns (y in
+    r's dtype, final state f32)."""
+    if fault not in WKV_STATE_FAULTS:
+        raise ValueError(fault)
     f32 = torch.float32
     B, S, H, K = r.shape
-    uf = u.to(f32)[None, :, None, :]
+    chunk = min(chunk, S)
+    uf = (torch.zeros_like(u) if fault == "u = 0" else u).to(f32)
+    uf = uf[None, :, None, :]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)[..., None]
-    state = torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+    start = (torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+             if s0 is None or fault == "s0 ignored" else s0.to(f32))
+    state = before = start
     ys = []
     for c0 in range(0, S, chunk):
+        if fault == "no carry":
+            state = start
         rb, kb, vb, wb = (t[:, c0:c0 + chunk].transpose(1, 2).to(f32)
                           for t in (r, k, v, w))
         lw = torch.log(torch.clamp(wb, 1e-12, 1.0))
-        A = torch.cumsum(lw, dim=2)                       # the fault
+        A = torch.cumsum(lw, dim=2)
+        if fault != "inclusive cumsum":
+            A = A - lw
         Atot = A[:, :, -1] + lw[:, :, -1]
         D = A[:, :, :, None, :] - A[:, :, None, :, :] - lw[:, :, None, :, :]
         E = torch.where(tri, torch.exp(D), 0.0)
@@ -778,103 +855,129 @@ def _wkv_inclusive(r, k, v, w, u, chunk):
             torch.sum(rb * uf * kb, dim=-1)[..., None] * vb
         y = y + (rb * torch.exp(A)) @ state
         kdec = kb * torch.exp(Atot[:, :, None, :] - A - lw)
+        before = state
         state = state * torch.exp(Atot)[..., None] + \
             kdec.transpose(2, 3) @ vb
         ys.append(y.transpose(1, 2))
-    return torch.cat(ys, dim=1).to(r.dtype)
+    if fault == "final state before the last chunk's update":
+        state = before
+    return torch.cat(ys, dim=1).to(r.dtype), state
 
 
 def wkv_fault(fault, r, k, v, w, u, chunk):
-    """B9's plain version given ``fault`` (a control, what the checks must
-    catch): the bonus u dropped, no state carried from chunk to chunk, or
-    an inclusive cumsum."""
-    from repro_torch.kernels import ref
-    chunk = min(chunk, r.shape[1])
-    if fault == "u = 0":
-        return ref.reference_wkv_chunked(r, k, v, w, torch.zeros_like(u),
-                                         chunk=chunk)
-    if fault == "no carry":
-        return torch.cat([ref.reference_wkv_chunked(
-            *(t[:, s:s + chunk] for t in (r, k, v, w)), u, chunk=chunk)
-            for s in range(0, r.shape[1], chunk)], dim=1)
-    if fault == "inclusive cumsum":
-        return _wkv_inclusive(r, k, v, w, u, chunk)
-    raise ValueError(fault)
+    """y of B9's plain version from a zero state given ``fault`` (one of
+    WKV_FAULTS)."""
+    return wkv_fault_state(fault, r, k, v, w, u, chunk)[0]
 
 
 def check_wkv(dev, timer):
-    """B9 against its plain version at every WKV_SHAPES shape, and each
-    WKV_FAULTS fault of the plain version against the kernel (each must
-    fail the limit); at the rwkv6 shapes also the sequential
-    ``reference_wkv`` (a reading) and kernel, plain version and (bf16)
-    ``reference_wkv`` timed.  No single PyTorch call computes WKV: no
-    library time.  Returns the record of the bf16 rwkv6 shape, the others
-    under "shapes"."""
+    """B9 against its plain version at every WKV_SHAPES shape (y, and in
+    the state form the final state too, with s0 left as it was), and each
+    fault of the plain version against the kernel (each must fail the
+    limit); at the rwkv6 shapes kernel and plain version timed, and in the
+    y form also the sequential ``reference_wkv`` (a reading; bf16 timed).
+    No single PyTorch call computes WKV: no library time.  Returns the
+    records "wkv" (ops.wkv's form, the bf16 chunk-16 shape) and
+    "wkv_state" (the model's, the bf16 chunk-64 shape), each with its
+    shapes under "shapes"."""
     from repro_torch.kernels import ref, rwkv6_kernel
     g = torch.Generator(device=dev).manual_seed(2)
-    shapes = []
-    for label, (B, S, H, K, C, dt) in WKV_SHAPES.items():
+    shapes = {False: [], True: []}
+    for label, (B, S, H, K, C, dt, with_state) in WKV_SHAPES.items():
         r, k, v, w, u = wkv_inputs(g, B, S, H, K, dt)
+        s0 = (1.25 * torch.randn(B, H, K, K, device=dev, generator=g)
+              if with_state else None)
 
         def kern():
-            return rwkv6_kernel.wkv(r, k, v, w, u, chunk=C)
+            if with_state:
+                return rwkv6_kernel.wkv_state(r, k, v, w, u, s0, chunk=C)
+            return rwkv6_kernel.wkv(r, k, v, w, u, chunk=C), None
 
         def plain():
-            return ref.reference_wkv_chunked(r, k, v, w, u, chunk=C)
-        got, want = kern(), plain()
+            if with_state:
+                return ref.reference_wkv_chunked(r, k, v, w, u, chunk=C,
+                                                 s0=s0, return_state=True)
+            return ref.reference_wkv_chunked(r, k, v, w, u, chunk=C), None
+        s0_before = None if s0 is None else s0.clone()
+        (got, got_st), (want, want_st) = kern(), plain()
         torch.cuda.synchronize()
+
+        def against(y, st):
+            x = wkv_ratio(got, y)
+            return max(x, state_ratio(got_st, st)) if with_state else x
+        faults = WKV_STATE_FAULTS if with_state else WKV_FAULTS
         rel, tol = WKV_TOL[dt]
         rec = {"shape": label, "B": B, "S": S, "H": H, "K": K, "chunk": C,
-               "dtype": str(dt), "max_abs_err": max_err(got, want),
+               "dtype": str(dt), "state_form": with_state,
+               "max_abs_err": max_err(got, want),
                "max_abs_out": float(want.float().abs().max()),
                "limit": f"{rel:g} |plain| + {tol:g} max|plain|",
                "ratio": wkv_ratio(got, want),
-               "controls": {f: wkv_ratio(got, wkv_fault(f, r, k, v, w, u, C))
-                            for f in WKV_FAULTS}}
+               "controls": {f: against(*wkv_fault_state(f, r, k, v, w, u, C,
+                                                        s0))
+                            for f in faults}}
+        state_note = ""
+        if with_state:
+            rec.update(state_ratio=state_ratio(got_st, want_st),
+                       state_max_abs_err=max_err(got_st, want_st),
+                       max_abs_state=float(want_st.abs().max()),
+                       state_limit=f"{WKV_STATE_TOL:g} max|plain|",
+                       s0_unchanged=torch.equal(s0, s0_before))
+            state_note = (f"; final state ratio {rec['state_ratio']:.4f} to "
+                          f"{rec['state_limit']} (max |state| "
+                          f"{rec['max_abs_state']:.4g}), s0 unchanged "
+                          f"{rec['s0_unchanged']}")
         print(f"check wkv {label}: max |kernel - plain| = "
               f"{rec['max_abs_err']:g} (max |plain| "
               f"{rec['max_abs_out']:.4g}), ratio {rec['ratio']:.4f} to "
-              f"{rec['limit']} (limit 1); controls " + ", ".join(
+              f"{rec['limit']} (limit 1){state_note}; controls " + ", ".join(
                   f"{f} {x:.4g}" for f, x in rec["controls"].items()))
         if not rec["ratio"] <= 1.0:
             raise AssertionError(f"wkv {label}: |kernel - plain| reaches "
                                  f"{rec['ratio']} x the limit")
+        if with_state and not rec["state_ratio"] <= 1.0:
+            raise AssertionError(f"wkv {label}: the final state is off by "
+                                 f"{rec['state_ratio']} x its limit")
+        if with_state and not rec["s0_unchanged"]:
+            raise AssertionError(f"wkv {label}: the kernel wrote s0")
         for f, x in rec["controls"].items():
             if not x > 1.0:
                 raise AssertionError(f"wkv {label}: the check does not "
                                      f"catch {f} ({x})")
         if S == 8192:
-            seq = ref.reference_wkv(r, k, v, w, u)
-            rec["plain_vs_sequential"] = max_err(want, seq)
-            print(f"check wkv {label}: max |plain - reference_wkv| = "
-                  f"{rec['plain_vs_sequential']:g} (a reading)")
-            esize = r.element_size()
-            n_bytes = B * S * H * K * (4 * esize + 4) + H * K * 4
-            ops = wkv_ops(B, S, H, K, C)
-            b_ms, b_by = bound_ms(n_bytes, ops)
+            if not with_state:
+                seq = ref.reference_wkv(r, k, v, w, u)
+                rec["plain_vs_sequential"] = max_err(want, seq)
+                print(f"check wkv {label}: max |plain - reference_wkv| = "
+                      f"{rec['plain_vs_sequential']:g} (a reading)")
+                del seq
+            rec.update(wkv_bound(B, S, H, K, C, r.element_size(),
+                                 with_state))
             rec.update(ms=timer(kern, N_TIMED_WKV),
-                       plain_ms=timer(plain, N_TIMED_WKV), bound_ms=b_ms,
-                       bound_by=b_by, bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                       ops=ops, library_ms=None)
-            if dt == torch.bfloat16:
+                       plain_ms=timer(plain, N_TIMED_WKV), library_ms=None)
+            if dt == torch.bfloat16 and not with_state:
                 rec["reference_wkv_ms"] = timer(
                     lambda: ref.reference_wkv(r, k, v, w, u), 3)
             print(f"time wkv {label}: kernel {rec['ms']:.4f} ms, plain "
                   f"{rec['plain_ms']:.4f} ms, reference_wkv "
-                  f"{rec.get('reference_wkv_ms')} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}; bytes alone {rec['bytes_ms']:.4f} ms)")
-            del seq
-        shapes.append(rec)
-        del r, k, v, w, got, want
-    main = shapes[0]
-    return {"name": "wkv", "route": "cuda", "ok": True,
+                  f"{rec.get('reference_wkv_ms')} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['binds']}; bytes "
+                  f"{rec['bytes_ms']:.4f}, f32 rate {rec['ops_ms']:.4f}, "
+                  f"SFUs {rec['sfu_ms']:.4f} ms)")
+        shapes[with_state].append(rec)
+        del r, k, v, w, s0, got, want, got_st, want_st
+    out = {}
+    for name, with_state in (("wkv", False), ("wkv_state", True)):
+        main = shapes[with_state][0]
+        out[name] = {
+            "name": name, "route": "cuda", "ok": True,
             "source": "src/repro_torch/kernels/csrc/wkv.cu",
             "replaces": "src/repro/kernels/rwkv6_kernel.py:77",
             "launches": 0, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"],
-            "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "shapes": shapes}
+            "library_ms": None, "shapes": shapes[with_state]}
+    return out
 
 
 class Setups:
@@ -1195,13 +1298,14 @@ def _tree_clone(tree):
 
 
 def run_rwkv(dev, rec):
-    """Phase 8: rwkv6-3b serving at full width and depth (its blocks run
-    ``wkv_chunked``, as the JAX package's do), then B9 through
-    ``ops.wkv`` on the prefill's own layer-0 streams.  Fills ``rec`` and
-    returns B9's launches on that path."""
+    """Phase 8: rwkv6-3b serving at full width and depth (the prefill's
+    blocks run B9's state form, decode the plain ``wkv_step``), then B9 on
+    the prefill's own layer-0 streams, through ``ops.wkv`` and in the
+    state form.  Fills ``rec`` and returns B9's launches on the model's
+    path (prefill and decode) and on ``ops.wkv``'s."""
     from repro_torch import configs, models
     from repro_torch.data import lm
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, rwkv6_kernel
     from repro_torch.launch import analytics
     from repro_torch.models import layers, rwkv6, transformer
     cfg = configs.get_config(RWKV_ARCH)
@@ -1227,6 +1331,7 @@ def run_rwkv(dev, rec):
     # since decode writes the state in place
     zero_counters()
     logits, state, t_prefill = _prefill(models, params, cfg, prompt, max_len)
+    after_prefill = {k: c[k] for k, c in launch_counters().items()}
     zeroed = _tree_clone(state)
     zeroed["tm"]["wkv"].zero_()
     steps, fed, t_decode = _decode(models, params, cfg, logits, state,
@@ -1241,7 +1346,8 @@ def run_rwkv(dev, rec):
         "prompt": RWKV_PROMPT, "decode_steps": RWKV_DECODE,
         "cut_from": "SHAPES['prefill_32k']: batch 32 -> 2, seq_len "
                     "32768 -> 8192",
-        "launches": launches, "prefill_s": t_prefill,
+        "launches_after_prefill": after_prefill, "launches": launches,
+        "prefill_s": t_prefill,
         "prefill_tokens_per_s": RWKV_BATCH * RWKV_PROMPT / t_prefill,
         "decode_s_per_step": t_decode / RWKV_DECODE,
         "max_memory_allocated": peak, "prefill_model_flops": mf,
@@ -1252,10 +1358,16 @@ def run_rwkv(dev, rec):
           f"{mf:.4g} = {rec['prefill_mfu']:.4f} of {BF16_FLOPS:.3g} FLOP/s); "
           f"decode {rec['decode_s_per_step']:.4f} s per step; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches}")
-    if any(launches.values()):
-        raise AssertionError(f"the {RWKV_ARCH} steps launched {launches}: "
-                             f"its blocks run wkv_chunked; B9 runs only "
-                             f"through ops.wkv and B8 not at all")
+    # B9 once per block in the prefill, and nothing of ours in decode
+    want = {k: 0 for k in launches}
+    want["wkv"] = cfg.n_layers
+    if after_prefill != want:
+        raise AssertionError(f"the {RWKV_ARCH} prefill launched "
+                             f"{after_prefill}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"the {RWKV_ARCH} decode steps launched "
+                             f"kernels of ours: {launches} after the "
+                             f"prefill's {after_prefill}")
     if not all(torch.isfinite(x).all() for x in [logits] + steps):
         raise AssertionError("non-finite logits")
 
@@ -1263,7 +1375,13 @@ def run_rwkv(dev, rec):
     # prompt and the fed tokens; the control decodes the same tokens from
     # the zeroed state
     seq = torch.cat([prompt, fed], dim=1)
+    zero_counters()
     h, _, _ = models.forward(params, cfg, tokens=seq)
+    rec["forward_launches"] = {k: c[k] for k, c in launch_counters().items()}
+    if rec["forward_launches"] != want:
+        raise AssertionError(f"the forward over {seq.shape[1]} positions "
+                             f"launched {rec['forward_launches']}, expected "
+                             f"{want}")
     full = transformer.logits_from_hidden(params, cfg,
                                           h[:, -LM_CHECKED_STEPS:])
     del h
@@ -1277,15 +1395,15 @@ def run_rwkv(dev, rec):
     controls = {"decode_vs_forward": tail_gaps(ctrl)}
     del full, state, zeroed
 
-    # check 3: B9 through ops.wkv on layer 0's streams of the prefill
-    # (time_mix's own r, k, v, w and bonus), against the y its
-    # wkv_chunked computes; the path's launches counted alone
+    # check 3: B9 through ops.wkv (chunk 16, zero state) on layer 0's
+    # streams of the prefill (time_mix's own r, k, v, w and bonus), against
+    # the y of the plain wkv_chunked; the path's launches counted alone
     p0 = transformer._index(params["blocks"], 0)
     tm = p0["rwkv"]["tm"]
     x0 = layers.rmsnorm(p0["ln1"], layers.embed(
         params["embed"], prompt, scale=cfg.post_block_norm))
     r, k, v, w, _ = rwkv6._streams(tm, x0, cfg.n_heads, cfg.ssm_head_dim)
-    model_y, _ = rwkv6.wkv_chunked(r, k, v, w, tm["bonus"])
+    model_y, model_st = rwkv6.wkv_chunked(r, k, v, w, tm["bonus"])
     zero_counters()
     b9_y = ops.wkv(r, k, v, w, tm["bonus"])
     torch.cuda.synchronize()
@@ -1308,7 +1426,18 @@ def run_rwkv(dev, rec):
     if not b9["control"]["no carry"] > 1.0:
         raise AssertionError("B9 on the model's streams: the check does not "
                              "catch no carry")
-    del params, r, k, v, w, model_y, b9_y, x0, p0, tm
+    # and in the form time_mix runs (chunk 64, the final state returned),
+    # y and state against the plain wkv_chunked's
+    st_y, st_st = rwkv6_kernel.wkv_state(r, k, v, w, tm["bonus"])
+    b9["state_form"] = {"ratio": wkv_ratio(st_y, model_y),
+                        "state_ratio": state_ratio(st_st, model_st)}
+    print(f"rwkv check b9_state_on_model_streams: y ratio "
+          f"{b9['state_form']['ratio']:.4f}, final state ratio "
+          f"{b9['state_form']['state_ratio']:.4f} (limits 1)")
+    if not max(b9["state_form"].values()) <= 1.0:
+        raise AssertionError(f"B9's state form on the model's streams: "
+                             f"{b9['state_form']} x the limits")
+    del params, r, k, v, w, model_y, model_st, b9_y, st_y, st_st, x0, p0, tm
 
     # check 2: full width, two layers, card against CPU
     cut = cfg.replace(n_layers=RWKV_CUT["n_layers"])
@@ -1344,7 +1473,7 @@ def run_rwkv(dev, rec):
         if not max(controls[check]) > limit:
             raise AssertionError(f"rwkv {check}: the check does not catch "
                                  f"a zeroed WKV state ({controls[check]})")
-    return b9_launches["wkv"]
+    return launches["wkv"], b9_launches["wkv"]
 
 
 def _leaves(tree):
@@ -1403,7 +1532,8 @@ def main() -> int:
         records["flash_attention"]["launches"] = run_lm(dev, lm_rec)
         print(f"phase lm: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        records["wkv"]["launches"] = run_rwkv(dev, rwkv_rec)
+        (records["wkv_state"]["launches"],
+         records["wkv"]["launches"]) = run_rwkv(dev, rwkv_rec)
         print(f"phase rwkv: {time.perf_counter() - t0:.1f} s")
     finally:
         out = ROOT / "chiprun_out"

@@ -194,6 +194,14 @@ def mlp_train_wrapper(params, x, y, epochs, lr=0.1, mu=0.0, device=None):
                                   lr=lr, epochs=int(epochs), mu=mu)
 
 
+def mlp_prox_train_wrapper(params, x, y, epochs, lr=0.1, mu=0.0,
+                           device=None):
+    """FedProx local training: ``mlp_train_wrapper`` under the JAX
+    package's name for it."""
+    return mlp_train_wrapper(params, x, y, epochs, lr=lr, mu=mu,
+                             device=device)
+
+
 def _not_ported(name: str, step: str):
     raise NotImplementedError(f"{name} is not ported yet (ROADMAP {step})")
 

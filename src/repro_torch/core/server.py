@@ -42,6 +42,7 @@ class HistoryPoint:
     selected: int
     up_bytes: int = 0        # cumulative worker->server wire bytes so far
     down_bytes: int = 0      # cumulative server->worker wire bytes so far
+    retransmits: int = 0     # cumulative lossy-link retransmit count so far
 
 
 class AggregationServer:
@@ -168,7 +169,8 @@ class AggregationServer:
 
     def _point(self, acc: float, n_upd: int) -> HistoryPoint:
         return HistoryPoint(self.loop.now, self.version, acc, n_upd, n_upd,
-                            self.total_up_bytes, self.total_down_bytes)
+                            self.total_up_bytes, self.total_down_bytes,
+                            self.transport.total_retransmits)
 
     def _dispatch_round(self):
         if self.done:
@@ -184,6 +186,7 @@ class AggregationServer:
             acc = self.history[-1].accuracy
             self.selector.on_round_end(acc)
             self.history.append(self._point(acc, 0))
+            self.transport.note_round(self.history[-1])
             self.version += 1
             self.loop.schedule(1e-3, self._dispatch_round)
             return
@@ -326,6 +329,7 @@ class AggregationServer:
         acc = self._accuracy()
         self.selector.on_round_end(acc)
         self.history.append(self._point(acc, n_upd))
+        self.transport.note_round(self.history[-1])
         if self.target_accuracy is not None and acc >= self.target_accuracy:
             self._finish()
         elif self.version >= self.max_rounds:

@@ -487,6 +487,9 @@ class Transport:
                           else self.bundle.raw_bytes)
         self._ack_registry = ack_registry
         self._links: Dict[str, Link] = {}
+        # retransmits over lossy links; stays 0 until they are ported
+        # (ROADMAP A1)
+        self.total_retransmits = 0
         # one packed copy of the current server model per dispatch round:
         # every selected worker's encode_down shares it (keyed on identity)
         self._down_tree = None
@@ -507,6 +510,10 @@ class Transport:
         """True when links carry a packed dispatch base (either direction
         is a delta codec)."""
         return self.spec_up.delta or self.spec_down.delta
+
+    def note_round(self, point) -> None:
+        """HistoryPoint feedback after each round, for the auto codec
+        tuner; a no-op while ``auto`` raises (ROADMAP A1)."""
 
     def link(self, worker_id: str) -> Link:
         l = self._links.get(worker_id)

@@ -43,8 +43,9 @@ SIGNATURES = {
     + (_I64, _I64, _F, _F, _I64, _P),
     # dtype, D -> 1 when the launch runs the tensor-core body
     "flash_attention_wgmma_body": (_I64, _I64),
-    # r, k, v, w, u, y; B, S, H, K, chunk; 15 strides; dtype; stream
-    "wkv_launch": (_P,) * 6 + (_I64,) * 5 + (_I64,) * 15 + (_I64, _P),
+    # r, k, v, w, u, s0, y, state, ds, ea; B, S, H, K, chunk; 15 strides;
+    # dtype; stream
+    "wkv_launch": (_P,) * 10 + (_I64,) * 5 + (_I64,) * 15 + (_I64, _P),
 }
 
 _lock = threading.Lock()

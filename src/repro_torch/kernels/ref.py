@@ -12,6 +12,7 @@ they repeat the kernels' arithmetic in every other respect.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -188,11 +189,13 @@ def reference_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def reference_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          w: torch.Tensor, u: torch.Tensor, chunk: int = 16
-                          ) -> torch.Tensor:
+                          w: torch.Tensor, u: torch.Tensor, chunk: int = 16,
+                          *, s0: Optional[torch.Tensor] = None,
+                          return_state: bool = False):
     """The plain version of the WKV kernel (B9): the arithmetic of the TPU
-    kernel ``_wkv_kernel``, every (batch, head) at once, chunk after chunk
-    from a zero (K, K) state.
+    kernel ``_wkv_kernel`` and of the model's ``wkv_chunked``, every
+    (batch, head) at once, chunk after chunk from the (K, K) state ``s0``
+    (zeros when None).
 
     Per chunk, in f32: ``lw = log(clip(w, 1e-12, 1))``; the exclusive
     cumsum ``A = cumsum(lw) - lw`` and ``Atot = A[-1] + lw[-1]``; the
@@ -200,15 +203,17 @@ def reference_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``y = scores @ v + (r . u k) v``, then ``y += (r exp(A)) @ state``
     (the state as it was before this chunk); then ``state = state
     exp(Atot) + (k exp(Atot - A - lw))^T @ v``.
-    r, k, v, w: (B,S,H,K) with ``S % min(chunk, S) == 0``; u: (H,K).
-    Returns y (B,S,H,K) in r's dtype."""
+    r, k, v, w: (B,S,H,K) with ``S % min(chunk, S) == 0``; u: (H,K); s0:
+    (B,H,K,K).  Returns y (B,S,H,K) in r's dtype, and with
+    ``return_state`` also the final state (B,H,K,K) f32."""
     f32 = torch.float32
     B, S, H, K = r.shape
     C = min(chunk, S)
     uf = u.to(f32)[None, :, None, :]                            # (1,H,1,K)
     tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
                      diagonal=-1)[None, None, :, :, None]       # i < t
-    state = torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+    state = (torch.zeros((B, H, K, K), dtype=f32, device=r.device)
+             if s0 is None else s0.to(f32))
     ys = []
     for c0 in range(0, S, C):
         rb, kb, vb, wb = (t[:, c0:c0 + C].transpose(1, 2).to(f32)
@@ -226,4 +231,5 @@ def reference_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = state * torch.exp(Atot)[..., None] + \
             kdec.transpose(2, 3) @ vb
         ys.append(y.transpose(1, 2))
-    return torch.cat(ys, dim=1).to(r.dtype)
+    y = torch.cat(ys, dim=1).to(r.dtype)
+    return (y, state) if return_state else y

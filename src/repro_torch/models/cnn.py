@@ -113,6 +113,11 @@ def cnn_sgd_train(params: Params, x: torch.Tensor, y: torch.Tensor,
     return p
 
 
+def model_nbytes(params: Params) -> int:
+    """Bytes of the parameters at their dtypes."""
+    return int(sum(p.numel() * p.element_size() for p in params.values()))
+
+
 def cnn_accuracy(params: Params, x: torch.Tensor, y: torch.Tensor
                  ) -> torch.Tensor:
     """Share of samples whose argmax logit is the label (0-d tensor)."""

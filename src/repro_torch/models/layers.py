@@ -14,6 +14,8 @@ from typing import Mapping
 
 import torch
 
+from repro_torch import resolve_device
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -25,6 +27,32 @@ def dense_init(generator: torch.Generator, shape, fan_in: int,
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) / math.sqrt(fan_in)
     return w.to(device=device, dtype=COMPUTE_DTYPE)
+
+
+def rmsnorm_init(d: int, device=None) -> dict:
+    """RMSNorm's parameters in the ``(1 + scale)`` form: ``scale`` zeros,
+    in bf16 (the JAX package's f32 zeros as its tree is cast)."""
+    return {"scale": torch.zeros((d,), dtype=COMPUTE_DTYPE,
+                                 device=resolve_device(device))}
+
+
+def glu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+                 device=None) -> dict:
+    """A GLU MLP's three projections, each ``normal / sqrt(fan_in)``."""
+    device = resolve_device(device)
+    return {"wi_gate": dense_init(generator, (d_model, d_ff), d_model, device),
+            "wi_up": dense_init(generator, (d_model, d_ff), d_model, device),
+            "wo": dense_init(generator, (d_ff, d_model), d_ff, device)}
+
+
+def embed_init(generator: torch.Generator, vocab: int, d_model: int,
+               device=None) -> dict:
+    """The token embedding, ``normal * 0.02``, drawn in f32 on the
+    generator's device and cast to bf16 on ``device``."""
+    e = torch.randn((vocab, d_model), generator=generator,
+                    dtype=torch.float32, device=generator.device) * 0.02
+    return {"embedding": e.to(device=resolve_device(device),
+                              dtype=COMPUTE_DTYPE)}
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

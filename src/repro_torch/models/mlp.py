@@ -12,6 +12,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -21,6 +23,8 @@ def init_mlp(generator: torch.Generator, *, in_dim: int, hidden: int = 128,
     generator, so the same seed gives the same weights on every device).
     Torch cannot replay ``jax.random``: for parity runs inject the JAX
     package's weights through :func:`params_from_numpy` instead."""
+    device = resolve_device(device)
+
     def he(shape, fan):
         w = torch.randn(shape, generator=generator, dtype=torch.float32)
         return (w * math.sqrt(2.0 / fan)).to(device)
@@ -33,6 +37,7 @@ def init_mlp(generator: torch.Generator, *, in_dim: int, hidden: int = 128,
 def params_from_numpy(d: Mapping[str, np.ndarray], device=None) -> Params:
     """The JAX package's MLP parameters, exported as numpy arrays, as the
     port's parameters on ``device`` (f32 copies, same layout)."""
+    device = resolve_device(device)
     return {k: torch.tensor(np.asarray(d[k]), dtype=torch.float32,
                             device=device)
             for k in ("w1", "b1", "w2", "b2")}

@@ -7,9 +7,11 @@ decode (``wkv_step``).
 Plain PyTorch in the JAX package's layouts and dtypes: the big streams stay
 in bf16, f32 only inside a chunk and for the decay and the WKV state.  JAX
 rounds its bf16 activations op by op; ``jax.nn.sigmoid`` is spelled as it
-computes it (``sigmoid``), ``jax.nn.silu`` through ``layers.silu``.  The
-model, like JAX's, runs ``wkv_chunked`` (it returns the final state that
-decode needs); kernel B9 is reached through ``kernels.ops.wkv``.
+computes it (``sigmoid``), ``jax.nn.silu`` through ``layers.silu``.
+Prefill's recurrence is kernel B9 in its state form
+(``kernels.rwkv6_kernel.wkv_state``, the same chunk step as
+``wkv_chunked``) on a CUDA tensor, and the plain ``wkv_chunked`` on a CPU
+tensor; decode runs ``wkv_step`` on both, as JAX's does.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels import rwkv6_kernel
 from .layers import COMPUTE_DTYPE, silu
 
 LORA_MIX = 32
@@ -189,7 +192,9 @@ def time_mix(tm, x, n_heads: int, head_dim: int, state=None,
         new_state = {"shift": x, "wkv": wkv}
     else:
         s0 = state["wkv"] if state is not None else None
-        y, wkv = wkv_chunked(r, k, v, w, tm["bonus"], s0, chunk=chunk)
+        recurrence = (wkv_chunked if r.device.type == "cpu"
+                      else rwkv6_kernel.wkv_state)
+        y, wkv = recurrence(r, k, v, w, tm["bonus"], s0, chunk=chunk)
         new_state = {"shift": x[:, -1:], "wkv": wkv}
     # per-head group norm (population variance, as jnp.var)
     y = y.to(torch.float32)

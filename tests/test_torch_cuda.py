@@ -20,8 +20,14 @@ and the softmax is peaked.  WKV (B9) elementwise within chip_smoke.py's
 largest |value|, in f32 1e-5 of the largest |value| (both sides compute
 in f32 and round once); and that limit must fail against the plain
 version given each of chip_smoke's faults (no bonus, no state carried
-across chunks, an inclusive cumsum).
+across chunks, an inclusive cumsum).  B9's state form (``wkv_state``, what
+rwkv6's prefill runs) the same for y, and its final state within
+chip_smoke's ``WKV_STATE_TOL`` of the plain version's largest |entry| (f32
+on both sides, sums in another order), with s0 left unwritten; that limit
+must also fail with s0 ignored and with the state taken before the last
+chunk's update.
 """
+import itertools
 import sys
 from pathlib import Path
 
@@ -408,3 +414,114 @@ def test_cuda_wkv_check_catches_faults(h100, fault, dtype):
     plain = ref.reference_wkv_chunked(r, k, v, w, u)
     assert chip_smoke.wkv_ratio(got, plain) <= 1.0
     assert chip_smoke.wkv_ratio(got, bad) > 1.0
+
+
+# B9's state form: K in HEAD_DIMS, chunk 16 and 64, S one chunk or several
+# hundred positions, f32 and bf16, from s0 or from zeros
+WKV_STATE_CASES = [
+    (K, chunk, S, dtype, with_s0) for K, chunk, (S, dtype, with_s0) in
+    itertools.product((8, 16, 32, 64, 128), (16, 64), itertools.product(
+        ("one chunk", 384), (torch.float32, torch.bfloat16), (True, False)))]
+
+
+def _wkv_state_check(r, k, v, w, u, s0, chunk):
+    """B9's state form against its plain version: y within WKV_TOL, the
+    final state within WKV_STATE_TOL, one launch, s0 unwritten."""
+    from repro_torch.kernels import rwkv6_kernel
+    kept = None if s0 is None else s0.clone()
+    n0 = rwkv6_kernel.LAUNCHES["wkv"]
+    y, st = rwkv6_kernel.wkv_state(r, k, v, w, u, s0, chunk=chunk)
+    py, pst = ref.reference_wkv_chunked(r, k, v, w, u, chunk=chunk, s0=s0,
+                                        return_state=True)
+    torch.cuda.synchronize()
+    assert rwkv6_kernel.LAUNCHES["wkv"] == n0 + 1
+    assert y.dtype == r.dtype and y.shape == r.shape
+    assert st.dtype == torch.float32 and st.shape == pst.shape
+    assert chip_smoke.wkv_ratio(y, py) <= 1.0
+    assert chip_smoke.state_ratio(st, pst) <= 1.0
+    assert s0 is None or torch.equal(s0, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,chunk,S,dtype,with_s0", WKV_STATE_CASES)
+def test_cuda_wkv_state_matches_plain(h100, K, chunk, S, dtype, with_s0):
+    S = chunk if S == "one chunk" else S
+    r, k, v, w, u = _wkv_case(h100, 2, S, 3, K, dtype, seed=K + chunk)
+    s0 = (1.25 * torch.randn(2, 3, K, K, device=h100) if with_s0 else None)
+    _wkv_state_check(r, k, v, w, u, s0, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,chunk", [(50, 32, 10), (72, 128, 24),
+                                       (6, 16, 3)])
+def test_cuda_wkv_state_ragged_chunk_tiles(h100, S, K, chunk):
+    """Chunks that are not a multiple of the kernel's 4-position tiles."""
+    r, k, v, w, u = _wkv_case(h100, 1, S, 2, K, torch.float32)
+    _wkv_state_check(r, k, v, w, u, torch.randn(1, 2, K, K, device=h100),
+                     chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_state_reads_strided_views(h100):
+    """r, k, v as views of one (B, S, H, 3K) projection, read in place, and
+    a view offset by one element (copied first)."""
+    B, S, H, K = 2, 256, 4, 64
+    rkv = (0.5 * torch.randn(B, S, H, 3 * K + 1, device=h100)).bfloat16()
+    r, k, v = rkv[..., :K], rkv[..., K:2 * K], rkv[..., 2 * K + 1:]
+    _, _, _, w, u = _wkv_case(h100, B, S, H, K, torch.bfloat16)
+    _wkv_state_check(r, k, v, w, u, torch.randn(B, H, K, K, device=h100), 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", chip_smoke.WKV_STATE_FAULTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_wkv_state_check_catches_faults(h100, fault, dtype):
+    """The limits that the state form meets fail a plain version given each
+    of chip_smoke's state-form faults (y or final state)."""
+    from repro_torch.kernels import rwkv6_kernel
+    r, k, v, w, u = _wkv_case(h100, 2, 512, 4, 64, dtype, seed=1)
+    s0 = 1.25 * torch.randn(2, 4, 64, 64, device=h100)
+    y, st = rwkv6_kernel.wkv_state(r, k, v, w, u, s0)
+    by, bst = chip_smoke.wkv_fault_state(fault, r, k, v, w, u, 64, s0)
+    py, pst = ref.reference_wkv_chunked(r, k, v, w, u, chunk=64, s0=s0,
+                                        return_state=True)
+    torch.cuda.synchronize()
+    assert max(chip_smoke.wkv_ratio(y, py),
+               chip_smoke.state_ratio(st, pst)) <= 1.0
+    assert max(chip_smoke.wkv_ratio(y, by),
+               chip_smoke.state_ratio(st, bst)) > 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_prefill_launches_wkv_once_per_layer(h100):
+    """A REDUCED rwkv6-3b prefill on the card runs B9 once per layer and
+    decode never; its logits match the same run on the CPU (the plain
+    wkv_chunked) within 0.04 of max|logit| (bf16 end to end)."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import rwkv6_kernel
+    cfg = configs.get_config("rwkv6-3b", reduced=True)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+
+    def to(tree):
+        return {n: to(t) if isinstance(t, dict) else t.to(h100)
+                for n, t in tree.items()}
+    card = to(params)
+    toks = _t(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 132)))
+    n0 = rwkv6_kernel.LAUNCHES["wkv"]
+    lg, st = models.prefill_step(card, {"tokens": toks[:, :128].to(h100)},
+                                 cfg=cfg, max_len=132)
+    torch.cuda.synchronize()
+    assert rwkv6_kernel.LAUNCHES["wkv"] == n0 + cfg.n_layers
+    for t in range(128, 132):
+        lg, st = models.serve_step(card, st, toks[:, t:t + 1].to(h100), t,
+                                   cfg=cfg)
+    torch.cuda.synchronize()
+    assert rwkv6_kernel.LAUNCHES["wkv"] == n0 + cfg.n_layers
+    lc, sc = models.prefill_step(params, {"tokens": toks[:, :128]}, cfg=cfg,
+                                 max_len=132)
+    for t in range(128, 132):
+        lc, sc = models.serve_step(params, sc, toks[:, t:t + 1], t, cfg=cfg)
+    err = (lg.float().cpu() - lc.float()).abs().max() / lc.float().abs().max()
+    assert float(err) < 0.04

@@ -103,8 +103,10 @@ def test_training_leaves_its_input_untouched(w0):
 
 
 def test_init_mlp_is_seeded_he_normal():
-    a = mlp.init_mlp(torch.Generator().manual_seed(3), in_dim=784)
-    b = mlp.init_mlp(torch.Generator().manual_seed(3), in_dim=784)
+    a = mlp.init_mlp(torch.Generator().manual_seed(3), in_dim=784,
+                     device="cpu")
+    b = mlp.init_mlp(torch.Generator().manual_seed(3), in_dim=784,
+                     device="cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert a["w1"].shape == (784, 128) and a["w2"].shape == (128, 10)
     assert abs(a["w1"].std().item() - (2.0 / 784) ** 0.5) < 2e-3

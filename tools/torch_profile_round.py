@@ -15,11 +15,9 @@ round, the operators that take the most host time and the kernels that
 take the most device time.  With ``--prefill [ARCH]`` it profiles instead
 one full-width prefill of 2 prompts of 8192 tokens after a warm-up one:
 gemma2-2b (the default, ``chip_smoke.py``'s LM phase, kernel B8 for
-attention), whose device time it splits into B8, cuBLAS's GEMMs and the
-rest, or rwkv6-3b (its rwkv6 phase), whose device time it splits into the
-plain ``wkv_chunked`` (every kernel launched inside it, its own batched
-products included), cuBLAS's GEMMs outside it and the rest.  It needs the
-card and raises without one.
+attention) or rwkv6-3b (its rwkv6 phase, kernel B9 for the WKV
+recurrence), whose device time it splits into the kernel's, cuBLAS's
+GEMMs and the rest.  It needs the card and raises without one.
 """
 import argparse
 import subprocess
@@ -28,7 +26,7 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -41,9 +39,9 @@ from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
 OWN_KERNELS = ("agg_vec4", "agg_scalar", "mix_vec4", "mix_scalar",
                "encode_kernel", "decode_kernel", "mom_vec4", "mom_scalar",
                "adam_vec4", "adam_scalar", "flash_fwd", "flash_wgmma",
-               "wkv_fwd")
+               "wkv_state_inc", "wkv_scan", "wkv_out")
 B8_NAMES = ("flash_fwd", "flash_wgmma")   # B8's SIMT and tensor-core bodies
-SPAN = "wkv_chunked"      # the profiler range around rwkv6's plain WKV
+B9_NAMES = ("wkv_state_inc", "wkv_scan", "wkv_out")   # B9's three passes
 # cuBLAS's GEMM kernels, by the names they carry on Hopper
 GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
 
@@ -70,21 +68,12 @@ def _is_gemm(name: str) -> bool:
     return any(n in name.lower() for n in GEMM_NAMES)
 
 
-def _span_kernels(evt):
-    """The kernels launched under the CPU event ``evt`` and its children."""
-    out = list(evt.kernels)
-    for child in evt.cpu_children:
-        out.extend(_span_kernels(child))
-    return out
-
-
 def profile_prefill(arch: str):
     """One full-width prefill of ``arch`` (gemma2-2b or rwkv6-3b): the
-    device time of B8 or of ``wkv_chunked`` against cuBLAS's GEMMs and
+    device time of its kernel (B8 or B9) against cuBLAS's GEMMs and
     everything else, and the idle share."""
     from repro_torch import configs, models
     from repro_torch.data import lm
-    from repro_torch.models import rwkv6
     cfg = configs.get_config(arch)
     rwkv = cfg.block_type == "rwkv6"
     if rwkv:
@@ -109,46 +98,24 @@ def profile_prefill(arch: str):
     prefill()
     torch.cuda.synchronize()
     bare = time.perf_counter() - t0
-    plain = rwkv6.wkv_chunked
-
-    def spanned(*args, **kw):
-        with record_function(SPAN):
-            return plain(*args, **kw)
-    rwkv6.wkv_chunked = spanned
-    try:
-        prof, wall = _profile(prefill)
-    finally:
-        rwkv6.wkv_chunked = plain
-    # the span also shows as a device row (its extent on the card's
-    # timeline): kernels only
+    prof, wall = _profile(prefill)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != SPAN]
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_device_us(e) for e in kernels) / 1e3
     gemm = sum(_device_us(e) for e in kernels if _is_gemm(e.key)) / 1e3
     print(f"\nprefill {arch} B={batch_n} S={prompt}: wall {wall * 1e3:.3f} "
           f"ms (profiled), device busy {busy:.3f} ms, idle share "
           f"{1 - busy / wall / 1e3:.3f}; unprofiled wall {bare * 1e3:.3f} "
           f"ms, idle share against it {1 - busy / bare / 1e3:.3f}")
-    if rwkv:
-        inside = [k for e in prof.events() if e.name == SPAN
-                  and e.device_type == torch.autograd.DeviceType.CPU
-                  for k in _span_kernels(e)]
-        wkv = sum(k.duration for k in inside) / 1e3
-        wkv_gemm = sum(k.duration for k in inside if _is_gemm(k.name)) / 1e3
-        rest = busy - wkv - (gemm - wkv_gemm)
-        print(f"  wkv_chunked {wkv:.3f} ms ({wkv / busy:.4f} of busy; its "
-              f"cuBLAS products {wkv_gemm:.3f} ms, {len(inside)} kernels), "
-              f"cuBLAS GEMMs outside it {gemm - wkv_gemm:.3f} ms "
-              f"({(gemm - wkv_gemm) / busy:.4f}), other {rest:.3f} ms "
-              f"({rest / busy:.4f})")
-    else:
-        flash = sum(_device_us(e) for e in kernels
-                    if any(n in e.key for n in B8_NAMES)) / 1e3
-        print(f"  B8 {flash:.3f} ms ({flash / busy:.4f} of busy), "
-              f"cuBLAS GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), other "
-              f"{busy - flash - gemm:.3f} ms "
-              f"({(busy - flash - gemm) / busy:.4f})")
+    names, kernel = (B9_NAMES, "B9") if rwkv else (B8_NAMES, "B8")
+    own = sum(_device_us(e) for e in kernels
+              if any(n in e.key for n in names)) / 1e3
+    n_own = sum(e.count for e in kernels if any(n in e.key for n in names))
+    n_all = sum(e.count for e in kernels)
+    print(f"  {kernel} {own:.3f} ms ({own / busy:.4f} of busy; {n_own} "
+          f"kernels), cuBLAS GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), "
+          f"other {busy - own - gemm:.3f} ms "
+          f"({(busy - own - gemm) / busy:.4f}); {n_all} kernels in all")
     for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
         print(f"  device {_device_us(e) / 1e3:9.3f} ms  {e.count:7d}x  "
               f"{e.key[:70]}")
