@@ -15,7 +15,17 @@ and prints no result):
    card at the paths' shapes (fedavg W = 30 and 2, N = 101,888, the
    scalar path's 101,890 and a ragged N = 1000: the aggregate bit-exact,
    the mix within 1e-6; encode and decode at N = 101,888 and
-   1000, bit-exact; the server-optimizer step at N = 101,888, 29,184 (the
+   1000, bit-exact; that ``t / 127.0`` on the card is ``t`` times
+   fl32(1/127), as the plain chain's scale assumes; B3's redesign
+   ``ef_encode`` (the whole EF top-k+int8
+   encode, one cluster launch) on every ``EF_CASES`` input and the select
+   alone on each top-k one, bit for bit in every output (q or recon,
+   residual, threshold, scale, kept count), with each ``EF_FAULTS``
+   control failing (a threshold one rank lower, fmaxf for the
+   NaN-propagating max, kept with ``>``); B4's redesign
+   ``dequant_add_rows`` (one merge's decodes into the row buffer) bit for
+   bit at ``ROWS_W`` decodes with stale rows zeroed; the server-optimizer
+   step at N = 101,888, 29,184 (the
    padded MNIST CNN) and 1000 with the FedAvgM, FedDyn and FedAdam
    scalars, bit-exact, fresh and with its state written in place; flash
    attention at gemma2-2b's global and local layers, yi-9b's and two f32
@@ -36,12 +46,18 @@ and prints no result):
    yardstick with CUDA events (median of 50 cold-L2 runs after warm-up;
    10 for flash attention and WKV, whose sequential ``reference_wkv`` is
    timed too; kernel and library in turns: library, kernel, kernel,
-   library), beside the least time the card could take and the time
-   before B2's and B8's redesign.
+   library), beside the least time the card could take; ``ef_encode``
+   and ``dequant_add_rows`` in turns against the parent's form of the
+   same work (the chain of PyTorch ops around B3; 30 x B4 + stack +
+   zero_), with ``torch.topk`` alone and the portable 8-CTA cluster read
+   beside.
 4. Main path: the paper's 30-worker MNIST experiment at full MLP width
    (784-128-10, 101,770 parameters) through ``make_setup`` -> ``run_fl``,
    20 rounds x 10 local epochs, in sync / async / async_delta /
    time_based, with the raw transport and with top-k+int8 uplinks.
+   Then ``REPLAY_RUN`` once more with every encode and every merge's
+   decodes recorded and replayed through the plain versions on the card:
+   every output equal bit for bit.
 5. Heterogeneity: the non-IID experiment of ``benchmarks/fl_figures.py``
    (REGIME: 10 workers, batch 64, het extreme, Dirichlet alpha 0.3) at
    full MLP width, 10 local epochs: sync 40 rounds with FedAvgM
@@ -55,7 +71,10 @@ and prints no result):
 
 Every run of phases 4-6 starts with every launch counter at 0 and reads
 them after; the counters must show each kernel on the runs that use it
-(and the optimizer step exactly once per merge).  Every raw run is
+(and the optimizer step exactly once per merge, one ``ef_encode`` launch
+per encode and none of B3 or of the select alone, and one
+``dequant_add_rows`` launch per merge whose responses waited encoded:
+sync, time_based and FedAsync async).  Every raw run is
 repeated on the CPU in this process from the same initial weights: every
 history field but accuracy must match exactly.  Accuracy cannot match
 point for point: SGD over these runs is chaotic, and a one-ulp change to
@@ -209,22 +228,71 @@ def gap_bounds(key):
 
 
 # kernel -> (launch counter key, the runs that must show it)
+TOPK_RUNS = [f"uplink_only/{m}" for m in MODES] + ["hetero/sync_topk/fedadam"]
 REQUIRED = {
     "fedavg_agg_flat": ("agg", ["raw/sync", "raw/time_based",
                                 "raw/async_delta", "hetero/sync/fedavgm",
                                 "cnn/sync/fedavg"]),
     "fedavg_mix_flat": ("mix", ["raw/async", "raw/async_delta",
                                 "hetero/async/fedadam"]),
-    "topk_quant_encode": ("encode", [f"uplink_only/{m}" for m in MODES]
-                          + ["hetero/sync_topk/fedadam"]),
-    "dequant_add": ("decode", [f"uplink_only/{m}" for m in MODES]
-                    + ["hetero/sync_topk/fedadam"]),
+    # B3's redesign: every top-k+int8 encode, one launch each
+    "ef_encode": ("ef_encode", TOPK_RUNS),
+    # B4's redesign: every merge whose responses waited encoded
+    "dequant_add_rows": ("decode_rows", [
+        "uplink_only/sync", "uplink_only/async", "uplink_only/time_based",
+        "hetero/sync_topk/fedadam"]),
+    # B4 itself: the decodes whose vector is read besides the merge (the
+    # async delta merge) and the symmetric codec's downlink
+    "dequant_add": ("decode", ["uplink_only/async_delta",
+                               "hetero/sync_topk/fedadam"]),
     "server_opt_step_flat_mom": ("mom", ["hetero/sync/fedavgm",
                                          "hetero/sync/feddyn"]),
     "server_opt_step_flat_adam": ("adam", [
         "hetero/sync/fedadam", "hetero/async/fedadam",
         "hetero/sync_topk/fedadam", "cnn/sync/fedadam"]),
 }
+# B3 itself: no path calls it since ef_encode took its place; it keeps its
+# check, its timing and a launch count (0) in the kernels line
+RETIRED = {"topk_quant_encode": "encode"}
+# ef_encode (B3 redesigned) is held bit for bit against its plain version
+# (ref.reference_ef_encode, the parent's chain) at these inputs: (N,
+# n_params, k, quantize, draw); k None is the int8 codec's form (threshold
+# 0).  "parts" is x = (a - b) + c as an uplink forms it (a, b ~ N(0, 1) the
+# new weights and the base, c ~ 0.01 N(0, 1) the residual); the other
+# draws are x alone: "ties" 41 distinct values (ties at any threshold),
+# "zeros" all zero (the threshold falls to its floor, nothing is kept),
+# "nonfinite" N(0, 1) with a NaN, +inf, -inf and 100 -0.0 planted.  The
+# MLP's and the CNN's widths at their k, k = 1 and k = n, and 2^17 + 512
+# and 2^20 on the strided-sample path.
+EF_CASES = {
+    "mlp topk+int8": (101_888, 101_770, 10_177, True, "parts"),
+    "mlp topk": (101_888, 101_770, 10_177, False, "parts"),
+    "mlp int8": (101_888, 101_770, None, True, "parts"),
+    "cnn topk+int8": (29_184, 28_938, 2_893, True, "parts"),
+    "cnn topk": (29_184, 28_938, 2_893, False, "parts"),
+    "cnn int8": (29_184, 28_938, None, True, "parts"),
+    "k = 1": (101_888, 101_770, 1, True, "parts"),
+    "k = n": (101_888, 101_888, 101_888, True, "parts"),
+    "sampled 2^17 + 512": (131_584, 131_484, 13_148, True, "parts"),
+    "sampled 2^20": (1_048_576, 1_048_476, 104_847, True, "parts"),
+    "sampled 2^20 topk": (1_048_576, 1_048_476, 104_847, False, "parts"),
+    "sampled 2^20 int8": (1_048_576, 1_048_476, None, True, "parts"),
+    "ties": (101_888, 101_770, 10_177, True, "ties"),
+    "zeros": (101_888, 101_770, 10_177, True, "zeros"),
+    "nonfinite": (101_888, 101_770, 10_177, True, "nonfinite"),
+    "nonfinite topk": (101_888, 101_770, 10_177, False, "nonfinite"),
+}
+# the controls: ef_encode's plain version given each fault must disagree
+# with the kernel on the case named
+EF_FAULTS = {"threshold one rank lower": "mlp topk+int8",
+             "fmaxf for the NaN-propagating max": "nonfinite",
+             "kept with > for >=": "mlp topk+int8"}
+# dequant_add_rows is held bit for bit at these numbers of decodes over N =
+# 101,888, with two stale rows beyond them (NaN) that must come back zero
+ROWS_W = (1, 30, 65)
+# the run whose every encode and merge is recorded and replayed through
+# the plain versions on the card
+REPLAY_RUN = "uplink_only/sync"
 # B8 (flash attention) is checked at these shapes, (B, S, H, Kv, D, dtype,
 # window, softcap); the first three are timed.  gemma2-2b's global and
 # local layers and yi-9b's at the LM phase's prompt lengths, then two f32
@@ -435,6 +503,9 @@ def launch_counters():
                                      rwkv6_kernel, server_opt, topk_quant)
     return {"agg": fedavg_agg.LAUNCHES, "mix": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
+            "ef_encode": topk_quant.LAUNCHES,
+            "select": topk_quant.LAUNCHES,
+            "decode_rows": topk_quant.LAUNCHES,
             "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES,
             "flash": flash_attention.LAUNCHES,
             "flash_wgmma": flash_attention.LAUNCHES,
@@ -480,7 +551,7 @@ def check_kernels(dev):
     from repro_torch.kernels import fedavg_agg, ref, server_opt, topk_quant
     g = torch.Generator(device=dev).manual_seed(0)
     N = 101_888
-    errs = {k: 0.0 for k in REQUIRED}
+    errs = {k: 0.0 for k in (*REQUIRED, *RETIRED)}
     # 101,890: the scalar path (N % 4 != 0) at the main path's width
     for W, n in ((30, N), (2, N), (30, 101_890), (30, 1000), (3, 1000)):
         rows = torch.randn(W, n, device=dev, generator=g)
@@ -502,7 +573,7 @@ def check_kernels(dev):
                                           max_err(fresh, plain))
     for n in (N, 1000):
         x = torch.randn(n, device=dev, generator=g) * 0.01
-        scale = transport._int8_scale(x)
+        scale = ref.reference_int8_scale(x)
         for thresh in (transport.topk_threshold(x, max(1, n // 10), n),
                        torch.zeros((), device=dev)):
             q, r = topk_quant.topk_quant_encode(x, thresh, scale)
@@ -535,7 +606,7 @@ def check_kernels(dev):
     wvec = torch.cat([torch.full((1,), 0.1, device=dev), w])
     server = torch.randn(N, device=dev, generator=g)
     x = torch.randn(N, device=dev, generator=g) * 0.01
-    scale = transport._int8_scale(x)
+    scale = ref.reference_int8_scale(x)
     thresh = transport.topk_threshold(x, N // 10, N)
     q, _ = topk_quant.topk_quant_encode(x, thresh, scale)
     base = torch.randn(N, device=dev, generator=g)
@@ -610,11 +681,270 @@ def check_kernels(dev):
               f"{records[name]['plain_ms']:.4f} ms, library "
               f"{records[name]['library_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
+    records.update(check_codec_fused(dev, timer))
     records["flash_attention"] = check_flash(dev, timer)
     records.update(check_wkv(dev, timer))
     # the comparison launches above do not count toward the paths' runs:
     # each run sets every counter to 0 before it starts
     return records
+
+
+def ef_inputs(g, N, draw):
+    """(a, b, c) of an EF_CASES draw on g's device (b, c None but for
+    "parts")."""
+    dev = g.device
+    if draw == "parts":
+        a, b = (torch.randn(N, device=dev, generator=g) for _ in range(2))
+        return a, b, 0.01 * torch.randn(N, device=dev, generator=g)
+    if draw == "ties":
+        x = 0.001 * torch.randint(-20, 21, (N,), device=dev, generator=g)
+    elif draw == "zeros":
+        x = torch.zeros(N, device=dev)
+    elif draw == "nonfinite":
+        x = torch.randn(N, device=dev, generator=g)
+        x[5], x[77], x[99] = float("nan"), float("inf"), -float("inf")
+        x[1000:1100] = -0.0
+    else:
+        raise ValueError(draw)
+    return x.float(), None, None
+
+
+def ef_plain_fault(fault, a, b, c, *, k, n_params, quantize):
+    """ef_encode's plain chain (ref.reference_ef_encode) given ``fault``,
+    a control that the check must catch: the threshold taken one rank
+    lower (the (k+1)-th largest |x|); max|x| with fmaxf's semantics (a NaN
+    dropped, not propagated); the kept count with ``>``."""
+    from repro_torch.kernels import ref
+    if fault not in EF_FAULTS:
+        raise ValueError(fault)
+    x = a if b is None else a - b
+    x = x if c is None else x + c
+    rank = k + 1 if fault == "threshold one rank lower" else k
+    thresh = ref.reference_topk_threshold(x, rank, n_params)
+    xa = x.abs()
+    kept = torch.sum(xa > thresh if fault == "kept with > for >=" else
+                     xa >= thresh)
+    if not quantize:
+        recon = torch.where(xa >= thresh, x, torch.zeros_like(x))
+        return recon, x - recon, thresh, None, kept
+    if fault == "fmaxf for the NaN-propagating max":
+        xa = torch.where(torch.isnan(xa), torch.zeros_like(xa), xa)
+    scale = torch.clamp_min(xa.max(), 1e-12) * ref.INV_127
+    q, r = ref.reference_topk_quant_encode(x, thresh, scale)
+    return q, r, thresh, scale, kept
+
+
+EF_OUTPUTS = ("q or recon", "residual", "thresh", "scale", "kept")
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (a NaN equals a NaN of the same bits); 0-d counts
+    compare as integers, whatever their type."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype:
+        return a.numel() == b.numel() == 1 and int(a) == int(b)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def ef_mismatch(got, want):
+    """The names of the outputs on which two ef_encode results differ."""
+    return [n for n, g, w in zip(EF_OUTPUTS, got, want)
+            if not same_bits(g, w)]
+
+
+def rows_inputs(g, W, N):
+    """W decodes over N: int8 q, 0-d scales, bases from 3 distinct
+    vectors (a round's responses share their dispatch base)."""
+    dev = g.device
+    qs = [torch.randint(-127, 128, (N,), device=dev, generator=g,
+                        dtype=torch.int8) for _ in range(W)]
+    scales = [0.01 * torch.rand((), device=dev, generator=g)
+              for _ in range(W)]
+    distinct = [torch.randn(N, device=dev, generator=g) for _ in range(3)]
+    return qs, scales, [distinct[i % 3] for i in range(W)]
+
+
+def check_codec_fused(dev, timer):
+    """The scale's division on the card (a product with fl32(1/127));
+    ef_encode (B3 redesigned: the whole EF top-k+int8 encode in one
+    cluster launch) against its plain version on every EF_CASES input, bit
+    for bit in every output, and each EF_FAULTS control failing; the
+    select alone (topk_threshold) against its plain version on the same
+    inputs; dequant_add_rows (B4 redesigned: one merge's decodes into the
+    row buffer) bit for bit at ROWS_W with stale rows zeroed.  Then both
+    timed at the main path's shapes, with L2 flushed, in turns against the
+    parent's form of the same work: the chain of PyTorch ops around B3 for
+    ef_encode (torch.topk alone and the portable 8-CTA cluster read beside
+    it),
+    30 x B4 + torch.stack + zero_ for dequant_add_rows.  Returns their
+    records."""
+    from repro_torch.kernels import ref, topk_quant
+    g = torch.Generator(device=dev).manual_seed(3)
+    # the chain's scale, `t / 127.0` on a CUDA tensor, is PyTorch's product
+    # with fl32(1/127) (a division by a host scalar goes through its
+    # reciprocal), not a correctly rounded division: ef_encode and
+    # ref.reference_int8_scale spell that product
+    v = torch.rand(1 << 20, device=dev, generator=g) * torch.exp(
+        5 * torch.randn(1 << 20, device=dev, generator=g))
+    div = v / 127.0
+    off = int((div != (v.double() / 127).float()).sum())
+    print(f"check scale: t / 127.0 on the card equals t * fl32(1/127) on "
+          f"2^20 values: {same_bits(div, v * ref.INV_127)}; {off} of them "
+          f"differ from a correctly rounded division")
+    if not same_bits(div, v * ref.INV_127):
+        raise AssertionError("t / 127.0 on the card is not t * fl32(1/127)")
+    cases, controls = [], {}
+    for label, (N, n_params, k, quantize, draw) in EF_CASES.items():
+        a, b, c = ef_inputs(g, N, draw)
+        kw = dict(k=k, n_params=n_params, quantize=quantize)
+        before = topk_quant.LAUNCHES["ef_encode"]
+        got = topk_quant.ef_encode(a, b, c, **kw)
+        want = ref.reference_ef_encode(a, b, c, **kw)
+        bad = ef_mismatch(got, want)
+        launches = topk_quant.LAUNCHES["ef_encode"] - before
+        rec = {"case": label, "N": N, "n_params": n_params, "k": k,
+               "quantize": quantize, "draw": draw, "launches": launches,
+               "kept": int(want[4]), "thresh": float(want[2]),
+               "scale": None if want[3] is None else float(want[3]),
+               "mismatch": bad}
+        if k is not None:
+            x = a if b is None else (a - b) + c
+            rec["select_equal"] = same_bits(
+                topk_quant.topk_threshold(x, k, n_params),
+                ref.reference_topk_threshold(x, k, n_params))
+        for fault, on in EF_FAULTS.items():
+            if on == label:
+                controls[fault] = ef_mismatch(got, ef_plain_fault(
+                    fault, a, b, c, **kw))
+        print(f"check ef_encode {label}: N {N}, k {k}, {launches} "
+              f"launch(es), kept {rec['kept']}, "
+              f"thresh {rec['thresh']!r}, scale {rec['scale']!r}; outputs "
+              f"differing from the plain version: {bad or 'none'}"
+              + (f"; select alone equal {rec['select_equal']}"
+                 if k is not None else ""))
+        if bad or not rec.get("select_equal", True):
+            raise AssertionError(f"ef_encode {label}: kernel and plain "
+                                 f"version differ in {bad or 'the select'}")
+        cases.append(rec)
+        del a, b, c, got, want
+    for fault, bad in controls.items():
+        print(f"check ef_encode control ({fault}, on {EF_FAULTS[fault]}): "
+              f"outputs differing: {bad}")
+        if not bad:
+            raise AssertionError(f"ef_encode: the check does not catch "
+                                 f"{fault}")
+    N = 101_888
+    rows_checks = []
+    for W in ROWS_W:
+        qs, scales, bases = rows_inputs(g, W, N)
+        rows = torch.full((W + 2, N), float("nan"), device=dev)
+        plain = torch.full((W + 2, N), float("nan"), device=dev)
+        topk_quant.dequant_add_rows(qs, scales, bases, rows)
+        ref.reference_dequant_add_rows(qs, scales, bases, plain)
+        ok = same_bits(rows, plain) and not rows[W:].any()
+        rows_checks.append({"W": W, "equal": ok})
+        print(f"check dequant_add_rows W = {W}: rows equal the plain "
+              f"version's and the 2 stale rows zeroed: {ok}")
+        if not ok:
+            raise AssertionError(f"dequant_add_rows W = {W}: kernel and "
+                                 f"plain version differ")
+
+    # timing at the main path's shapes
+    k, n_params = 10_177, 101_770
+    a, b, c = ef_inputs(g, N, "parts")
+
+    def kern():
+        return topk_quant.ef_encode(a, b, c, k=k, n_params=n_params,
+                                    quantize=True)
+
+    def parent():
+        # the parent's encode: x, torch.topk's threshold, the kept count
+        # (then synced to the host), the scale, B3, and the recon the
+        # parent built and dropped
+        x = (a - b) + c
+        t = torch.clamp_min(torch.topk(x.abs(), k).values[-1], 1e-30)
+        kept = torch.sum(x.abs() >= t)
+        s = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+        q, r = topk_quant.topk_quant_encode(x, t, s)
+        return q.to(torch.float32) * s, r, kept
+
+    xa = ((a - b) + c).abs()
+    ms, parent_ms, turns = timer.turns(kern, parent)
+    ctas = topk_quant.CLUSTER_CTAS
+    topk_quant.CLUSTER_CTAS = 8
+    try:
+        ms8 = timer(kern)
+    finally:
+        topk_quant.CLUSTER_CTAS = ctas
+    n_bytes = 3 * N * 4 + N + N * 4 + 12
+    b_ms, b_by = bound_ms(n_bytes, 8 * N)
+    enc = {"name": "ef_encode", "route": "cuda", "ok": True,
+           "source": "src/repro_torch/kernels/csrc/topk_quant.cu",
+           "replaces": "src/repro/kernels/topk_quant.py:60",
+           "launches": 0, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": timer(lambda: ref.reference_ef_encode(
+               a, b, c, k=k, n_params=n_params, quantize=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "parent_ms": parent_ms, "turns": turns,
+           "topk_ms": timer(lambda: torch.topk(xa, k)),
+           "ctas": ctas, "ms_8_ctas": ms8, "div127_off_correct": off,
+           "clusters_active": cluster_occupancy(N),
+           "cases": cases, "controls": controls}
+    print(f"time ef_encode: kernel {ms:.6f} ms ({ctas} CTAs; 8 CTAs "
+          f"{ms8:.6f}), the "
+          f"parent's chain {parent_ms:.6f} ms (torch.topk alone "
+          f"{enc['topk_ms']:.6f}), plain {enc['plain_ms']:.6f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); clusters the card holds at once "
+          f"{enc['clusters_active']}")
+    W = 30
+    qs, scales, bases = rows_inputs(g, W, N)
+    bases = [bases[0]] * W               # one round: one dispatch base
+    rows = torch.empty(W, N, device=dev)
+
+    def rows_kern():
+        return topk_quant.dequant_add_rows(qs, scales, bases, rows)
+
+    def rows_parent():
+        vecs = [topk_quant.dequant_add(q, s, bv)
+                for q, s, bv in zip(qs, scales, bases)]
+        torch.stack(vecs, out=rows[:W])
+        rows[W:].zero_()
+
+    ms, parent_ms, turns = timer.turns(rows_kern, rows_parent)
+    n_bytes = W * N + N * 4 + W * N * 4 + 4 * W
+    b_ms, b_by = bound_ms(n_bytes, 2 * W * N)
+    dec = {"name": "dequant_add_rows", "route": "cuda", "ok": True,
+           "source": "src/repro_torch/kernels/csrc/topk_quant.cu",
+           "replaces": "src/repro/kernels/topk_quant.py:89",
+           "launches": 0, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": timer(lambda: ref.reference_dequant_add_rows(
+               qs, scales, bases, rows)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "parent_ms": parent_ms, "turns": turns, "checks": rows_checks}
+    print(f"time dequant_add_rows W = {W}: kernel {ms:.6f} ms, the parent's "
+          f"30 x B4 + stack + zero_ {parent_ms:.6f} ms, plain "
+          f"{dec['plain_ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"ef_encode": enc, "dequant_add_rows": dec}
+
+
+def cluster_occupancy(N):
+    """Clusters of 8 and of 16 CTAs the card holds at once with ef_encode's
+    shared memory at N (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    out = {}
+    for ctas in (8, 16):
+        smem = (-(-N // ctas) + 3) // 4 * 4 * 4
+        n = ctypes.c_int(0)
+        status = _build.lib().ef_cluster_max_active(ctas, smem,
+                                                    ctypes.byref(n))
+        if status:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters: {status}")
+        out[ctas] = n.value
+    return out
 
 
 def fault_args(fault, k, v, window, cap, n_heads):
@@ -1014,22 +1344,41 @@ def drive(key, setup, report):
     from repro_torch.core import run_fl
     spec = RUNS[key]
     counters = launch_counters()
-    zero_counters()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    h = run_fl(setup, epochs_per_round=EPOCHS, max_rounds=spec["rounds"],
-               **spec["run_kw"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counted_encodes() as encodes:
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = run_fl(setup, epochs_per_round=EPOCHS,
+                   max_rounds=spec["rounds"], **spec["run_kw"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k: counters[k][k] for k in counters}
     rounds = h[-1].version
+    merges = sum(p.n_updates > 0 for p in h[1:])
     report[key] = {"history": [vars(p) for p in h], "launches": launches,
-                   "wall_s": wall, "s_per_round": wall / max(rounds, 1)}
-    print(f"run {key}: {rounds} rounds, final accuracy "
-          f"{h[-1].accuracy:.4f}, {wall / max(rounds, 1):.4f} s per round, "
-          f"launches {launches}")
+                   "encodes": encodes[0], "merges": merges, "wall_s": wall,
+                   "s_per_round": wall / max(rounds, 1)}
+    print(f"run {key}: {rounds} rounds, {merges} merges, {encodes[0]} "
+          f"encodes, final accuracy {h[-1].accuracy:.4f}, "
+          f"{wall / max(rounds, 1):.4f} s per round, launches {launches}")
     if rounds != spec["rounds"]:
         raise AssertionError(f"{key}: {rounds} rounds, not {spec['rounds']}")
+    # every encode is one fused launch (the FL paths' widths fit one
+    # cluster) and nothing else encodes; every merge whose responses
+    # waited encoded is one dequant_add_rows launch
+    run_kw = spec["run_kw"]
+    topk = run_kw.get("transport", "raw") != "raw"
+    deferred = topk and (run_kw["mode"] == "sync" or not (
+        run_kw.get("async_delta") or run_kw.get("async_latest_table", True)))
+    if (launches["ef_encode"] != encodes[0] or bool(encodes[0]) != topk
+            or launches["encode"] or launches["select"]):
+        raise AssertionError(f"{key}: {encodes[0]} encodes took "
+                             f"{launches['ef_encode']} ef_encode launches, "
+                             f"{launches['encode']} of B3, "
+                             f"{launches['select']} selects")
+    if launches["decode_rows"] != (merges if deferred else 0):
+        raise AssertionError(f"{key}: {launches['decode_rows']} "
+                             f"dequant_add_rows launches for {merges} merges")
     if not all(np.isfinite(p.accuracy) for p in h):
         raise AssertionError(f"{key}: non-finite accuracy")
     opt_ctr = OPT_COUNTER.get(spec["run_kw"].get("server_opt"))
@@ -1038,6 +1387,84 @@ def drive(key, setup, report):
         if launches[ctr] != want:
             raise AssertionError(f"{key}: {launches[ctr]} {ctr} optimizer "
                                  f"steps, expected one per merge ({want})")
+
+
+@contextlib.contextmanager
+def counted_encodes():
+    """Count the calls of ``topk_quant.ef_encode`` (the codec's encodes)
+    while the block runs: yields a one-element list."""
+    from repro_torch.kernels import topk_quant
+    real, n = topk_quant.ef_encode, [0]
+
+    def counted(*args, **kw):
+        n[0] += 1
+        return real(*args, **kw)
+    topk_quant.ef_encode = counted
+    try:
+        yield n
+    finally:
+        topk_quant.ef_encode = real
+
+
+@contextlib.contextmanager
+def recorded_codec(encodes, merges):
+    """While the block runs, ``topk_quant.ef_encode`` and
+    ``dequant_add_rows`` append copies of their inputs and outputs to
+    ``encodes`` and ``merges``."""
+    from repro_torch.kernels import topk_quant
+
+    def copy(ts):
+        return [None if t is None else t.clone() for t in ts]
+    real_enc, real_rows = topk_quant.ef_encode, topk_quant.dequant_add_rows
+
+    def enc(a, b=None, c=None, **kw):
+        out = real_enc(a, b, c, **kw)
+        encodes.append((copy((a, b, c)), kw, copy(out)))
+        return out
+
+    def rows_fn(qs, scales, bases, rows):
+        out = real_rows(qs, scales, bases, rows)
+        merges.append((copy(qs), copy(scales), copy(bases), rows.clone()))
+        return out
+    topk_quant.ef_encode, topk_quant.dequant_add_rows = enc, rows_fn
+    try:
+        yield
+    finally:
+        topk_quant.ef_encode, topk_quant.dequant_add_rows = (real_enc,
+                                                             real_rows)
+
+
+def replay_run(setups, report):
+    """REPLAY_RUN once more on the card with every encode and every merge's
+    decodes recorded, then each replayed through the plain versions on the
+    card: every output equal bit for bit.  Its history is held against
+    the run of phase 4 (a reading: both ran on the card)."""
+    from repro_torch.core import run_fl
+    from repro_torch.kernels import ref
+    spec = RUNS[REPLAY_RUN]
+    encodes, merges = [], []
+    with recorded_codec(encodes, merges):
+        h = run_fl(setups.get(spec, setups.dev), epochs_per_round=EPOCHS,
+                   max_rounds=spec["rounds"], **spec["run_kw"])
+    bad = []
+    for i, (ins, kw, out) in enumerate(encodes):
+        diff = ef_mismatch(out, ref.reference_ef_encode(*ins, **kw))
+        if diff:
+            bad.append(f"encode {i}: {diff}")
+    for i, (qs, scales, bases, rows) in enumerate(merges):
+        plain = torch.full_like(rows, float("nan"))
+        ref.reference_dequant_add_rows(qs, scales, bases, plain)
+        if not same_bits(rows, plain):
+            bad.append(f"merge {i}")
+    same = [vars(p) for p in h] == report[REPLAY_RUN]["history"]
+    report["replay"] = {"run": REPLAY_RUN, "encodes": len(encodes),
+                        "merges": len(merges), "mismatches": bad,
+                        "history_equals_phase_4": same}
+    print(f"replay {REPLAY_RUN}: {len(encodes)} encodes and {len(merges)} "
+          f"merges through the plain versions on the card: "
+          f"{len(bad)} differ; history equal to phase 4's: {same}")
+    if bad or not encodes or not merges:
+        raise AssertionError(f"replay of {REPLAY_RUN}: {bad[:5]}")
 
 
 def compare_with_cpu(key, setup, report):
@@ -1078,6 +1505,7 @@ def run_phase(phase, setups, report):
     for key in keys:
         drive(key, setups.get(RUNS[key], setups.dev), report)
     if phase == "main":
+        replay_run(setups, report)
         setup = setups.get(RUNS["raw/sync"], setups.dev)
         n_params = sum(p.numel() for p in setup.weights0.values())
         if n_params != 101_770:
@@ -1522,12 +1950,16 @@ def main() -> int:
             t0 = time.perf_counter()
             run_phase(phase, setups, runs)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        fl_runs = [r for r in runs.values() if "launches" in r]
         for name, (ctr, keys) in REQUIRED.items():
             for key in keys:
                 if runs[key]["launches"][ctr] < 1:
                     raise AssertionError(f"{name} never launched in {key}")
             records[name]["launches"] = sum(r["launches"][ctr]
-                                            for r in runs.values())
+                                            for r in fl_runs)
+        for name, ctr in RETIRED.items():
+            records[name]["launches"] = sum(r["launches"][ctr]
+                                            for r in fl_runs)
         t0 = time.perf_counter()
         records["flash_attention"]["launches"] = run_lm(dev, lm_rec)
         print(f"phase lm: {time.perf_counter() - t0:.1f} s")

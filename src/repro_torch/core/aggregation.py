@@ -19,7 +19,8 @@ from . import flatbuf
 
 @dataclass(frozen=True)
 class WorkerUpdate:
-    weights: object          # weight dict, packed vector or window row
+    weights: object          # weight dict, packed vector (or
+                             # flatbuf.EncodedVec) or window row
     staleness: int = 0       # i - xi
     n_data: int = 1          # batches of training data the worker used
 

@@ -9,7 +9,9 @@ unsharded).
   packed server mirror, and merges with one kernel pass:
   ``fused_merge`` (``fedavg_mix_flat``: ``wvec[0]*server + wvec[1:] @
   rows``) or, for alpha >= 1, ``fused_weighted_sum`` (``fedavg_agg_flat``,
-  which never reads the server buffer).
+  which never reads the server buffer).  ``merge_rows`` also takes
+  ``EncodedVec``s, quantised responses still encoded, and decodes all of
+  them into their rows in one ``dequant_add_rows`` launch.
 
 JAX arrays are immutable; these are not.  The only in-place write on the
 merge path is ``fused_merge`` into the packed server mirror, which
@@ -22,12 +24,13 @@ buffer the merge writes.
 from __future__ import annotations
 
 import heapq
+from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import fedavg_agg
+from repro_torch.kernels import fedavg_agg, topk_quant
 
 BLOCK = 512          # pack pads N up to a multiple
 
@@ -44,6 +47,17 @@ def _no_mesh(mesh) -> None:
         raise NotImplementedError(
             "a sharded aggregation substrate (mesh=) is not ported yet "
             "(ROADMAP A11)")
+
+
+@dataclass(frozen=True)
+class EncodedVec:
+    """A packed vector still encoded: ``base + q * scale`` (q (N,) int8,
+    scale 0-d f32, base the (N,) f32 vector it was encoded against, pinned
+    when the response arrived).  ``merge_rows`` decodes every one of a
+    merge straight into its row in one launch."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    base: torch.Tensor
 
 
 def packable(tree) -> bool:
@@ -105,7 +119,13 @@ class ParamBundle:
     def _set_rows(self, rows: torch.Tensor, vecs: Sequence) -> torch.Tensor:
         """Land packed vectors in rows [0..len(vecs)) and zero the stale
         rows beyond: a non-finite value left by a past round would turn
-        0 * inf into NaN inside the merge."""
+        0 * inf into NaN inside the merge.  ``EncodedVec``s (a merge holds
+        either kind only) are decoded into their rows, with the stale rows
+        zeroed, by one ``dequant_add_rows``."""
+        if vecs and isinstance(vecs[0], EncodedVec):
+            return topk_quant.dequant_add_rows(
+                [v.q for v in vecs], [v.scale for v in vecs],
+                [v.base for v in vecs], rows)
         n = len(vecs)
         if n:
             torch.stack(tuple(vecs), out=rows[:n])
@@ -247,7 +267,8 @@ class FlatServerState:
 
     def merge_rows(self, server_tree, update_vecs: Sequence,
                    weights: Sequence[float], alpha: float = 1.0):
-        """The same merge over already-packed ``(padded_size,)`` vectors."""
+        """The same merge over already-packed ``(padded_size,)`` vectors
+        or ``EncodedVec``s, decoded into their rows here."""
         n = len(update_vecs)
         self._ensure_capacity(n)
         self.bundle._set_rows(self._rows, update_vecs)

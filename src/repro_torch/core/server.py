@@ -10,7 +10,8 @@ Asynchronous mode: every arriving response triggers an immediate
 aggregation (staleness-weighted, eq 2.4 family) and the responding worker
 is immediately re-dispatched.
 
-Responses decode straight to packed flat vectors and merge in one kernel
+Responses decode straight to packed flat vectors (or wait encoded, to be
+decoded into their rows by the merge) and merge in one kernel
 pass (``FlatServerState``), followed by the optional server-side
 optimizer (``core/server_opt.py``) in packed space.  Not ported yet: the
 sharded substrate (ROADMAP A11), cohorts (A6), the leaf role under a
@@ -249,8 +250,15 @@ class AggregationServer:
             link.restore_uplink(payload)
             return
         # decode straight to a packed flat vector (compressed codecs: base
-        # + dequantised delta in one fused pass)
-        weights = link.decode_up_vec(payload)
+        # + dequantised delta in one fused pass); where the merge is its
+        # only reader (not a delta merge, no latest-response table), a
+        # quantised response stays encoded until the merge decodes all of
+        # its rows in one launch
+        if self.mode == "sync" or not (self.async_delta
+                                       or self.async_latest_table):
+            weights = link.up_vec_deferred(payload)
+        else:
+            weights = link.decode_up_vec(payload)
         if self.async_delta and self.mode == "async":
             # delta-accumulate in flat-vector space: cur + (new - base);
             # delta codecs already hold the packed base on the link

@@ -32,11 +32,14 @@ reconstruction back into the uplink residual.  Every payload names the
 codec it was encoded with, and every decode reads the spec off the
 payload.
 
-The quantised encode and every quantised decode run the fused kernels of
-``kernels/topk_quant`` (``topk_quant_encode``, ``dequant_add``).  The
-top-k threshold is a library call (``torch.topk`` / ``torch.sort``), as
-it is in the JAX package.  ``int(kept)`` is the one host sync of an
-encode: the wire bytes need it.
+Every top-k and int8 encode is one call of ``kernels/topk_quant.ef_encode``
+on the parts of ``x = (new - base) + residual``: the threshold's select,
+the scale, the kept count and the quantising sweep in one launch on the
+card.  Every quantised decode runs ``dequant_add``, or, where the merge
+is the decoded vector's only reader, waits encoded
+(``flatbuf.EncodedVec``) for ``dequant_add_rows`` to decode a whole merge
+at once.  ``int(kept)`` is the one host sync of a top-k encode: the wire
+bytes need it.
 
 Not ported yet: the ``auto`` codec resolver and ``LinkReliability`` lossy
 links (ROADMAP A5) and the ``mesh=`` sharded substrate (ROADMAP A11).
@@ -54,7 +57,7 @@ from . import flatbuf
 
 # tie-guard: a kth-largest |x| of exactly 0 (e.g. an all-zero delta from a
 # data-less worker) must select nothing, not everything
-_THRESH_FLOOR = 1e-30
+_THRESH_FLOOR = topk_quant.THRESH_FLOOR
 
 
 @dataclass(frozen=True)
@@ -117,39 +120,30 @@ def expected_codec_bytes(spec: CodecSpec, n_params: int, raw_bytes: int,
 # deterministic strided sample (the DGC trick): the kept count lands within
 # sampling error of k, the wire bytes count what actually survived, and
 # error feedback recovers what a slightly high threshold dropped
-_SAMPLE_CAP = 1 << 17
+_SAMPLE_CAP = topk_quant.SAMPLE_CAP
 
 
 def topk_threshold(x: torch.Tensor, k: int, n_params: int) -> torch.Tensor:
     """0-d |x| threshold selecting ~the k largest coordinates (exact for
     small vectors, sampled above _SAMPLE_CAP), floored at _THRESH_FLOOR."""
-    if n_params <= _SAMPLE_CAP:
-        t = torch.topk(x.abs(), k).values[-1]
-    else:
-        P = int(x.shape[0])
-        stride = max(1, P // _SAMPLE_CAP)
-        m = (P + stride - 1) // stride
-        ks = min(m, max(1, round(m * k / n_params)))
-        t = x.abs()[::stride].sort().values[-ks]
-    return torch.clamp_min(t, _THRESH_FLOOR)
-
-
-def _int8_scale(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x.abs().max(), 1e-12) / 127.0
-
-
-def _kept_count(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x.abs() >= thresh)
-
-
-def _mask_encode(x: torch.Tensor, thresh: torch.Tensor):
-    """Top-k sparsify without quantisation: (recon, residual)."""
-    recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
-    return recon, x - recon
+    return topk_quant.topk_threshold(x, k, n_params)
 
 
 def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def _ef_encode_parts(a, b, c, *, n_params: int, frac: float,
+                     quantize: bool):
+    """EF top-k(+int8) encode of ``x = (a - b) + c``: ``(data, residual,
+    wire_bytes)``, ``data`` being (q, scale) or the sparsified vector."""
+    out, resid, _, scale, kept = topk_quant.ef_encode(
+        a, b, c, k=topk_k(n_params, frac), n_params=n_params,
+        quantize=quantize)
+    kept = int(kept)
+    if quantize:
+        return (out, scale), resid, bitmap_bytes(n_params) + 4 + kept
+    return out, resid, bitmap_bytes(n_params) + 4 * kept
 
 
 def ef_topk_encode(x: torch.Tensor, *, n_params: int, frac: float,
@@ -158,16 +152,10 @@ def ef_topk_encode(x: torch.Tensor, *, n_params: int, frac: float,
     Returns ``(data, recon, residual, wire_bytes)``: ``data`` travels
     ((q, scale) or the dense sparsified vector), ``recon`` is what the
     receiver reconstructs, ``residual`` the new error-feedback memory."""
-    thresh = topk_threshold(x, topk_k(n_params, frac), n_params)
-    kept = int(_kept_count(x, thresh))
-    if quantize:
-        scale = _int8_scale(x)
-        q, resid = topk_quant.topk_quant_encode(x, thresh, scale)
-        wire = bitmap_bytes(n_params) + 4 + kept
-        return (q, scale), _dequant(q, scale), resid, wire
-    recon, resid = _mask_encode(x, thresh)
-    wire = bitmap_bytes(n_params) + 4 * kept
-    return recon, recon, resid, wire
+    data, resid, wire = _ef_encode_parts(x, None, None, n_params=n_params,
+                                         frac=frac, quantize=quantize)
+    recon = _dequant(*data) if quantize else data
+    return data, recon, resid, wire
 
 
 class WorkerAckState:
@@ -295,23 +283,25 @@ class Link:
         return self._ack.down_residual
 
     # --- shared flat-delta codec stages ---
-    def _codec_encode(self, delta: torch.Tensor, residual,
+    def _codec_encode(self, new: torch.Tensor, base: torch.Tensor, residual,
                       spec: CodecSpec) -> Tuple[Payload, object]:
-        """Encode one packed flat delta through ``spec``; returns
-        ``(payload, new_residual)``."""
+        """Encode the packed flat delta ``(new - base) + residual``
+        through ``spec``; returns ``(payload, new_residual)``."""
         t = self.t
         n = t.bundle.n_params
         if spec.topk:
-            x = delta if residual is None else delta + residual
-            data, _, resid, wire = ef_topk_encode(
-                x, n_params=n, frac=t.frac, quantize=spec.quantize)
+            data, resid, wire = _ef_encode_parts(
+                new, base, residual, n_params=n, frac=t.frac,
+                quantize=spec.quantize)
             return Payload(spec.name, wire, data), \
                 (resid if spec.ef else residual)
-        x = delta if residual is None else delta + residual
         if spec.quantize:                        # int8: whole delta
-            scale = _int8_scale(x)
-            q, _ = topk_quant.topk_quant_encode(x, 0.0, scale)
+            q, _, _, scale, _ = topk_quant.ef_encode(
+                new, base, residual, k=None, n_params=n, quantize=True)
             return Payload(spec.name, n + 4, (q, scale)), residual
+        x = new - base
+        if residual is not None:
+            x = x + residual
         return Payload(spec.name, 4 * n, x), residual  # dense f32
 
     def _codec_apply(self, data, spec: CodecSpec,
@@ -349,7 +339,7 @@ class Link:
         # EF codecs still emit the residual OUTPUT (the worker's deficit)
         base = self.acked_base
         entry = self._ack.push()             # joins the revert chain
-        payload, new_res = self._codec_encode(vec - base, None, sd)
+        payload, new_res = self._codec_encode(vec, base, None, sd)
         self._ack.down_residual = entry[1] = new_res
         # the worker-visible model after this fetch: the uplink base
         self.tx_base = self._codec_apply(payload.data, sd, base)
@@ -427,7 +417,7 @@ class Link:
             return Payload(spec.name, self.t.raw_bytes, new_tree)
         vec = self.t.bundle.pack(new_tree)
         payload, self.residual = self._codec_encode(
-            vec - self.tx_base, self.residual, spec)
+            vec, self.tx_base, self.residual, spec)
         return payload
 
     def decode_up_vec(self, payload: Payload) -> torch.Tensor:
@@ -437,6 +427,17 @@ class Link:
         if not spec.delta:
             return self.t.bundle.pack(payload.data)
         return self._codec_apply(payload.data, spec, self.tx_base)
+
+    def up_vec_deferred(self, payload: Payload):
+        """``decode_up_vec`` for a response whose only reader is the merge:
+        a quantised delta stays encoded as ``flatbuf.EncodedVec``, its base
+        pinned now (a later dispatch moves ``tx_base``), for
+        ``merge_rows`` to decode with the rest of its merge."""
+        spec = CODECS[payload.codec]
+        if spec.delta and spec.quantize:
+            q, scale = payload.data
+            return flatbuf.EncodedVec(q, scale, self.tx_base)
+        return self.decode_up_vec(payload)
 
     def decode_up_tree(self, payload: Payload):
         """Payload -> weight dict."""

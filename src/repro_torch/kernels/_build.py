@@ -29,12 +29,26 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _F = ctypes.c_float
+_C = ctypes.c_int
 # C entry point -> argument types; every one returns cudaError_t as int
 SIGNATURES = {
     "fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
     "fedavg_mix_launch": (_P, _P, _P, _P, _I64, _I64, _P),
     "topk_quant_encode_launch": (_P, _P, _P, _P, _P, _I64, _P),
     "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
+    # ctas, dynamic shared memory, int* clusters
+    "ef_cluster_max_active": (_C, _I64, _P),
+    # a, b, c; N, stride, m, k; sweep, quantize; q, recon, r, thresh,
+    # scale, kept; ctas; stream
+    "ef_encode_cluster_launch": (_P,) * 3 + (_I64,) * 4 + (_C, _C)
+    + (_P,) * 6 + (_C, _P),
+    # a, b, c; N; thresh_in, part; blocks, quantize; q, recon, r, thresh,
+    # scale, kept; stream
+    "ef_encode_grid_launch": (_P,) * 3 + (_I64, _P, _P, _C, _C)
+    + (_P,) * 6 + (_P,),
+    # host arrays of q, scale and base pointers; n_dec, n_zero; rows; N;
+    # stream
+    "dequant_add_rows_launch": (_P, _P, _P, _C, _C, _P, _I64, _P),
     "server_opt_mom_launch": (_P,) * 5 + (_F,) * 4 + (_I64, _P),
     "server_opt_adam_launch": (_P,) * 7 + (_F,) * 4 + (_I64, _P),
     # q, k, v, o; B, S, T, H, Kv, D; 12 strides; causal, window; scale,

@@ -63,6 +63,86 @@ def reference_dequant_add(q: torch.Tensor, scale, base: torch.Tensor
     return base.float() + q.float() * scale
 
 
+def reference_dequant_add_rows(qs, scales, bases, rows: torch.Tensor
+                               ) -> torch.Tensor:
+    """``rows[i] = bases[i] + qs[i] * scales[i]`` for each of the n
+    decodes, then rows n.. zeroed (a stale row's non-finite value would
+    turn 0 * inf into NaN in the merge); in place, returns ``rows``."""
+    for i, (q, s, b) in enumerate(zip(qs, scales, bases)):
+        rows[i] = reference_dequant_add(q, s, b)
+    rows[len(qs):].zero_()
+    return rows
+
+
+# The codec's top-k threshold (the JAX package's core/transport.py): exact
+# up to SAMPLE_CAP parameters; above, the ks-th largest |x| of a strided
+# sample (the DGC trick), floored at THRESH_FLOOR so that an all-zero
+# vector selects nothing.
+SAMPLE_CAP = 1 << 17
+THRESH_FLOOR = 1e-30
+# 1/127 rounded to f32 once: ``t / 127.0`` on a CUDA tensor multiplies by
+# it (PyTorch divides by a host scalar through its reciprocal), and so does
+# XLA; a CPU tensor would divide
+INV_127 = float(torch.tensor(1.0) / 127.0)
+
+
+def sample_plan(size: int, k: int, n_params: int):
+    """(stride, m, ks): the threshold of a ``size``-element vector is the
+    ks-th largest |x| among the m elements x[::stride]."""
+    if n_params <= SAMPLE_CAP:
+        return 1, size, k
+    stride = max(1, size // SAMPLE_CAP)
+    m = (size + stride - 1) // stride
+    return stride, m, min(m, max(1, round(m * k / n_params)))
+
+
+def reference_topk_threshold(x: torch.Tensor, k: int, n_params: int
+                             ) -> torch.Tensor:
+    """0-d |x| threshold selecting ~the k largest coordinates: exact
+    (``torch.topk``) up to SAMPLE_CAP parameters, sampled (``sort``)
+    above, floored at THRESH_FLOOR."""
+    if n_params <= SAMPLE_CAP:
+        t = torch.topk(x.abs(), k).values[-1]
+    else:
+        stride, _, ks = sample_plan(int(x.shape[0]), k, n_params)
+        t = x.abs()[::stride].sort().values[-ks]
+    return torch.clamp_min(t, THRESH_FLOOR)
+
+
+def reference_int8_scale(x: torch.Tensor) -> torch.Tensor:
+    """``max(max|x|, 1e-12) / 127`` as a product with INV_127: what the
+    chain computes on the card and what XLA computes (a NaN propagates)."""
+    return torch.clamp_min(x.abs().max(), 1e-12) * INV_127
+
+
+def reference_ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
+                        c: Optional[torch.Tensor] = None, *,
+                        k: Optional[int], n_params: int, quantize: bool):
+    """The error-feedback top-k(+int8) encode as a chain of PyTorch ops:
+    ``x = (a - b) + c`` (a missing ``b`` or ``c`` skipped), the threshold
+    (``reference_topk_threshold``; 0 when ``k`` is None, the int8 codec),
+    the kept count ``sum(|x| >= thresh)``, then with ``quantize`` the
+    scale and ``reference_topk_quant_encode``, else the masked recon and
+    ``x - recon``.  Returns ``(q or recon, residual, thresh, scale or
+    None, kept)``, all on x's device."""
+    x = a.float()
+    if b is not None:
+        x = x - b
+    if c is not None:
+        x = x + c
+    if k is None:
+        thresh = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        thresh = reference_topk_threshold(x, k, n_params)
+    kept = torch.sum(x.abs() >= thresh)
+    if quantize:
+        scale = reference_int8_scale(x)
+        q, r = reference_topk_quant_encode(x, thresh, scale)
+        return q, r, thresh, scale, kept
+    recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
+    return recon, x - recon, thresh, None, kept
+
+
 def reference_server_opt(prev: torch.Tensor, merged: torch.Tensor,
                          m: torch.Tensor, v, scalars, *, adam: bool):
     """The fused server-optimizer step on ``d = merged - prev``.

@@ -26,6 +26,13 @@ chip_smoke's ``WKV_STATE_TOL`` of the plain version's largest |entry| (f32
 on both sides, sums in another order), with s0 left unwritten; that limit
 must also fail with s0 ignored and with the state taken before the last
 chunk's update.
+B3's and B4's redesigns (``ef_encode``: the whole EF top-k+int8 encode
+in one cluster launch; ``dequant_add_rows``: a merge's decodes into the
+row buffer in one launch) bit for bit against their plain versions in
+every output at chip_smoke.py's draws at small sizes (NaN, +-inf and -0.0,
+ties, all zeros, k = 1 and k = n, the strided-sample and grid paths,
+misaligned views), with chip_smoke's controls failing, and a short run
+over top-k+int8 uplinks launching each as the FL path must.
 """
 import itertools
 import sys
@@ -90,7 +97,7 @@ def test_cuda_fedavg_kernels_match_plain(h100, W, N):
 def test_cuda_codec_kernels_bit_exact(h100, N):
     xd = torch.from_numpy(np.random.RandomState(N).randn(N)
                           .astype(np.float32)).to(h100) * 0.01
-    sd = transport._int8_scale(xd)
+    sd = ref.reference_int8_scale(xd)
     td = transport.topk_threshold(xd, N // 10, N)
     q, r = topk_quant.topk_quant_encode(xd, td, sd)
     assert q.dtype == torch.int8 and r.dtype == torch.float32
@@ -525,3 +532,134 @@ def test_cuda_rwkv6_prefill_launches_wkv_once_per_layer(h100):
         lc, sc = models.serve_step(params, sc, toks[:, t:t + 1], t, cfg=cfg)
     err = (lg.float().cpu() - lc.float()).abs().max() / lc.float().abs().max()
     assert float(err) < 0.04
+
+
+# ef_encode's cases at small sizes, (N, n_params, k, quantize, draw) as in
+# chip_smoke.EF_CASES, and the launches each takes: one cluster launch where
+# the sample is x itself and fits one cluster; above it the select, then
+# two passes over x (the int8 codec skips the select)
+EF_SMALL = [
+    ((1000, 1000, 100, True, "parts"), 1),
+    ((1000, 1000, 100, False, "parts"), 1),
+    ((1000, 1000, None, True, "parts"), 1),
+    ((1001, 1001, 100, True, "parts"), 1),          # a ragged tail
+    ((4096, 4000, 1, True, "parts"), 1),
+    ((4096, 4096, 4096, True, "parts"), 1),
+    ((29_184, 28_938, 2_893, True, "parts"), 1),
+    ((29_184, 28_938, None, True, "parts"), 1),
+    ((131_584, 131_484, 13_148, True, "parts"), 1),  # sampled at stride 1
+    ((131_584, 131_484, 13_148, False, "parts"), 1),
+    ((524_288, 524_188, 52_418, True, "parts"), 3),  # sampled at stride 4
+    ((524_288, 524_188, 52_418, False, "parts"), 3),
+    ((524_288, 524_188, None, True, "parts"), 2),
+    ((4096, 4000, 400, True, "ties"), 1),
+    ((4096, 4000, 400, True, "zeros"), 1),
+    ((4096, 4000, 400, True, "nonfinite"), 1),
+    ((4096, 4000, 400, False, "nonfinite"), 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,launches", EF_SMALL,
+                         ids=[f"{c[0]}-{c[2]}-{c[3]}-{c[4]}"
+                              for c, _ in EF_SMALL])
+def test_cuda_ef_encode_matches_plain(h100, case, launches):
+    N, n_params, k, quantize, draw = case
+    g = torch.Generator(device=h100).manual_seed(N)
+    a, b, c = chip_smoke.ef_inputs(g, N, draw)
+    kw = dict(k=k, n_params=n_params, quantize=quantize)
+    n0 = topk_quant.LAUNCHES["ef_encode"]
+    got = topk_quant.ef_encode(a, b, c, **kw)
+    assert topk_quant.LAUNCHES["ef_encode"] == n0 + launches
+    want = ref.reference_ef_encode(a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert chip_smoke.ef_mismatch(got, want) == []
+    if k is not None:
+        x = a if b is None else (a - b) + c
+        assert chip_smoke.same_bits(
+            topk_quant.topk_threshold(x, k, n_params),
+            ref.reference_topk_threshold(x, k, n_params))
+
+
+@pytest.mark.cuda
+def test_cuda_ef_encode_reads_misaligned_views(h100):
+    """Parts that do not start on 16 bytes take the scalar loads."""
+    g = torch.Generator(device=h100).manual_seed(5)
+    base = [torch.randn(29_185, device=h100, generator=g) for _ in range(3)]
+    a, b, c = (t[1:] for t in base)
+    kw = dict(k=2_893, n_params=28_938, quantize=True)
+    got = topk_quant.ef_encode(a, b, c, **kw)
+    want = ref.reference_ef_encode(a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert chip_smoke.ef_mismatch(got, want) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(chip_smoke.EF_FAULTS))
+def test_cuda_ef_encode_check_catches_faults(h100, fault):
+    N, n_params, k, quantize, draw = chip_smoke.EF_CASES[
+        chip_smoke.EF_FAULTS[fault]]
+    g = torch.Generator(device=h100).manual_seed(7)
+    a, b, c = chip_smoke.ef_inputs(g, N, draw)
+    kw = dict(k=k, n_params=n_params, quantize=quantize)
+    got = topk_quant.ef_encode(a, b, c, **kw)
+    assert chip_smoke.ef_mismatch(got, ref.reference_ef_encode(a, b, c,
+                                                               **kw)) == []
+    assert chip_smoke.ef_mismatch(
+        got, chip_smoke.ef_plain_fault(fault, a, b, c, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 30, 65, 130])
+def test_cuda_dequant_add_rows_matches_plain(h100, W):
+    """Bit for bit, the two stale rows beyond zeroed; 130 decodes take two
+    launches (128 a launch)."""
+    N = 4096
+    g = torch.Generator(device=h100).manual_seed(W)
+    qs, scales, bases = chip_smoke.rows_inputs(g, W, N)
+    rows = torch.full((W + 2, N), float("nan"), device=h100)
+    plain = rows.clone()
+    n0 = topk_quant.LAUNCHES["decode_rows"]
+    assert topk_quant.dequant_add_rows(qs, scales, bases, rows) is rows
+    assert topk_quant.LAUNCHES["decode_rows"] == n0 + (W + 127) // 128
+    ref.reference_dequant_add_rows(qs, scales, bases, plain)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(rows, plain) and not rows[W:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_dequant_add_rows_raises_on_misaligned_base(h100):
+    qs, scales, bases = chip_smoke.rows_inputs(
+        torch.Generator(device=h100).manual_seed(0), 2, 4096)
+    bad = torch.randn(4097, device=h100)[1:]
+    with pytest.raises(ValueError):
+        topk_quant.dequant_add_rows(qs, scales, [bases[0], bad],
+                                    torch.empty(2, 4096, device=h100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "async_delta"])
+def test_cuda_uplink_run_launches_fused_codec(h100, mode):
+    """A short run over top-k+int8 uplinks: one ef_encode launch an encode
+    and no B3; in sync one dequant_add_rows launch a merge, in async_delta
+    one B4 launch a merged response."""
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    card = make_setup(TABLE_4_1["mnist_even"], seed=0, noise=0.25,
+                      batch_size=32, het="strong", device=h100)
+    n0 = dict(topk_quant.LAUNCHES)
+    with chip_smoke.counted_encodes() as encodes:
+        h = run_fl(card, epochs_per_round=3, max_rounds=4,
+                   transport="topk_ef+int8", transport_down="raw",
+                   **({"mode": "sync"} if mode == "sync"
+                      else {"mode": "async", "async_delta": True}))
+    got = {k: topk_quant.LAUNCHES[k] - n0[k] for k in n0}
+    merges = sum(p.n_updates > 0 for p in h[1:])
+    assert got["ef_encode"] == encodes[0] >= merges == 4
+    assert got["encode"] == got["select"] == 0
+    if mode == "sync":
+        # every response of every round merged, each round one launch
+        assert encodes[0] == sum(p.n_updates for p in h[1:])
+        assert got["decode_rows"] == merges and got["decode"] == 0
+    else:
+        # an async merge per arriving response, decoded as it arrives
+        assert got["decode_rows"] == 0 and got["decode"] == merges

@@ -11,8 +11,9 @@ card, runs one warm-up round, then profiles ``--rounds`` rounds with
 seconds per round (inflated by the profiler itself), the device's busy
 time (the sum of kernel times: one stream, so kernels do not overlap)
 and idle share, the time inside this repo's kernels, kernel launches per
-round, the operators that take the most host time and the kernels that
-take the most device time.  With ``--prefill [ARCH]`` it profiles instead
+round, the calls of ``torch.topk``/``sort`` and the host syncs
+(``aten::_local_scalar_dense``, stream syncs) per round, the operators that
+take the most host time and the kernels that take the most device time.  With ``--prefill [ARCH]`` it profiles instead
 one full-width prefill of 2 prompts of 8192 tokens after a warm-up one:
 gemma2-2b (the default, ``chip_smoke.py``'s LM phase, kernel B8 for
 attention) or rwkv6-3b (its rwkv6 phase, kernel B9 for the WKV
@@ -37,9 +38,17 @@ from repro_torch import core  # noqa: E402
 from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
 
 OWN_KERNELS = ("agg_vec4", "agg_scalar", "mix_vec4", "mix_scalar",
-               "encode_kernel", "decode_kernel", "mom_vec4", "mom_scalar",
-               "adam_vec4", "adam_scalar", "flash_fwd", "flash_wgmma",
-               "wkv_state_inc", "wkv_scan", "wkv_out")
+               "encode_kernel", "decode_kernel", "ef_cluster",
+               "ef_grid_stats", "ef_grid_sweep", "dequant_rows",
+               "mom_vec4", "mom_scalar", "adam_vec4", "adam_scalar",
+               "flash_fwd", "flash_wgmma", "wkv_state_inc", "wkv_scan",
+               "wkv_out")
+# the runtime calls that launch a kernel (a cluster launch is the Ex form)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchKernelEx", "cuLaunchKernelEx")
+# host syncs and the library select the fused encode replaced
+COUNTED_OPS = ("aten::topk", "aten::sort", "aten::_local_scalar_dense",
+               "cudaStreamSynchronize", "cudaDeviceSynchronize")
 B8_NAMES = ("flash_fwd", "flash_wgmma")   # B8's SIMT and tensor-core bodies
 B9_NAMES = ("wkv_state_inc", "wkv_scan", "wkv_out")   # B9's three passes
 # cuBLAS's GEMM kernels, by the names they carry on Hopper
@@ -157,13 +166,16 @@ def main():
         busy = sum(_device_us(e) for e in kernels) / 1e6
         own = sum(_device_us(e) for e in kernels
                   if any(k in e.key for k in OWN_KERNELS)) / 1e6
-        launches = sum(e.count for e in events
-                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+        counted = {k: sum(e.count for e in events if e.key == k)
+                   / args.rounds for k in COUNTED_OPS}
         print(f"\n{key}: {wall / args.rounds:.4f} s per round "
               f"(profiled); device busy {busy:.4f} s of {wall:.4f} s, idle "
               f"share {1 - busy / wall:.3f}; this repo's kernels "
               f"{own * 1e3:.3f} ms; {launches / args.rounds:.0f} kernel "
               f"launches per round")
+        print("  per round: " + ", ".join(f"{k} {v:g}"
+                                          for k, v in counted.items()))
         if busy == 0.0:
             print("  the profiler recorded no device time")
         print(events.table(sort_by="self_cpu_time_total", row_limit=12,
