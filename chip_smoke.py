@@ -12,9 +12,16 @@ and prints no result):
    and print nvcc's ``-Xptxas -v`` report; B8's tensor-core body
    (``flash_wgmma``) must not spill registers.
 3. Kernels: hold each kernel against its plain PyTorch version on the
-   card at the paths' shapes (fedavg W = 30 and 2, N = 101,888, the
-   scalar path's 101,890 and a ragged N = 1000: the aggregate bit-exact,
-   the mix within 1e-6; encode and decode at N = 101,888 and
+   card at the paths' shapes (fedavg W = 30, 2 and 1, N = 101,888, the
+   scalar path's 101,890 and a ragged N = 1000: the aggregate and the mix
+   bit-exact; the fused merge and server-optimizer step
+   ``merge_opt_flat`` at every W of ``MERGE_W`` and N of ``MERGE_N``, the
+   aggregate and the mix at each ``MERGE_S``, each optimizer's scalars,
+   bit for bit in new, m' and v', fresh and aliased as the merge path
+   calls it (out = server = prev, m_out = m, v_out = v), an inf in a
+   zero-weight row giving NaN as the chain does, a flat state's alpha 1
+   merge never reading its server buffer, and each ``MERGE_FAULTS``
+   control failing; encode and decode at N = 101,888 and
    1000, bit-exact; that ``t / 127.0`` on the card is ``t`` times
    fl32(1/127), as the plain chain's scale assumes; B3's redesign
    ``ef_encode`` (the whole EF top-k+int8
@@ -46,11 +53,13 @@ and prints no result):
    yardstick with CUDA events (median of 50 cold-L2 runs after warm-up;
    10 for flash attention and WKV, whose sequential ``reference_wkv`` is
    timed too; kernel and library in turns: library, kernel, kernel,
-   library), beside the least time the card could take; ``ef_encode``
-   and ``dequant_add_rows`` in turns against the parent's form of the
-   same work (the chain of PyTorch ops around B3; 30 x B4 + stack +
-   zero_), with ``torch.topk`` alone and the portable 8-CTA cluster read
-   beside.
+   library), beside the least time the card could take; B1 at W = 1, 2
+   and 30 in turns with ``torch.addmv``; the fused merge at the paths'
+   shapes in turns against the two launches it replaces (the merge, then
+   B5); ``ef_encode`` and ``dequant_add_rows`` in turns against the
+   parent's form of the same work (the chain of PyTorch ops around B3; 30
+   x B4 + stack + zero_), with ``torch.topk`` alone and the portable
+   8-CTA cluster read beside.
 4. Main path: the paper's 30-worker MNIST experiment at full MLP width
    (784-128-10, 101,770 parameters) through ``make_setup`` -> ``run_fl``,
    20 rounds x 10 local epochs, in sync / async / async_delta /
@@ -71,10 +80,11 @@ and prints no result):
 
 Every run of phases 4-6 starts with every launch counter at 0 and reads
 them after; the counters must show each kernel on the runs that use it
-(and the optimizer step exactly once per merge, one ``ef_encode`` launch
-per encode and none of B3 or of the select alone, and one
-``dequant_add_rows`` launch per merge whose responses waited encoded:
-sync, time_based and FedAsync async).  Every raw run is
+(one fused merge and step per merge of a run with a server optimizer and
+none of B5 anywhere, one launch of B2 or B1 per other merge, one
+``ef_encode`` launch per encode and none of B3 or of the select alone,
+and one ``dequant_add_rows`` launch per merge whose responses waited
+encoded: sync, time_based and FedAsync async).  Every raw run is
 repeated on the CPU in this process from the same initial weights: every
 history field but accuracy must match exactly.  Accuracy cannot match
 point for point: SGD over these runs is chaotic, and a one-ulp change to
@@ -231,10 +241,11 @@ def gap_bounds(key):
 TOPK_RUNS = [f"uplink_only/{m}" for m in MODES] + ["hetero/sync_topk/fedadam"]
 REQUIRED = {
     "fedavg_agg_flat": ("agg", ["raw/sync", "raw/time_based",
-                                "raw/async_delta", "hetero/sync/fedavgm",
+                                "raw/async_delta", "hetero/sync/fedprox",
                                 "cnn/sync/fedavg"]),
-    "fedavg_mix_flat": ("mix", ["raw/async", "raw/async_delta",
-                                "hetero/async/fedadam"]),
+    # B1 redesigned: FedAsync merges (W = 1) and async_delta's delta_vec
+    # (W = 2)
+    "fedavg_mix_flat": ("mix", ["raw/async", "raw/async_delta"]),
     # B3's redesign: every top-k+int8 encode, one launch each
     "ef_encode": ("ef_encode", TOPK_RUNS),
     # B4's redesign: every merge whose responses waited encoded
@@ -245,15 +256,19 @@ REQUIRED = {
     # async delta merge) and the symmetric codec's downlink
     "dequant_add": ("decode", ["uplink_only/async_delta",
                                "hetero/sync_topk/fedadam"]),
-    "server_opt_step_flat_mom": ("mom", ["hetero/sync/fedavgm",
+    # B5 redesigned: every server-optimizer merge, the merge (B2's or B1's
+    # form) and the step in one launch
+    "merge_opt_flat_mom": ("merge_mom", ["hetero/sync/fedavgm",
                                          "hetero/sync/feddyn"]),
-    "server_opt_step_flat_adam": ("adam", [
+    "merge_opt_flat_adam": ("merge_adam", [
         "hetero/sync/fedadam", "hetero/async/fedadam",
         "hetero/sync_topk/fedadam", "cnn/sync/fedadam"]),
 }
-# B3 itself: no path calls it since ef_encode took its place; it keeps its
-# check, its timing and a launch count (0) in the kernels line
-RETIRED = {"topk_quant_encode": "encode"}
+# B3 and B5 themselves: no path calls them since ef_encode and the fused
+# merge took their places; each keeps its check, its timing and a launch
+# count (0) in the kernels line
+RETIRED = {"topk_quant_encode": "encode", "server_opt_step_flat_mom": "mom",
+           "server_opt_step_flat_adam": "adam"}
 # ef_encode (B3 redesigned) is held bit for bit against its plain version
 # (ref.reference_ef_encode, the parent's chain) at these inputs: (N,
 # n_params, k, quantize, draw); k None is the int8 codec's form (threshold
@@ -401,11 +416,30 @@ RWKV_CUT = dict(n_layers=2, prompt=512, decode=4)
 # f32 the two agree within 1e-5 at 32 layers (CPU).
 RWKV_LIMITS = {"decode_vs_forward": 0.22, "card_vs_cpu": 0.03}
 
-# server_opt -> the launch counter of its form (B5a momentum, B5b adam)
-OPT_COUNTER = {"fedavgm": "mom", "feddyn": "mom", "fedadam": "adam"}
+# server_opt -> B5's scalars of its form (B5a momentum, B5b adam)
 OPT_SCALARS = {"fedavgm": [0.9, 1.0, 0.0, 1.0],
                "feddyn": [1.0, 1.0, 1.0, 0.25],
                "fedadam": [0.9, 0.99, 0.05, 1e-3, 0.0, 0.0]}
+# server_opt -> the fused merge's launch counter of its form
+MERGE_COUNTER = {"fedavgm": "merge_mom", "feddyn": "merge_mom",
+                 "fedadam": "merge_adam"}
+# The fused merge and step (merge_opt_flat) is held bit for bit against its
+# plain version at every (W, N) of these, in the aggregate form and the
+# mix at each server scale s, with each optimizer's scalars: W 1 (FedAsync
+# merges), 2, 10 (the heterogeneity and CNN phases' sync merges), 30 (the
+# main path's) and 65 (five groups of rows, the last partial); N the MLP's
+# padded width, the scalar path's 101,890, the CNN's padded width and a
+# small one.
+MERGE_W = (1, 2, 10, 30, 65)
+MERGE_N = (101_888, 101_890, 29_184, 1000)
+MERGE_S = (0.1, 1.0)
+# the controls: the plain version given each fault must differ from the
+# kernel on the case named, (W, s, optimizer) at the first of MERGE_N (s
+# None: the aggregate): merged = s * server + acc rounded once, as an FMA
+# would, and m' = am * m + bm * d (b1 * m + (1 - b1) * d) rounded once
+MERGE_FAULTS = {"FMA in the mix": (1, 0.1, "fedadam"),
+                "FMA in the step": (10, None, "fedavgm")}
+MERGE_OUTPUTS = ("new", "m'", "v'")
 
 
 def ptxas_report(log: str, name: str) -> dict:
@@ -502,6 +536,8 @@ def launch_counters():
     from repro_torch.kernels import (fedavg_agg, flash_attention,
                                      rwkv6_kernel, server_opt, topk_quant)
     return {"agg": fedavg_agg.LAUNCHES, "mix": fedavg_agg.LAUNCHES,
+            "merge_mom": fedavg_agg.LAUNCHES,
+            "merge_adam": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
             "ef_encode": topk_quant.LAUNCHES,
             "select": topk_quant.LAUNCHES,
@@ -544,6 +580,195 @@ def check_server_opt(dev, g, errs):
                         errs[name] = max(errs[name], max_err(a, b))
 
 
+def merge_inputs(g, W, N, s):
+    """One merge's operands on g's device: W unit-normal rows, normalised
+    weights (after the server scale s in the mix; s None: the aggregate's
+    weights alone), server, prev, m and |v|."""
+    dev = g.device
+    rows = torch.randn(W, N, device=dev, generator=g)
+    w = torch.rand(W, device=dev, generator=g) + 0.1
+    w /= w.sum()
+    if s is not None:
+        w = torch.cat([torch.full((1,), s, device=dev), (1.0 - s) * w])
+    server, prev, m, v = (torch.randn(N, device=dev, generator=g)
+                          for _ in range(4))
+    return rows, w, server, prev, m, v.abs()
+
+
+def merge_plain_fault(fault, stacked, wvec, server, prev, m, v, scalars, *,
+                      adam):
+    """merge_opt_flat's plain version (ref.reference_merge_opt) given
+    ``fault`` (MERGE_FAULTS), a control that the check must catch: the
+    mix's ``s * server + acc`` or the step's ``m'`` rounded once, in f64
+    and then to f32, as an FMA would round it."""
+    from repro_torch.kernels import ref
+    if fault not in MERGE_FAULTS:
+        raise ValueError(fault)
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+    if server is None:
+        merged = ref.reference_fedavg(stacked, wvec)
+    elif fault == "FMA in the mix":
+        merged = fma(wvec[0], server, ref.reference_fedavg(stacked,
+                                                           wvec[1:]))
+    else:
+        merged = ref.reference_fedavg_mix(stacked, wvec[1:], server, wvec[0])
+    if fault != "FMA in the step":
+        return ref.reference_server_opt(prev, merged, m, v, scalars,
+                                        adam=adam)
+    sc = torch.as_tensor(np.asarray(scalars, np.float32)).to(prev.device)
+    d = merged - prev
+    if adam:
+        mo = fma(sc[0], m, (1.0 - sc[0]) * d)
+        vo = sc[1] * v + (1.0 - sc[1]) * d * d
+        return prev + sc[2] * mo / (torch.sqrt(vo) + sc[3]), mo, vo
+    mo = fma(sc[0], m, sc[1] * d)
+    return prev + sc[2] * d + sc[3] * mo, mo, None
+
+
+def merge_mismatch(got, want):
+    """The names of the outputs on which two merge_opt_flat results
+    differ."""
+    return [n for n, a, b in zip(MERGE_OUTPUTS, got, want)
+            if not same_bits(a, b)]
+
+
+def check_merge_opt(dev, ns=MERGE_N, ws=MERGE_W):
+    """merge_opt_flat (the merge and the server optimizer's step in one
+    launch) against its plain version (ref.reference_merge_opt, the
+    unfused chain) at every (W, N) of ws x ns, in the aggregate form and
+    the mix at each of MERGE_S, with each optimizer's scalars: every output
+    bit for bit, with a prev apart from the server and, in the mix, with
+    prev the server itself; the call aliased as the merge path makes it
+    (out = server = prev in the mix, m_out = m, v_out = v) equal to the
+    fresh one.  An inf in a zero-weight row gives NaN as the chain does;
+    each MERGE_FAULTS control differs.  Raises on any failure; returns the
+    record (the largest |kernel - plain| of each optimizer form)."""
+    from repro_torch.kernels import fedavg_agg, ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    cases, errs = [], {"mom": 0.0, "adam": 0.0}
+
+    def call(rows, w, srv, prev, m, v, sc, adam, alias):
+        plain = ref.reference_merge_opt(rows, w, srv, prev, m, v, sc,
+                                        adam=adam)
+        got = fedavg_agg.merge_opt_flat(rows, w, srv, prev, m, v, sc,
+                                        adam=adam)
+        bad = merge_mismatch(got, plain)
+        if alias:
+            out = None if srv is None else srv.clone()
+            m2, v2 = m.clone(), v.clone()
+            inplace = fedavg_agg.merge_opt_flat(
+                rows, w, out, prev if out is None else out, m2, v2, sc,
+                adam=adam, out=out, m_out=m2, v_out=v2)
+            bad += [f"aliased {n}" for n in merge_mismatch(inplace, got)]
+        err = max(max_err(a, b) for a, b in zip(got, plain) if b is not None)
+        return bad, err
+
+    for N in ns:
+        for W in ws:
+            for s in (None,) + MERGE_S:
+                rows, w, server, prev, m, v = merge_inputs(g, W, N, s)
+                srv = None if s is None else server
+                for opt, sc in OPT_SCALARS.items():
+                    adam, sc = opt == "fedadam", np.asarray(sc, np.float32)
+                    form = "adam" if adam else "mom"
+                    bad, err = call(rows, w, srv, prev, m, v, sc, adam,
+                                    alias=s is None)
+                    if srv is not None:
+                        # the merge path's call: the server buffer is prev
+                        b2, e2 = call(rows, w, srv, srv, m, v, sc, adam,
+                                      alias=True)
+                        bad, err = bad + b2, max(err, e2)
+                    errs[form] = max(errs[form], err)
+                    cases.append({"W": W, "N": N, "s": s, "opt": opt,
+                                  "mismatch": bad})
+                    if bad:
+                        raise AssertionError(
+                            f"merge_opt_flat W {W} N {N} s {s} {opt}: "
+                            f"kernel and plain version differ in {bad}")
+    nonfinite = []
+    for s in (None, 0.1):
+        rows, w, server, prev, m, v = merge_inputs(g, 3, ns[0], s)
+        w[-1] = 0.0
+        rows[-1, 5] = float("inf")
+        srv = None if s is None else server
+        for opt, sc in OPT_SCALARS.items():
+            adam = opt == "fedadam"
+            got = fedavg_agg.merge_opt_flat(rows, w, srv, prev, m, v, sc,
+                                            adam=adam)
+            plain = ref.reference_merge_opt(rows, w, srv, prev, m, v, sc,
+                                            adam=adam)
+            ok = (not merge_mismatch(got, plain) and bool(got[0][5].isnan())
+                  and bool(torch.isfinite(got[0][6:]).all()))
+            nonfinite.append({"s": s, "opt": opt, "nan_as_chain": ok})
+            if not ok:
+                raise AssertionError(f"merge_opt_flat s {s} {opt}: an inf "
+                                     f"in a zero-weight row")
+    controls = {}
+    for fault, (W, s, opt) in MERGE_FAULTS.items():
+        rows, w, server, prev, m, v = merge_inputs(g, W, ns[0], s)
+        srv = None if s is None else server
+        adam, sc = opt == "fedadam", np.asarray(OPT_SCALARS[opt], np.float32)
+        got = fedavg_agg.merge_opt_flat(rows, w, srv, prev, m, v, sc,
+                                        adam=adam)
+        controls[fault] = merge_mismatch(got, merge_plain_fault(
+            fault, rows, w, srv, prev, m, v, sc, adam=adam))
+        print(f"check merge_opt_flat control ({fault}, W {W} s {s} {opt}): "
+              f"outputs differing: {controls[fault]}")
+        if not controls[fault]:
+            raise AssertionError(f"merge_opt_flat: the check does not catch "
+                                 f"{fault}")
+    unread = check_unread_server(dev)
+    print(f"check merge_opt_flat: {len(cases)} cases bit for bit (W "
+          f"{ws}, N {ns}, the aggregate and s {MERGE_S}, "
+          f"{sorted(OPT_SCALARS)}), aliased equal to fresh; max |kernel - "
+          f"plain| {errs}; inf in a zero-weight row: NaN as the chain; "
+          f"the server buffer under alpha 1: {unread}")
+    return {"cases": cases, "errs": errs, "nonfinite": nonfinite,
+            "controls": controls, "unread_server": unread}
+
+
+def check_unread_server(dev):
+    """The alpha >= 1 rule through the fused merge: two FlatServerStates
+    with FedAdam on ``dev`` take the same first merge; then one's packed
+    server mirror (the buffer an alpha < 1 merge would read) is filled
+    with inf, and both anchors re-pack from the finite server dict
+    (rebase).  An alpha 1 merge with its step never reads the mirror: it
+    stays finite and equals the other state's.  An alpha 0.9 merge reads
+    it: NaN where the other state stays finite."""
+    from repro_torch.core import flatbuf, server_opt
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def tree():
+        return {"b": torch.randn(40, device=dev, generator=g),
+                "w": torch.randn(64, 33, device=dev, generator=g)}
+    s0, first, second = tree(), [tree(), tree()], [tree() for _ in range(3)]
+    rec = {}
+    for alpha in (1.0, 0.9):
+        got = []
+        for poison in (True, False):
+            st = flatbuf.FlatServerState(s0)
+            st.server_opt = server_opt.make_server_opt("fedadam", lr=0.05)
+            srv = st.merge(s0, first, [1.0, 2.0], 1.0)
+            if poison:
+                st._server_flat.fill_(float("inf"))
+            st.server_opt.rebase()
+            new = st.merge(srv, second, [1.0, 2.0, 1.0], alpha)
+            got.append(torch.cat([new[k].reshape(-1) for k in sorted(new)]))
+        if alpha == 1.0:
+            rec["alpha 1 finite"] = bool(torch.isfinite(got[0]).all())
+            rec["alpha 1 equals unpoisoned"] = same_bits(got[0], got[1])
+        else:
+            rec["alpha 0.9 NaN"] = bool(got[0].isnan().all())
+            rec["alpha 0.9 unpoisoned finite"] = bool(
+                torch.isfinite(got[1]).all())
+    if not all(rec.values()):
+        raise AssertionError(f"merge_opt_flat: the server buffer under "
+                             f"alpha 1: {rec}")
+    return rec
+
+
 def check_kernels(dev):
     """Phase 3: correctness at several shapes, then timing at the main
     path's shapes.  Returns one record per kernel."""
@@ -553,7 +778,8 @@ def check_kernels(dev):
     N = 101_888
     errs = {k: 0.0 for k in (*REQUIRED, *RETIRED)}
     # 101,890: the scalar path (N % 4 != 0) at the main path's width
-    for W, n in ((30, N), (2, N), (30, 101_890), (30, 1000), (3, 1000)):
+    for W, n in ((30, N), (2, N), (1, N), (30, 101_890), (30, 1000),
+                 (3, 1000)):
         rows = torch.randn(W, n, device=dev, generator=g)
         w = torch.rand(W, device=dev, generator=g)
         w /= w.sum()
@@ -585,8 +811,11 @@ def check_kernels(dev):
                         ref.reference_dequant_add(q, scale, base))
             errs["dequant_add"] = max(errs["dequant_add"], e)
     check_server_opt(dev, g, errs)
+    merge_rec = check_merge_opt(dev)
+    errs["merge_opt_flat_mom"] = merge_rec["errs"]["mom"]
+    errs["merge_opt_flat_adam"] = merge_rec["errs"]["adam"]
     torch.cuda.synchronize()
-    limits = {"fedavg_agg_flat": 0.0, "fedavg_mix_flat": 1e-6,
+    limits = {"fedavg_agg_flat": 0.0, "fedavg_mix_flat": 0.0,
               "topk_quant_encode": 0.0, "dequant_add": 0.0,
               "server_opt_step_flat_mom": 0.0,
               "server_opt_step_flat_adam": 0.0}
@@ -603,8 +832,6 @@ def check_kernels(dev):
     rows = torch.randn(W, N, device=dev, generator=g)
     w = torch.rand(W, device=dev, generator=g)
     w /= w.sum()
-    wvec = torch.cat([torch.full((1,), 0.1, device=dev), w])
-    server = torch.randn(N, device=dev, generator=g)
     x = torch.randn(N, device=dev, generator=g) * 0.01
     scale = ref.reference_int8_scale(x)
     thresh = transport.topk_threshold(x, N // 10, N)
@@ -622,12 +849,6 @@ def check_kernels(dev):
             lambda: ref.reference_fedavg(rows, w),
             lambda: torch.mv(rows.t(), w),
             (W * N + W + N) * 4, 2 * W * N),
-        "fedavg_mix_flat": (
-            lambda: fedavg_agg.fedavg_mix_flat(rows, wvec, server,
-                                               out=server),
-            lambda: ref.reference_fedavg_mix(rows, w, server, wvec[0]),
-            lambda: torch.addmv(server, rows.t(), w, beta=0.1),
-            (W * N + W + 1 + 2 * N) * 4, 2 * W * N + 2 * N),
         "topk_quant_encode": (
             lambda: topk_quant.topk_quant_encode(x, thresh, scale),
             lambda: ref.reference_topk_quant_encode(x, thresh, scale),
@@ -656,7 +877,6 @@ def check_kernels(dev):
             7 * N * 4 + 16, 13 * N),
     }
     sources = {"fedavg_agg_flat": ("fedavg_agg.cu", "fedavg_agg.py:68"),
-               "fedavg_mix_flat": ("fedavg_agg.cu", "fedavg_agg.py:111"),
                "topk_quant_encode": ("topk_quant.cu", "topk_quant.py:60"),
                "dequant_add": ("topk_quant.cu", "topk_quant.py:89"),
                "server_opt_step_flat_mom": ("server_opt.cu",
@@ -681,12 +901,127 @@ def check_kernels(dev):
               f"{records[name]['plain_ms']:.4f} ms, library "
               f"{records[name]['library_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
+    records.update(time_merges(dev, timer, merge_rec,
+                               errs["fedavg_mix_flat"]))
     records.update(check_codec_fused(dev, timer))
     records["flash_attention"] = check_flash(dev, timer)
     records.update(check_wkv(dev, timer))
     # the comparison launches above do not count toward the paths' runs:
     # each run sets every counter to 0 before it starts
     return records
+
+
+def _merge_form(timer, label, W, s, opt, g, N):
+    """One fused merge form timed in turns against the two-launch chain
+    it replaces (chain, fused, fused, chain) at W rows of N, the server
+    scale s (None: the aggregate), the optimizer's scalars, with the state
+    updated in place as the merge path updates it; the mix's server buffer
+    is also prev, the chain's prev (the parent's re-packed anchor) a vector
+    apart.  Returns its record."""
+    from repro_torch.kernels import fedavg_agg, ref, server_opt
+    rows, w, server, prev, m, v = merge_inputs(g, W, N, s)
+    adam, sc = opt == "fedadam", np.asarray(OPT_SCALARS[opt], np.float32)
+    srv = None if s is None else server
+    kern_prev = prev if srv is None else srv
+
+    def kern():
+        return fedavg_agg.merge_opt_flat(rows, w, srv, kern_prev, m, v, sc,
+                                         adam=adam, out=srv, m_out=m, v_out=v)
+
+    def chain():
+        merged = (fedavg_agg.fedavg_agg_flat(rows, w) if srv is None else
+                  fedavg_agg.fedavg_mix_flat(rows, w, srv, out=srv))
+        return server_opt.server_opt_step_flat(prev, merged, m, v, sc,
+                                               adam=adam, m_out=m, v_out=v)
+    ms, chain_ms, turns = timer.turns(kern, chain)
+    state = 3 if adam else 2            # prev, m (, v) read; new, m' (, v')
+    n_bytes = (W * N + len(w) + 2 * state * N) * 4
+    b_ms, b_by = bound_ms(n_bytes, (2 * W + (2 if srv is not None else 0)
+                                    + (13 if adam else 8)) * N)
+    rec = {"form": label, "W": W, "N": N, "s": s, "opt": opt, "ms": ms,
+           "chain_ms": chain_ms, "turns": turns,
+           "plain_ms": timer(lambda: ref.reference_merge_opt(
+               rows, w, srv, kern_prev, m, v, sc, adam=adam)),
+           "bound_ms": b_ms, "bound_by": b_by, "n_bytes": n_bytes}
+    print(f"time merge_opt_flat {label}: fused {ms:.6f} ms, the chain it "
+          f"replaces {chain_ms:.6f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by})")
+    return rec
+
+
+def time_b1(timer, g, N=101_888):
+    """B1 (fedavg_mix_flat) at the paths' W = 1 (FedAsync merges, s =
+    0.1) and W = 2 (async_delta's delta_vec: s = 1, weights [1, -1]) and
+    at W = 30, s = 0.1, each in turns with torch.addmv (the one-call
+    library form), on g's device at width N.  It imports repro_torch when
+    called, so ``tools/torch_merge_times.py`` times another checkout's B1
+    with it.  Returns one record per W."""
+    from repro_torch.kernels import fedavg_agg, ref
+    dev = g.device
+    by_w = []
+    for W, s in ((1, 0.1), (2, 1.0), (30, 0.1)):
+        rows = torch.randn(W, N, device=dev, generator=g)
+        w = (torch.tensor([1.0, -1.0], device=dev) if W == 2 else
+             torch.rand(W, device=dev, generator=g) + 0.1)
+        w = w if W == 2 else (1.0 - s) * w / w.sum()
+        wvec = torch.cat([torch.full((1,), s, device=dev), w])
+        server = torch.randn(N, device=dev, generator=g)
+        ms, lib_ms, turns = timer.turns(
+            lambda: fedavg_agg.fedavg_mix_flat(rows, wvec, server,
+                                               out=server),
+            lambda: torch.addmv(server, rows.t(), w, beta=s))
+        b_ms, b_by = bound_ms((W * N + W + 1 + 2 * N) * 4,
+                              2 * W * N + 2 * N)
+        by_w.append({"W": W, "s": s, "ms": ms, "library_ms": lib_ms,
+                     "turns": turns, "bound_ms": b_ms, "bound_by": b_by,
+                     "plain_ms": timer(lambda: ref.reference_fedavg_mix(
+                         rows, w, server, wvec[0]))})
+        print(f"time fedavg_mix_flat W = {W}, s = {s}: kernel {ms:.6f} ms, "
+              f"torch.addmv {lib_ms:.6f} ms, plain "
+              f"{by_w[-1]['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return by_w
+
+
+def time_merges(dev, timer, merge_rec, b1_err):
+    """B1 by W (time_b1); the fused merge and step at the paths' shapes
+    in turns against the chain it replaces: the aggregate at W = 10 (the
+    heterogeneity and CNN phases' sync merges) in both optimizer forms,
+    the mix at W = 1 with s = 0.1 under adam (FedAsync under FedAdam), and
+    the aggregate at W = 30 under adam.  N = 101,888.  Returns the records
+    of fedavg_mix_flat (its headline fields at W = 30, s = 0.1, the shape
+    of earlier records, beside ``by_w``), merge_opt_flat_mom and
+    merge_opt_flat_adam."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    N = 101_888
+    by_w = time_b1(timer, g, N)
+    b1 = {"name": "fedavg_mix_flat", "route": "cuda", "ok": True,
+          "source": "src/repro_torch/kernels/csrc/fedavg_agg.cu",
+          "replaces": "src/repro/kernels/fedavg_agg.py:111",
+          "launches": 0, "max_abs_err": b1_err,
+          **{k: by_w[2][k] for k in ("W", "s", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "turns")},
+          "by_w": by_w}
+    forms = [_merge_form(timer, *f, g, N) for f in (
+        ("agg W = 10, momentum", 10, None, "fedavgm"),
+        ("agg W = 10, adam", 10, None, "fedadam"),
+        ("mix W = 1, s = 0.1, adam, server = prev", 1, 0.1, "fedadam"),
+        ("agg W = 30, adam", 30, None, "fedadam"))]
+    out = {"fedavg_mix_flat": b1}
+    for form, tpu, mine in (("mom", "fedavg_agg.py:208", forms[:1]),
+                            ("adam", "fedavg_agg.py:195", forms[1:])):
+        head = mine[0]
+        out[f"merge_opt_flat_{form}"] = {
+            "name": f"merge_opt_flat_{form}", "route": "cuda", "ok": True,
+            "source": "src/repro_torch/kernels/csrc/fedavg_agg.cu",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": 0, "max_abs_err": merge_rec["errs"][form],
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "chain_ms", "turns")},
+            "library_ms": None, "forms": mine,
+            "check": {k: merge_rec[k] for k in ("nonfinite", "controls",
+                                                "unread_server")},
+            "cases": len(merge_rec["cases"])}
+    return out
 
 
 def ef_inputs(g, N, draw):
@@ -1381,12 +1716,21 @@ def drive(key, setup, report):
                              f"dequant_add_rows launches for {merges} merges")
     if not all(np.isfinite(p.accuracy) for p in h):
         raise AssertionError(f"{key}: non-finite accuracy")
-    opt_ctr = OPT_COUNTER.get(spec["run_kw"].get("server_opt"))
-    for ctr in ("mom", "adam"):
-        want = rounds if ctr == opt_ctr else 0
+    # a server-optimizer merge is one fused launch and B5 never launches;
+    # any other merge is one launch of B2 (alpha >= 1) or B1 (alpha < 1).
+    # async_delta's B1 launches are its delta_vecs, one a response.
+    fused = MERGE_COUNTER.get(run_kw.get("server_opt"))
+    for ctr in ("merge_mom", "merge_adam", "mom", "adam"):
+        want = merges if ctr == fused else 0
         if launches[ctr] != want:
-            raise AssertionError(f"{key}: {launches[ctr]} {ctr} optimizer "
-                                 f"steps, expected one per merge ({want})")
+            raise AssertionError(f"{key}: {launches[ctr]} {ctr} launches, "
+                                 f"expected {want} ({merges} merges)")
+    plain = launches["agg"] + (0 if run_kw.get("async_delta")
+                               else launches["mix"])
+    if plain != (0 if fused else merges):
+        raise AssertionError(f"{key}: {launches['agg']} B2 and "
+                             f"{launches['mix']} B1 launches for {merges} "
+                             f"merges")
 
 
 @contextlib.contextmanager

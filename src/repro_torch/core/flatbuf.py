@@ -9,17 +9,21 @@ unsharded).
   packed server mirror, and merges with one kernel pass:
   ``fused_merge`` (``fedavg_mix_flat``: ``wvec[0]*server + wvec[1:] @
   rows``) or, for alpha >= 1, ``fused_weighted_sum`` (``fedavg_agg_flat``,
-  which never reads the server buffer).  ``merge_rows`` also takes
-  ``EncodedVec``s, quantised responses still encoded, and decodes all of
-  them into their rows in one ``dequant_add_rows`` launch.
+  which never reads the server buffer); with an active server optimizer,
+  ``fused_merge_opt`` (``merge_opt_flat``) takes the optimizer's step in
+  that same pass.  ``merge_rows`` also takes ``EncodedVec``s, quantised
+  responses still encoded, and decodes all of them into their rows in one
+  ``dequant_add_rows`` launch.
 
-JAX arrays are immutable; these are not.  The only in-place write on the
-merge path is ``fused_merge`` into the packed server mirror, which
-``_server_buffer`` hands over and forgets (the counterpart of JAX's
-donation); an attached server optimizer, whose ``prev`` anchor may be
-that buffer, is told (``ServerOpt.release``) and re-packs.  ``unpack``
-returns copies, so no weight dict handed out before a merge aliases a
-buffer the merge writes.
+JAX arrays are immutable; these are not.  The only in-place writes on
+the merge path are the mix's (``fused_merge``, ``fused_merge_opt``) into
+the packed server mirror, which ``_server_buffer`` hands over and forgets
+(the counterpart of JAX's donation), and the server optimizer's moments.
+An attached server optimizer, whose ``prev`` anchor may be that buffer,
+is told (``ServerOpt.release``); the fused merge then takes the buffer
+itself as ``prev``, and ``step_vec`` re-packs it.  ``unpack`` returns
+copies, so no weight dict handed out before a merge aliases a buffer the
+merge writes.
 """
 from __future__ import annotations
 
@@ -98,6 +102,9 @@ class ParamBundle:
         self.raw_bytes = int(sum(n * torch.empty((), dtype=d).element_size()
                                  for n, d in zip(self.sizes, self.dtypes)))
         self.padded_size = padded_size_for(self.n_params)
+        # every leaf f32: a packed vector unpacked and packed again keeps
+        # its bits
+        self.f32 = all(d == torch.float32 for d in self.dtypes)
 
     def pack(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """tree -> new (padded_size,) f32 flat buffer (zero tail)."""
@@ -175,6 +182,20 @@ def fused_merge(server_flat: torch.Tensor, rows: torch.Tensor, wvec,
         rows, _weights_on(wvec, rows.device), server_flat, out=server_flat)
 
 
+def fused_merge_opt(rows: torch.Tensor, w, server: Optional[torch.Tensor],
+                    prev: torch.Tensor, m: torch.Tensor, v, scalars, *,
+                    adam: bool, mesh=None) -> torch.Tensor:
+    """One pass: the merge (``fused_weighted_sum`` when ``server`` is None,
+    else ``fused_merge``, written into ``server`` in place, which may also
+    be ``prev``) and the server optimizer's step on its result, ``m`` and
+    ``v`` updated in place.  Returns the stepped vector."""
+    _no_mesh(mesh)
+    new, _, _ = fedavg_agg.merge_opt_flat(
+        rows, _weights_on(w, rows.device), server, prev, m, v, scalars,
+        adam=adam, out=server, m_out=m, v_out=v)
+    return new
+
+
 def fused_weighted_sum(rows: torch.Tensor, w, mesh=None) -> torch.Tensor:
     """One pass ``w @ rows`` into a new vector, with no server term: the
     alpha >= 1 replace path must not read the server buffer at all
@@ -226,8 +247,8 @@ class FlatServerState:
         self._next_row = 0
         self._dirty: set = set()
         self._delta_w: Optional[torch.Tensor] = None
-        # optional core.server_opt.ServerOpt: transforms the packed merge
-        # result in _finish (set by the server)
+        # optional core.server_opt.ServerOpt: its step runs in the merge's
+        # own pass (set by the server)
         self.server_opt = None
 
     @property
@@ -263,7 +284,7 @@ class FlatServerState:
         n = len(update_trees)
         self._ensure_capacity(n)
         self.bundle.pack_into(self._rows, update_trees)
-        return self._merge_rows_tail(server_tree, n, weights, alpha)
+        return self._merge(server_tree, np.arange(n), weights, alpha)
 
     def merge_rows(self, server_tree, update_vecs: Sequence,
                    weights: Sequence[float], alpha: float = 1.0):
@@ -272,30 +293,42 @@ class FlatServerState:
         n = len(update_vecs)
         self._ensure_capacity(n)
         self.bundle._set_rows(self._rows, update_vecs)
-        return self._merge_rows_tail(server_tree, n, weights, alpha)
+        return self._merge(server_tree, np.arange(n), weights, alpha)
 
-    def _merge_rows_tail(self, server_tree, n: int,
-                         weights: Sequence[float], alpha: float):
+    def _merge(self, server_tree, idx: np.ndarray, weights: Sequence[float],
+               alpha: float):
+        """One kernel pass over the row buffer: row ``idx[i]`` weighted by
+        ``weights[i]`` (every other row by 0), mixed with the server when
+        alpha < 1, and stepped by the server optimizer unless it has none
+        or a degenerate one."""
         w = normalized_weights(weights)
         if alpha >= 1.0:
             wv = np.zeros((self.capacity,), np.float32)
-            wv[:n] = w
+            wv[idx] = w
+            server = None
+        else:
+            wv = np.zeros((self.capacity + 1,), np.float32)
+            wv[0] = 1.0 - alpha
+            wv[idx + 1] = alpha * w
+            server = self._server_buffer(server_tree)
+        opt = self.server_opt
+        # the server buffer is the bits of pack(server_tree) when every
+        # leaf is f32: then it is prev too, and prev is not re-packed
+        ops = None if opt is None else opt.merge_operands(
+            self, server_tree, server if self.bundle.f32 else None)
+        if ops is not None:
+            merged = fused_merge_opt(self._rows, wv, server, *ops,
+                                     adam=opt.adam)
+        elif server is None:
             merged = fused_weighted_sum(self._rows, wv)
         else:
-            wvec = np.zeros((self.capacity + 1,), np.float32)
-            wvec[0] = 1.0 - alpha
-            wvec[1:1 + n] = alpha * w
-            merged = fused_merge(self._server_buffer(server_tree),
-                                 self._rows, wvec)
+            merged = fused_merge(server, self._rows, wv)
         return self._finish(server_tree, merged)
 
     def _finish(self, server_tree, merged: torch.Tensor):
-        """Merge epilogue: the optional server-optimizer pass in packed
-        space, unpack (copies), and keep the packed result as the mirror
-        of the returned dict.  With ``server_opt=None`` this is the plain
-        FedAvg install."""
-        if self.server_opt is not None:
-            merged = self.server_opt.step_vec(self, server_tree, merged)
+        """Merge epilogue: unpack (copies), and keep the packed result as
+        the mirror of the returned dict and the server optimizer's next
+        ``prev``."""
         out = self.bundle.unpack(merged)
         self._server_flat, self._server_tree = merged, out
         if self.server_opt is not None:
@@ -335,19 +368,8 @@ class FlatServerState:
         """Fused merge over the row window: ``rows[i]`` carries the update
         weighted by ``weights[i]``; every other row gets weight 0."""
         self._flush_dirty()
-        w = normalized_weights(weights)
-        idx = np.asarray(tuple(rows), np.intp)
-        if alpha >= 1.0:
-            wv = np.zeros((self.capacity,), np.float32)
-            wv[idx] = w
-            merged = fused_weighted_sum(self._rows, wv)
-        else:
-            wvec = np.zeros((self.capacity + 1,), np.float32)
-            wvec[0] = 1.0 - alpha
-            wvec[idx + 1] = alpha * w
-            merged = fused_merge(self._server_buffer(server_tree),
-                                 self._rows, wvec)
-        return self._finish(server_tree, merged)
+        return self._merge(server_tree, np.asarray(tuple(rows), np.intp),
+                           weights, alpha)
 
     def row_vec(self, row: int) -> torch.Tensor:
         """A copy of one claimed row as a packed flat vector."""

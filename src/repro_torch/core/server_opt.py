@@ -8,11 +8,14 @@ optimizer instead treats
     d = merged - prev        (prev = the packed server model pre-merge)
 
 as a pseudo-gradient (Reddi et al., "Adaptive Federated Optimization")
-and takes a real optimizer step from ``prev``: one fused elementwise pass
-over the packed buffers, right after the merge and before the unpack
-(``kernels.server_opt.server_opt_step_flat``).  State lives as packed
-``(N,)`` vectors over the same :class:`~repro_torch.core.flatbuf.ParamBundle`
-and updates in place.
+and takes a real optimizer step from ``prev``, elementwise over the packed
+buffers.  The step runs inside the merge's own kernel pass
+(``kernels.fedavg_agg.merge_opt_flat``, fed by :meth:`ServerOpt.
+merge_operands`), so ``merged`` never goes to memory; :meth:`ServerOpt.
+step_vec` is the same step as a pass of its own
+(``kernels.server_opt.server_opt_step_flat``), the oracle the tests hold
+the fused merge against.  State lives as packed ``(N,)`` vectors over the
+same :class:`~repro_torch.core.flatbuf.ParamBundle` and updates in place.
 
 ================  =============================================  ==========================
 name              update rule (d = merged - prev)                degenerate == plain FedAvg
@@ -33,7 +36,9 @@ That vector is also the flat state's packed server mirror, which an
 alpha < 1 merge or a delta-accumulate overwrites in place; the flat state
 then calls :meth:`ServerOpt.release` and the next step re-packs ``prev``
 from the server's dict (bitwise the same for f32).  This is the port's
-counterpart of JAX's donation check (``_prev_vec.is_deleted()``).
+counterpart of JAX's donation check (``_prev_vec.is_deleted()``).  An
+alpha < 1 merge whose model is all f32 hands its server buffer over as
+``prev`` instead: the fused pass reads both before it writes.
 
 ``step_tree`` runs the same recursions per leaf on dicts of tensors: the
 parity oracle for the fused pass.
@@ -76,22 +81,44 @@ class ServerOpt:
     def _kwargs(self) -> dict:
         raise NotImplementedError
 
-    # --- fused flat path (called from FlatServerState._finish) ---
-    def step_vec(self, flat, server_tree, merged: torch.Tensor
-                 ) -> torch.Tensor:
-        """Transform the packed merge result; ``server_tree`` is the
-        pre-merge server dict (the anchor when ``prev`` must re-pack)."""
-        if self._degenerate():
-            return merged
+    # --- flat path ---
+    def _anchor(self, flat, server_tree, server=None) -> torch.Tensor:
+        """``prev``, the packed pre-merge server model, with the moment
+        vectors allocated.  ``server`` (or None) holds its bits already."""
         if self._prev_tree is not server_tree or self._prev_vec is None:
             # first step, external model replacement, or the cached anchor
             # was handed to an in-place merge (release)
-            self._prev_vec = flat.bundle.pack(server_tree)
+            self._prev_vec = (flat.bundle.pack(server_tree) if server is None
+                              else server)
         prev = self._prev_vec
         if self._m is None:
             self._m = torch.zeros_like(prev)
         if self.adam and self._v is None:
             self._v = torch.zeros_like(prev)
+        return prev
+
+    def merge_operands(self, flat, server_tree, server=None):
+        """What a merge needs to take this step in its own kernel pass
+        (``flatbuf.fused_merge_opt``): ``(prev, m, v, scalars)``, the
+        moments to be updated in place; None when the parameters are
+        degenerate (the merge result is installed verbatim).
+        ``server_tree`` is the pre-merge server dict; ``server``, when not
+        None, is a packed buffer with the bits ``pack(server_tree)`` gives
+        (the one an in-place merge consumes), taken as ``prev`` instead of
+        a re-pack."""
+        if self._degenerate():
+            return None
+        return (self._anchor(flat, server_tree, server), self._m, self._v,
+                self._scalars())
+
+    def step_vec(self, flat, server_tree, merged: torch.Tensor
+                 ) -> torch.Tensor:
+        """The same step as a pass of its own over a packed merge result
+        (the fused merge's oracle); ``server_tree`` is the pre-merge
+        server dict (the anchor when ``prev`` must re-pack)."""
+        if self._degenerate():
+            return merged
+        prev = self._anchor(flat, server_tree)
         new, _, _ = opt_kernel.server_opt_step_flat(
             prev, merged, self._m, self._v, self._scalars(), adam=self.adam,
             m_out=self._m, v_out=self._v)

@@ -11,6 +11,8 @@ a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -43,6 +45,22 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
     if t.numel() != numel:
         raise ValueError(f"{name}: expected {numel} elements, got "
                          f"{t.numel()}")
+
+
+def output_tensor(t: Optional[torch.Tensor], like: torch.Tensor, name: str,
+                  forbidden) -> torch.Tensor:
+    """The tensor a kernel writes ``name`` to: a new one shaped like
+    ``like``, or ``t``, which must not share its storage with any tensor of
+    ``forbidden`` (None entries are skipped)."""
+    if t is None:
+        return torch.empty_like(like)
+    check_cuda_tensor(t, name, torch.float32, like.numel())
+    if t.device != like.device:
+        raise ValueError(f"{name} must be on the operands' device")
+    if any(x is not None and x.data_ptr() == t.data_ptr()
+           for x in forbidden):
+        raise ValueError(f"{name} aliases an operand it may not")
+    return t
 
 
 def check_status(status: int, what: str) -> None:

@@ -34,6 +34,10 @@ _C = ctypes.c_int
 SIGNATURES = {
     "fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
     "fedavg_mix_launch": (_P, _P, _P, _P, _I64, _I64, _P),
+    # rows, w, server, prev, m, v, out, m_out, v_out; adam; 4 scalars; W,
+    # N; stream
+    "fedavg_merge_opt_launch": (_P,) * 9 + (_C,) + (_F,) * 4
+    + (_I64, _I64, _P),
     "topk_quant_encode_launch": (_P, _P, _P, _P, _P, _I64, _P),
     "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
     # ctas, dynamic shared memory, int* clusters

@@ -18,6 +18,10 @@
 // 16-byte aligned, one thread per element otherwise; the four or six
 // scalars come by value.
 //
+// Off the FL paths since the fused merge (fedavg_agg.cu) takes the step
+// in the merge's own launch, with the same per-element arithmetic
+// (server_opt_step.cuh); this standalone form keeps its check and timing.
+//
 // Numerics: the explicit _rn intrinsics keep nvcc from contracting a
 // multiply and an add into an FMA (and the division and square root are
 // IEEE-rounded), so the kernel rounds exactly like the plain PyTorch
@@ -28,43 +32,16 @@
 // own element before writing it.  new must not alias any input.
 #include <cuda_runtime.h>
 
+#include "server_opt_step.cuh"
+
 namespace {
 
+using server_opt_step::Adam;
+using server_opt_step::adam_one;
+using server_opt_step::Mom;
+using server_opt_step::mom_one;
+
 constexpr int kThreads = 256;
-
-struct Mom {
-  float am, bm, cd, lr;
-};
-
-struct Adam {
-  float b1, b2, lr, tau;
-};
-
-__device__ __forceinline__ void mom_one(const Mom s, float prev, float merged,
-                                        float m, float* new_out,
-                                        float* m_out) {
-  const float d = __fsub_rn(merged, prev);
-  const float mo = __fadd_rn(__fmul_rn(s.am, m), __fmul_rn(s.bm, d));
-  *m_out = mo;
-  *new_out = __fadd_rn(__fadd_rn(prev, __fmul_rn(s.cd, d)),
-                       __fmul_rn(s.lr, mo));
-}
-
-__device__ __forceinline__ void adam_one(const Adam s, float prev,
-                                         float merged, float m, float v,
-                                         float* new_out, float* m_out,
-                                         float* v_out) {
-  const float d = __fsub_rn(merged, prev);
-  const float mo = __fadd_rn(__fmul_rn(s.b1, m),
-                             __fmul_rn(__fsub_rn(1.0f, s.b1), d));
-  const float vo = __fadd_rn(__fmul_rn(s.b2, v),
-                             __fmul_rn(__fmul_rn(__fsub_rn(1.0f, s.b2), d),
-                                       d));
-  *m_out = mo;
-  *v_out = vo;
-  *new_out = __fadd_rn(prev, __fdiv_rn(__fmul_rn(s.lr, mo),
-                                       __fadd_rn(__fsqrt_rn(vo), s.tau)));
-}
 
 __global__ void mom_vec4(const Mom s, const float4* __restrict__ prev,
                          const float4* __restrict__ merged, const float4* m,

@@ -168,6 +168,22 @@ def reference_server_opt(prev: torch.Tensor, merged: torch.Tensor,
     return prev + sc[2] * d + sc[3] * mo, mo, None
 
 
+def reference_merge_opt(stacked: torch.Tensor, wvec: torch.Tensor,
+                        server: Optional[torch.Tensor], prev: torch.Tensor,
+                        m: torch.Tensor, v, scalars, *, adam: bool):
+    """The merge and the server optimizer's step as one function: the
+    plain chain, ``reference_fedavg(stacked, wvec)`` (``server`` None: the
+    aggregate) or ``reference_fedavg_mix(stacked, wvec[1:], server,
+    wvec[0])`` (the mix), then ``reference_server_opt`` on its result.
+    Every result is computed before the caller writes any, so ``prev``
+    may be ``server``.  Returns ``(new, m', v')``."""
+    if server is None:
+        merged = reference_fedavg(stacked, wvec)
+    else:
+        merged = reference_fedavg_mix(stacked, wvec[1:], server, wvec[0])
+    return reference_server_opt(prev, merged, m, v, scalars, adam=adam)
+
+
 def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
                    window: int) -> torch.Tensor:
     """(len(qpos), len(kpos)) bool: which keys each query may see."""

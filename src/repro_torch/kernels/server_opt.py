@@ -5,7 +5,10 @@
 (FedAvgM, FedDyn) and the adam form (FedAdam), one elementwise pass on
 ``d = merged - prev``.  On a CUDA tensor it launches
 ``csrc/server_opt.cu``; on a CPU tensor it runs the plain version in
-``ref.py``.  See the CUDA source for the design and its bound.
+``ref.py``.  See the CUDA source for the design and its bound.  The FL
+paths take the same step inside the merge's own launch
+(``fedavg_agg.merge_opt_flat``); this pass of its own is
+``ServerOpt.step_vec``, the oracle of the tests.
 """
 from __future__ import annotations
 
@@ -14,24 +17,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import check_cuda_tensor, check_status, ref, use_kernel
+from . import (check_cuda_tensor, check_status, output_tensor, ref,
+               use_kernel)
 
 # kernel launches by form: a run shows it went through the kernels
 LAUNCHES = {"mom": 0, "adam": 0}
-
-
-def _state_out(out: Optional[torch.Tensor], state: torch.Tensor,
-               name: str, inputs) -> torch.Tensor:
-    """The tensor ``name`` is written to: a new one, or ``out`` (which
-    may be ``state`` itself but no other input)."""
-    if out is None:
-        return torch.empty_like(state)
-    check_cuda_tensor(out, name, torch.float32, state.numel())
-    if out.device != state.device:
-        raise ValueError(f"{name} must be on the state's device")
-    if any(out.data_ptr() == t.data_ptr() for t in inputs):
-        raise ValueError(f"{name} may alias its own state only")
-    return out
 
 
 def server_opt_step_flat(prev: torch.Tensor, merged: torch.Tensor,
@@ -65,10 +55,11 @@ def server_opt_step_flat(prev: torch.Tensor, merged: torch.Tensor,
     for t, name in zip(tensors, ("prev", "merged", "m", "v")):
         check_cuda_tensor(t, name, torch.float32, N)
     new = torch.empty_like(prev)
-    mo = _state_out(m_out, m, "m_out", (prev, merged) + tensors[3:])
+    # m_out may be m itself, v_out v, and no other input
+    mo = output_tensor(m_out, m, "m_out", (prev, merged) + tensors[3:])
     stream = torch.cuda.current_stream(prev.device).cuda_stream
     if adam:
-        vo = _state_out(v_out, v, "v_out", (prev, merged, m))
+        vo = output_tensor(v_out, v, "v_out", (prev, merged, m))
         status = lib().server_opt_adam_launch(
             prev.data_ptr(), merged.data_ptr(), m.data_ptr(), v.data_ptr(),
             new.data_ptr(), mo.data_ptr(), vo.data_ptr(),

@@ -6,11 +6,13 @@ card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: fedavg within 1e-6 (the kernel and the plain version sum the
-rows in the same order, so they normally agree bit for bit), and the
-aggregate (B2) bit for bit at every width and row count tested; encode,
-decode and the server-optimizer step bit-exact (the kernels round every
-operation like the plain version does); flash attention elementwise
+Tolerances: the fedavg aggregate (B2) and mix (B1) bit for bit at every
+width and row count tested (the kernels and the plain versions sum the
+rows in the same order and round every operation alike); encode, decode,
+the server-optimizer step and the fused merge and step
+(``merge_opt_flat``) bit-exact, the fused form also aliased as the merge
+path calls it and with an inf in a zero-weight row; flash attention
+elementwise
 within 2e-5 in f32 (ROADMAP (b)) and within 2^-7 |plain| + 1e-4 in bf16:
 one bf16 ulp of the plain output, since both sides compute in f32 and
 round once, and another summation order flips at most the last bit.  q is
@@ -72,21 +74,22 @@ def h100():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,N", [(30, 101_888), (2, 101_888), (3, 1000)])
+@pytest.mark.parametrize("W,N", [(30, 101_888), (2, 101_888), (3, 1000),
+                                 (1, 101_888)])
 def test_cuda_fedavg_kernels_match_plain(h100, W, N):
     rows, w = _rows(W, N)
     rows_d, w_d = _t(rows).to(h100), _t(w).to(h100)
     n0 = dict(fedavg_agg.LAUNCHES)
     got = fedavg_agg.fedavg_agg_flat(rows_d, w_d)
     plain = ref.reference_fedavg(rows_d, w_d)
-    assert torch.max(torch.abs(got - plain)).item() < 1e-6
+    assert torch.equal(got, plain)
     server = torch.randn(N, device=h100)
     wvec = torch.cat([torch.tensor([0.1], device=h100), w_d])
     plain = ref.reference_fedavg_mix(rows_d, w_d, server, wvec[0])
     fresh = fedavg_agg.fedavg_mix_flat(rows_d, wvec, server)
     inplace = fedavg_agg.fedavg_mix_flat(rows_d, wvec, server, out=server)
     torch.cuda.synchronize()
-    assert torch.max(torch.abs(fresh - plain)).item() < 1e-6
+    assert torch.equal(fresh, plain)
     assert torch.equal(inplace, fresh)
     assert fedavg_agg.LAUNCHES["agg"] == n0["agg"] + 1
     assert fedavg_agg.LAUNCHES["mix"] == n0["mix"] + 2
@@ -168,7 +171,8 @@ def test_cuda_run_fl_matches_cpu_run(h100, mode):
 @pytest.mark.parametrize("opt", ["fedavgm", "fedadam"])
 def test_cuda_server_opt_run_matches_cpu_run(h100, opt):
     """Async alpha 0.9 over a Dirichlet split with a server optimizer: the
-    kernel launches once per merge, and the history matches the CPU's."""
+    fused merge and step launches once per merge, B5 and B1 never, and the
+    history matches the CPU's."""
     from repro_torch.core import TABLE_4_1, make_setup, run_fl
     kw = dict(seed=0, noise=0.25, batch_size=32, het="strong")
     rkw = dict(mode="async", async_alpha=0.9, async_latest_table=False,
@@ -180,11 +184,132 @@ def test_cuda_server_opt_run_matches_cpu_run(h100, opt):
     cpu = make_setup(TABLE_4_1["mnist_even"], **kw, weights0=w0,
                      device="cpu")
     key = "adam" if opt == "fedadam" else "mom"
-    n0 = server_opt.LAUNCHES[key]
+    n0, f0 = server_opt.LAUNCHES[key], dict(fedavg_agg.LAUNCHES)
     hg = run_fl(card, **rkw)
     hc = run_fl(cpu, **rkw)
-    assert server_opt.LAUNCHES[key] == n0 + 4
+    assert server_opt.LAUNCHES[key] == n0
+    assert fedavg_agg.LAUNCHES[f"merge_{key}"] == f0[f"merge_{key}"] + 4
+    assert fedavg_agg.LAUNCHES["mix"] == f0["mix"]
     assert len(hg) == len(hc)
+    for g, c in zip(hg, hc):
+        assert (g.time, g.version, g.n_updates, g.selected, g.up_bytes,
+                g.down_bytes) == (c.time, c.version, c.n_updates,
+                                  c.selected, c.up_bytes, c.down_bytes)
+        assert abs(g.accuracy - c.accuracy) <= 4 / 512
+
+
+MERGE_SCALARS = {k: np.asarray(v, np.float32)
+                 for k, v in chip_smoke.OPT_SCALARS.items()}
+
+
+def _merge_inputs(W, N, s, seed=0):
+    """One merge's operands on the card, as chip_smoke draws them (s None:
+    the aggregate)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + W + N)
+    return chip_smoke.merge_inputs(g, W, N, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", sorted(chip_smoke.OPT_SCALARS))
+@pytest.mark.parametrize("s", [None, 0.1, 1.0], ids=["agg", "mix0.1",
+                                                     "mix1"])
+@pytest.mark.parametrize("W,N", [(1, 101_888), (2, 101_890), (10, 29_184),
+                                 (30, 101_888), (65, 1000)])
+def test_cuda_merge_opt_bit_exact_and_aliased(h100, W, N, s, opt):
+    """The fused merge and step against its plain version (the unfused
+    chain), fresh and aliased as the merge path calls it (out = server =
+    prev in the mix, m_out = m, v_out = v), one launch a call counted
+    under its optimizer form and none of B5."""
+    rows, w, server, prev, m, v = _merge_inputs(W, N, s)
+    srv = None if s is None else server
+    sc, adam = MERGE_SCALARS[opt], opt == "fedadam"
+    form = "adam" if adam else "mom"
+    n0, b5 = dict(fedavg_agg.LAUNCHES), dict(server_opt.LAUNCHES)
+    got = fedavg_agg.merge_opt_flat(rows, w, srv, prev, m, v, sc, adam=adam)
+    plain = ref.reference_merge_opt(rows, w, srv, prev, m, v, sc, adam=adam)
+    assert not chip_smoke.merge_mismatch(got, plain)
+    kprev = prev if srv is None else srv
+    fresh = fedavg_agg.merge_opt_flat(rows, w, srv, kprev, m, v, sc,
+                                      adam=adam)
+    out = None if srv is None else srv.clone()
+    m2, v2 = m.clone(), v.clone()
+    inplace = fedavg_agg.merge_opt_flat(
+        rows, w, out, prev if out is None else out, m2, v2, sc, adam=adam,
+        out=out, m_out=m2, v_out=v2)
+    torch.cuda.synchronize()
+    assert not chip_smoke.merge_mismatch(inplace, fresh)
+    assert inplace[1] is m2 and (out is None or inplace[0] is out)
+    assert not chip_smoke.merge_mismatch(fresh, ref.reference_merge_opt(
+        rows, w, srv, kprev, m, v, sc, adam=adam))
+    assert fedavg_agg.LAUNCHES[f"merge_{form}"] == n0[f"merge_{form}"] + 3
+    assert server_opt.LAUNCHES == b5
+    assert fedavg_agg.LAUNCHES["agg"] == n0["agg"]
+    assert fedavg_agg.LAUNCHES["mix"] == n0["mix"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [None, 0.1], ids=["agg", "mix"])
+def test_cuda_merge_opt_nonfinite_and_faults(h100, s):
+    """An inf in a zero-weight row gives NaN as the chain does, and
+    chip_smoke's controls (FMA-rounded mix or m') fail the check."""
+    rows, w, server, prev, m, v = _merge_inputs(3, 4099, s, seed=1)
+    srv = None if s is None else server
+    w[-1] = 0.0
+    rows[-1, 5] = float("inf")
+    for opt, sc in MERGE_SCALARS.items():
+        adam = opt == "fedadam"
+        got = fedavg_agg.merge_opt_flat(rows, w, srv, prev, m, v, sc,
+                                        adam=adam)
+        assert not chip_smoke.merge_mismatch(got, ref.reference_merge_opt(
+            rows, w, srv, prev, m, v, sc, adam=adam))
+        assert got[0][5].isnan() and torch.isfinite(got[0][6:]).all()
+    for fault, (W, fs, opt) in chip_smoke.MERGE_FAULTS.items():
+        if (fs is None) != (s is None):
+            continue
+        rows, w, server, prev, m, v = _merge_inputs(W, 101_888, fs, seed=2)
+        srv = None if fs is None else server
+        sc, adam = MERGE_SCALARS[opt], opt == "fedadam"
+        got = fedavg_agg.merge_opt_flat(rows, w, srv, prev, m, v, sc,
+                                        adam=adam)
+        assert chip_smoke.merge_mismatch(got, chip_smoke.merge_plain_fault(
+            fault, rows, w, srv, prev, m, v, sc, adam=adam))
+
+
+@pytest.mark.cuda
+def test_cuda_merge_opt_aliasing_rules_and_unread_server(h100):
+    """Outputs may alias only what the merge path aliases; the flat
+    state's alpha 1 merge never reads its server buffer (chip_smoke's
+    check on the card)."""
+    rows, w, server, prev, m, v = _merge_inputs(2, 1000, 0.1)
+    sc = MERGE_SCALARS["fedadam"]
+    for kw in ({"out": m}, {"out": v}, {"m_out": prev}, {"m_out": v},
+               {"v_out": m}, {"v_out": server}):
+        with pytest.raises(ValueError):
+            fedavg_agg.merge_opt_flat(rows, w, server, prev, m, v, sc,
+                                      adam=True, **kw)
+    rec = chip_smoke.check_unread_server(h100)
+    assert all(rec.values()), rec
+
+
+@pytest.mark.cuda
+def test_cuda_sync_fedadam_run_launches_fused_merge(h100):
+    """A short sync FedAdam run: one fused launch a merge (the aggregate
+    form), no B2 and no B5, and the CPU's history."""
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    kw = dict(seed=0, noise=0.25, batch_size=32, het="strong")
+    rkw = dict(mode="sync", selector="all", epochs_per_round=3,
+               max_rounds=4, server_opt="fedadam",
+               server_opt_kw={"lr": 0.05})
+    card = make_setup(TABLE_4_1["mnist_even"], **kw, device=h100)
+    w0 = {k: v.cpu().numpy() for k, v in card.weights0.items()}
+    cpu = make_setup(TABLE_4_1["mnist_even"], **kw, weights0=w0,
+                     device="cpu")
+    n0, b5 = dict(fedavg_agg.LAUNCHES), dict(server_opt.LAUNCHES)
+    hg = run_fl(card, **rkw)
+    hc = run_fl(cpu, **rkw)
+    assert fedavg_agg.LAUNCHES["merge_adam"] == n0["merge_adam"] + 4
+    assert fedavg_agg.LAUNCHES["agg"] == n0["agg"]
+    assert server_opt.LAUNCHES == b5
     for g, c in zip(hg, hc):
         assert (g.time, g.version, g.n_updates, g.selected, g.up_bytes,
                 g.down_bytes) == (c.time, c.version, c.n_updates,

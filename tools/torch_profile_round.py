@@ -37,8 +37,7 @@ import chip_smoke  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.configs.paper_cnn import MNIST_CNN  # noqa: E402
 
-OWN_KERNELS = ("agg_vec4", "agg_scalar", "mix_vec4", "mix_scalar",
-               "encode_kernel", "decode_kernel", "ef_cluster",
+OWN_KERNELS = ("merge", "encode_kernel", "decode_kernel", "ef_cluster",
                "ef_grid_stats", "ef_grid_sweep", "dequant_rows",
                "mom_vec4", "mom_scalar", "adam_vec4", "adam_scalar",
                "flash_fwd", "flash_wgmma", "wkv_state_inc", "wkv_scan",

@@ -2,7 +2,7 @@
 compare two such records.
 
     PYTHONPATH=src python tools/torch_uplink_histories.py --out FILE
-        [--runs uplink_only/sync,uplink_only/async,...]
+        [--runs uplink_only/sync,uplink_only/async,... | --runs opt]
     python tools/torch_uplink_histories.py --compare FILE_A FILE_B
 
 The first form builds each run's setup on the CUDA card as
@@ -10,7 +10,12 @@ The first form builds each run's setup on the CUDA card as
 once, and writes to FILE, per run, the history (every ``HistoryPoint``
 field, accuracy included) and the wall seconds per round (host clock
 around the run, which ends in a synchronise), beside the card's name and
-power limit.  By default it runs the four ``uplink_only/*`` runs.  It
+power limit.  By default it runs the four ``uplink_only/*`` runs;
+``--runs opt`` runs the heterogeneity phase (the five server-optimizer
+runs and FedProx) and the CNN's FedAdam run.  The record sets
+``torch.backends.cudnn.deterministic``: without it the CNN's cuDNN
+convolutions pick algorithms that sum in a run-dependent order, and its
+accuracy differs between two runs of one tree on the card.  It
 imports ``chip_smoke`` and ``repro_torch`` from the tree it sits in, so a
 copy of it placed in another checkout measures that checkout: two trees,
 run in turns in one call on one card, compare like with like.  The second
@@ -27,6 +32,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 UPLINK_RUNS = ("uplink_only/sync", "uplink_only/async",
                "uplink_only/async_delta", "uplink_only/time_based")
+OPT_RUNS = ("hetero/sync/fedavgm", "hetero/sync/fedadam",
+            "hetero/sync/feddyn", "hetero/sync/fedprox",
+            "hetero/async/fedadam", "hetero/sync_topk/fedadam",
+            "cnn/sync/fedadam")
 
 
 def record(runs, out):
@@ -41,8 +50,10 @@ def record(runs, out):
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True, timeout=60)
     dev = torch.device("cuda", 0)
+    torch.backends.cudnn.deterministic = True
     setups = chip_smoke.Setups(dev)
-    rec = {"card": card.stdout.strip(), "tree": str(ROOT), "runs": {}}
+    rec = {"card": card.stdout.strip(), "tree": str(ROOT),
+           "cudnn_deterministic": True, "runs": {}}
     for key in runs:
         spec = chip_smoke.RUNS[key]
         setup = setups.get(spec, dev)
@@ -86,7 +97,8 @@ def main():
         sys.exit(compare(*args.compare))
     if not args.out:
         ap.error("--out or --compare is required")
-    record(args.runs.split(","), args.out)
+    record(OPT_RUNS if args.runs == "opt" else args.runs.split(","),
+           args.out)
 
 
 if __name__ == "__main__":
