@@ -93,7 +93,33 @@ one initial weight alone moves it (``SPREAD``, measured on the CPU with
 ``gap_bounds`` of the CPU at every point and in the mean of the last five
 points.  The top-k runs are not compared field by field (kept counts
 follow the numerics).
-7. LM serving: gemma2-2b at full width and depth (26 layers, seeded
+7. Fleet (``FLEET``): lossy links, the auto codec, cohorts and the
+   hierarchical topology with its faults, at MNIST width, every run with
+   the launch counters at 0 before it and read after.  lossy/sync and
+   lossy/async: the main path with every worker link on
+   ``LinkReliability(**FLEET_LOSS)`` (attached by
+   ``inject_link_reliability`` with the estimator, in a 1x1 topology so
+   ``audit_chaos_run`` closes its books); lossy/uplink_only the same over
+   top-k+int8 uplinks, its ``ef_encode`` launches equal to its logical
+   uplinks (the ledger's original sends) though copies were
+   retransmitted; auto/backbone, edge and starved: ``fig_autotune_sweep``'s
+   setup over ``AUTO_LOSS`` links, each link's resolved codec counted at
+   every encode; cohort/scale: W = 10,000 workers on one shard, cohort 64
+   (row buffer at most 2 x 64, at most 256 resident links, B2 once a
+   round), beside W = 64 with no cohort; cohort/main (cohort = W) and
+   topology/1x1, which must equal phase 4's raw/sync bit for bit;
+   cohort/main_k10; chaos/1x2 (``fig_chaos_sweep`` at loss 0.1, failover
+   on, target 0.8: one failover, t80 beside ``BENCH_chaos.json``) and
+   chaos_raw/1x2.  Then the controls: a sender that re-encodes each
+   retransmitted copy must fail the encode check, and a tuner that
+   ignores the retransmit tax or the encode cost must move more than
+   ``AUTO_CODEC_GAP`` of the edge tier's codecs.  Then the CPU: every
+   non-accuracy field of lossy/sync, lossy/async, auto/backbone,
+   cohort/scale, cohort/main_k10 and chaos_raw/1x2 equal (retransmits,
+   the ledger, evictions, the failover included; the lossy runs'
+   accuracy within ``MAIN_GAPS``), and every auto run's codec counts
+   within ``AUTO_CODEC_GAP``.
+8. LM serving: gemma2-2b at full width and depth (26 layers, seeded
    random weights on the card), attention through kernel B8: prefill of
    2 prompts of 8192 tokens from ``synthetic_token_batches`` (cut from
    ``SHAPES["prefill_32k"]``: batch 32 -> 2, 32,768 -> 8192 tokens), then
@@ -108,8 +134,8 @@ follow the numerics).
    (``LM_FAULTS``); those in ``LM_CAUGHT`` must fail it.  Reports prefill
    seconds and tokens/s, decode seconds per step, peak device memory and
    the prefill's model FLOPs over its time as a share of the bf16 peak.
-8. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
-   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 7 is:
+9. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
+   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 8 is:
    prefill of 2 prompts of 8192 tokens, then 64 greedy decode steps,
    every counter at 0 before and read after.  The prefill's blocks run B9
    in its state form (chunk 64): exactly one launch a layer after the
@@ -124,8 +150,8 @@ follow the numerics).
    ``wkv_chunked``: through ``ops.wkv`` (chunk 16, zero state; counters
    at 0 before and read after: one launch), y within ``WKV_TOL`` (a plain
    version with no carry must fail); and in the state form, y and the
-   final state within their limits.  Reports as phase 7.
-9. Result: the ``kernels`` JSON line, the card line, and last the
+   final state within their limits.  Reports as phase 8.
+10. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
@@ -1874,6 +1900,554 @@ def run_phase(phase, setups, report):
             compare_with_cpu(key, setups.get(RUNS[key], "cpu"), report)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7, the fleet: lossy links, the auto codec, cohorts and the
+# hierarchical topology with its faults, at MNIST width (MLP 784-128-10)
+
+# every link of the lossy runs: LinkReliability's drop, duplicate, seed
+FLEET_LOSS = dict(drop_p=0.1, dup_p=0.05, seed=123)
+# The auto runs are fl_figures.fig_autotune_sweep's setup over lossy links
+# that drop 20%: the retransmit tax 1/(1 - 0.2) = 1.25 moves the edge
+# tier's slowest third (1.2e8 B/s) from int8 to top-k+int8, so a tuner
+# that ignores it is seen; at 10% nothing would move.
+AUTO_LOSS = dict(drop_p=0.2, dup_p=0.05, seed=123)
+AUTO_TIERS = {"backbone": 0.02, "edge": 0.25, "starved": 400.0}
+AUTO_SETUP = dict(noise=0.1, batch_size=64, het="strong")
+# card vs CPU: the share of encodes whose resolved codec differs, at most
+# (see codec_gap; set from the readings in PERF.md)
+AUTO_CODEC_GAP = 0.02
+# the tuner's controls, each run at AUTO_FAULT_TIER: they must exceed it
+AUTO_FAULTS = ("ignores retx", "ignores encode_cost")
+AUTO_FAULT_TIER = "edge"
+# benchmarks/scale_bench.py: W workers share one batch of one shard
+SCALE = dict(W=10_000, cohort=64, rounds=5, epochs=1, plain_W=64)
+# fl_figures.fig_chaos_sweep's run at loss 0.1, failover on
+CHAOS = dict(seed=123, drop_p=0.1, dup_p=0.05, n_worker_kills=0)
+CHAOS_SETUP = dict(noise=0.2, batch_size=64, het="strong")
+CHAOS_KILL_AFTER = 2             # the root dies after this global version
+CHAOS_TARGET = 0.8
+CHAOS_MAX_ROUNDS = 120
+BASE_SERVER_BW = 200e6           # fl_figures' server bandwidth before /40
+RAW_SYNC = {**MODES["sync"], **TRANSPORTS["raw"]}
+
+
+def _fleet(kind, rounds, run_kw=None, compare=True, **extra):
+    return dict(kind=kind, rounds=rounds, run_kw=run_kw or {},
+                compare=compare, **extra)
+
+
+# run key -> what it drives; "compare": every non-accuracy field equal to
+# a CPU run's; "same_as": equal to that phase 4 run on the card, bit for
+# bit, accuracy included.  Rounds are leaf rounds, root rounds for the
+# chaos runs.
+FLEET = {
+    "lossy/sync": _fleet("lossy", 20, RAW_SYNC),
+    "lossy/async": _fleet("lossy", 20,
+                          {**MODES["async"], **TRANSPORTS["raw"]}),
+    # top-k kept counts follow the numerics, so not field by field
+    "lossy/uplink_only": _fleet(
+        "lossy", 20, {**MODES["sync"], **TRANSPORTS["uplink_only"]},
+        compare=False),
+    **{f"auto/{t}": _fleet("auto", 20, {**SYNC, "transport": "auto"},
+                           compare=t == "backbone", div=d)
+       for t, d in AUTO_TIERS.items()},
+    "cohort/scale": _fleet("scale", SCALE["rounds"],
+                           {**SYNC, "cohort": SCALE["cohort"]},
+                           W=SCALE["W"]),
+    "cohort/scale_plain": _fleet("scale", SCALE["rounds"], SYNC,
+                                 compare=False, W=SCALE["plain_W"]),
+    "cohort/main": _fleet("main", 20, {**RAW_SYNC, "cohort": 30},
+                          compare=False, same_as="raw/sync"),
+    "cohort/main_k10": _fleet("main", 20, {**RAW_SYNC, "cohort": 10}),
+    "topology/1x1": _fleet("main", 20, {**RAW_SYNC, "topology": "1x1"},
+                           compare=False, same_as="raw/sync"),
+    "chaos/1x2": _fleet("chaos", CHAOS_MAX_ROUNDS, compare=False,
+                        codec="topk_ef+int8", target=CHAOS_TARGET),
+    "chaos_raw/1x2": _fleet("chaos", 10, codec="raw", target=None),
+}
+FLEET_FIELDS = FIELDS + ("retransmits",)
+# kernel -> (launch counter key, the fleet runs that must show it)
+FLEET_REQUIRED = {
+    "fedavg_agg_flat": ("agg", ["lossy/sync", "cohort/scale", "cohort/main",
+                                "topology/1x1", "chaos_raw/1x2"]),
+    "fedavg_mix_flat": ("mix", ["lossy/async"]),
+    "ef_encode": ("ef_encode", ["lossy/uplink_only", "auto/edge",
+                                "auto/starved", "chaos/1x2"]),
+    "dequant_add_rows": ("decode_rows", ["lossy/uplink_only"]),
+    "dequant_add": ("decode", ["auto/edge", "chaos/1x2"]),
+}
+
+
+def fleet_setup(key, device, weights0):
+    """The setup of fleet run ``key`` on ``device``.  ``weights0`` maps
+    the run's kind to its initial weights (numpy), drawn by the first
+    setup made of that kind and shared by every later one."""
+    import dataclasses
+
+    from repro_torch import core
+    from repro_torch.configs.paper_cnn import MNIST_CNN
+    spec = FLEET[key]
+    kind = spec["kind"]
+    if kind in ("lossy", "main"):
+        table, kw = core.TABLE_4_2["mnist_even"], PHASES["main"][1]
+    elif kind == "auto":
+        table, kw = core.TABLE_4_1["mnist_even"], AUTO_SETUP
+    elif kind == "scale":
+        table, kw = [1], {}
+    else:
+        table, kw = [1] * 12, CHAOS_SETUP
+    setup = core.make_setup(table, cfg=MNIST_CNN, seed=0, **kw,
+                            weights0=weights0.get(kind), device=device)
+    weights0.setdefault(kind, {k: v.cpu().numpy()
+                               for k, v in setup.weights0.items()})
+    if kind == "auto":
+        for p in setup.profiles:
+            p.bandwidth /= spec["div"]
+    if kind == "scale":
+        W = spec["W"]
+        setup = dataclasses.replace(
+            setup, shards=setup.shards * W,
+            device_shards=setup.device_shards * W,
+            profiles=core.heterogeneous_profiles(W, "mixed", [1] * W, 0))
+    return setup
+
+
+def _ledger(audit) -> dict:
+    import dataclasses
+    out = {f.name: getattr(audit, f.name)
+           for f in dataclasses.fields(audit) if f.name != "fetch_versions"}
+    out["fetches"] = sum(len(v) for v in audit.fetch_versions.values())
+    return out
+
+
+def _lossy_on_build(loss):
+    """An ``on_build`` that puts every worker link of a 1x1 topology on a
+    lossy channel priced by the leaf's estimator, with ``UplinkCopies``
+    as its ledger."""
+    from repro_torch.core import transport
+    from repro_torch.runtime import faults
+
+    def on_build(topo):
+        (lf,) = topo.leaves.values()
+        faults.inject_link_reliability(
+            lf.server.transport, transport.LinkReliability(**loss),
+            estimator=lf.server.est)
+        lf.server.transport.audit = uplink_copies()
+    return on_build
+
+
+def uplink_copies():
+    """A ``TransportAudit`` that also counts the retransmitted uplink
+    copies (``retx_up``): the ledger's ``retx_count`` is both ways."""
+    from repro_torch.core import transport
+
+    class UplinkCopies(transport.TransportAudit):
+        retx_up = 0
+
+        def note_sent(self, direction, nbytes, retransmit):
+            super().note_sent(direction, nbytes, retransmit)
+            if retransmit and direction == "up":
+                self.retx_up += 1
+    return UplinkCopies()
+
+
+def fleet_call(key, setup, rounds=None):
+    """Run fleet run ``key`` on ``setup`` (through the entry points a user
+    calls: ``run_fl``, ``run_fl_topology``, ``build_experiment``); returns
+    ``(history, extras)``.  ``rounds`` overrides the table's (root rounds
+    of the chaos runs)."""
+    from repro_torch.core import build_experiment, run_fl, topology
+    from repro_torch.runtime import faults
+    spec = FLEET[key]
+    kind = spec["kind"]
+    rounds = spec["rounds"] if rounds is None else rounds
+    if kind in ("lossy", "auto"):
+        res = topology.run_fl_topology(
+            setup, topology="1x1", epochs_per_round=EPOCHS,
+            max_rounds=rounds, on_build=_lossy_on_build(
+                FLEET_LOSS if kind == "lossy" else AUTO_LOSS),
+            **spec["run_kw"])
+        stats = faults.audit_chaos_run(res.topology)     # books must close
+        (lf,) = res.topology.leaves.values()
+        aud = lf.server.transport.audit
+        return res.root_history, {"audit": stats, "ledger": _ledger(aud),
+                                  "retx_up": aud.retx_up}
+    if kind == "scale":
+        loop, server = build_experiment(
+            setup, epochs_per_round=SCALE["epochs"], max_rounds=rounds,
+            **spec["run_kw"])
+        server.start()
+        loop.run()
+        tr = server.transport
+        return server.history, {"capacity": server._flat.capacity,
+                                "resident_links": len(tr._links),
+                                "evictions": tr.total_link_evictions}
+    if kind == "main":
+        return run_fl(setup, epochs_per_round=EPOCHS, max_rounds=rounds,
+                      **spec["run_kw"]), {}
+    sched = faults.ChaosSchedule(**CHAOS)
+
+    def on_build(topo):
+        sched.apply(topo)            # lossy channel + ledger on every tier
+        merge = topo._merge
+
+        def merge_then_kill():
+            merge()
+            if topo.version == CHAOS_KILL_AFTER and not topo.done:
+                topo.loop.schedule(1e-3, topo.kill_root)
+        topo._merge = merge_then_kill
+    codec = spec["codec"]
+    cfg = topology.parse_topology(
+        "1x2", push="sync", server_codec=codec, server_frac=0.1,
+        server_bandwidth=BASE_SERVER_BW / 40, root_failover=True,
+        root_rounds=None if spec["target"] else rounds)
+    res = topology.run_fl_topology(
+        setup, topology=cfg, mode="sync", selector="all",
+        epochs_per_round=EPOCHS,
+        max_rounds=rounds if spec["target"] else CHAOS_MAX_ROUNDS,
+        target_accuracy=spec["target"], transport=codec, transport_frac=0.1,
+        on_build=on_build)
+    stats = faults.audit_chaos_run(res.topology)         # books must close
+    return res.root_history, {
+        "audit": stats, "failover_dispatches": [
+            list(d) for d in res.topology.failover_dispatches],
+        "leaf_histories": {k: [vars(p) for p in h]
+                           for k, h in res.leaf_histories.items()}}
+
+
+@contextlib.contextmanager
+def recorded_codecs():
+    """Count the codec every link resolves at every encode, per direction
+    (``Transport.resolve_up``/``resolve_down``) while the block runs:
+    yields ``{"up": {codec: n}, "down": {codec: n}}``."""
+    from repro_torch.core import transport
+    counts = {"up": {}, "down": {}}
+    real = {d: getattr(transport.Transport, f"resolve_{d}") for d in counts}
+
+    def wrap(d):
+        def resolve(self, link):
+            spec, frac = real[d](self, link)
+            counts[d][spec.name] = counts[d].get(spec.name, 0) + 1
+            return spec, frac
+        return resolve
+    for d in counts:
+        setattr(transport.Transport, f"resolve_{d}", wrap(d))
+    try:
+        yield counts
+    finally:
+        for d in counts:
+            setattr(transport.Transport, f"resolve_{d}", real[d])
+
+
+def codec_gap(got, want) -> float:
+    """The share of encodes whose resolved codec differs between two
+    runs' counts: half the L1 distance over the larger total."""
+    gap, total = 0, 0
+    for d in ("up", "down"):
+        names = set(got[d]) | set(want[d])
+        gap += sum(abs(got[d].get(n, 0) - want[d].get(n, 0)) for n in names)
+        total += max(sum(got[d].values()), sum(want[d].values()))
+    return gap / 2 / max(total, 1)
+
+
+@contextlib.contextmanager
+def faulty_tuner(fault):
+    """``AutoTuner.expected_latency`` given one of ``AUTO_FAULTS``."""
+    from repro_torch.core import autotune
+    real = autotune.AutoTuner.expected_latency
+    if fault == "ignores retx":
+        def latency(self, name, frac, bw, retx):
+            return real(self, name, frac, bw, 1.0)
+    elif fault == "ignores encode_cost":
+        def latency(self, name, frac, bw, retx):
+            return self.codec_bytes(name, frac) * retx / max(bw, 1.0)
+    else:
+        raise ValueError(fault)
+    autotune.AutoTuner.expected_latency = latency
+    try:
+        yield
+    finally:
+        autotune.AutoTuner.expected_latency = real
+
+
+@contextlib.contextmanager
+def reencode_on_retransmit():
+    """The retransmit control: ``transport.transmit`` with a fault, each
+    retransmitted uplink copy encoded again from the weights the first
+    copy was encoded from (as a sender keeping no copy of what it sent
+    would) before it goes out.  Otherwise the lossy path as it is."""
+    from repro_torch.core import transport, worker
+    real_transmit, real_encode = transport.transmit, transport.Link.encode_up
+
+    def encode_up(self, new_tree):
+        self.sent_tree = new_tree
+        return real_encode(self, new_tree)
+
+    def transmit(loop, link, payload, t_tx, deliver, direction="up"):
+        rel, t = link.reliability, link.t
+        if rel is None or direction != "up":
+            return real_transmit(loop, link, payload, t_tx, deliver,
+                                 direction)
+        aud, ch = t.audit, link.channel()
+        seq = ch.next_seq()
+        timer = [None]
+
+        def arrive():
+            if seq in ch.delivered:
+                if aud is not None:
+                    aud.note_dup(direction)
+                return
+            ch.delivered.add(seq)
+            if timer[0] is not None:
+                loop.cancel(timer[0])
+                timer[0] = None
+            if aud is not None:
+                aud.note_delivered(direction, payload.wire_bytes)
+            deliver()
+
+        def send(attempt):
+            if aud is not None:
+                aud.note_sent(direction, payload.wire_bytes, attempt > 0)
+            if attempt > 0:
+                t.total_retransmits += 1
+                real_encode(link, link.sent_tree)          # the fault
+            dropped = ch.rng.random_sample() < rel.drop_p
+            duped = ch.rng.random_sample() < rel.dup_p
+            if not dropped:
+                loop.schedule(t_tx, arrive)
+                if duped:
+                    loop.schedule(rel.dup_delay * t_tx, arrive)
+            if attempt + 1 < rel.max_attempts:
+                timer[0] = loop.schedule(
+                    link.rto(payload.wire_bytes, t_tx, attempt), check,
+                    attempt)
+
+        def check(attempt):
+            timer[0] = None
+            if seq in ch.delivered or t.closed:
+                return
+            send(attempt + 1)
+
+        send(0)
+    transport.transmit = worker.transmit = transmit
+    transport.Link.encode_up = encode_up
+    try:
+        yield
+    finally:
+        transport.transmit = worker.transmit = real_transmit
+        transport.Link.encode_up = real_encode
+
+
+def check_encodes(encodes: int, ledger: dict, retx_up: int, key: str):
+    """A lossy top-k run encodes once per logical uplink payload (the
+    ledger's original uplink sends), however many copies went out: a
+    retransmit re-sends the same payload.  ``encodes`` is the run's
+    ``ef_encode`` launches on the card (its calls on the CPU)."""
+    if retx_up < 1:
+        raise AssertionError(f"{key}: no uplink copy was retransmitted, "
+                             "so the check cannot tell")
+    if encodes != ledger["sent_count"]["up"]:
+        raise AssertionError(
+            f"{key}: {encodes} encodes for {ledger['sent_count']['up']} "
+            f"logical uplink payloads ({retx_up} retransmitted copies)")
+
+
+def fleet_drive(key, setup, report, rounds=None):
+    """One fleet run on the card, every launch counter set to 0 just
+    before it and read just after; checks the launches it must show."""
+    spec = FLEET[key]
+    counters = launch_counters()
+    with counted_encodes() as encodes, recorded_codecs() as codecs:
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, extra = fleet_call(key, setup, rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: counters[k][k] for k in counters}
+    done = h[-1].version
+    merges = sum(p.n_updates > 0 for p in h[1:])
+    report[key] = {"history": [vars(p) for p in h], "launches": launches,
+                   "encodes": encodes[0], "codecs": codecs, "merges": merges,
+                   "wall_s": wall, "s_per_round": wall / max(done, 1),
+                   "rounds_per_s": done / wall, **extra}
+    print(f"fleet {key}: {done} rounds, {merges} merges, retransmits "
+          f"{h[-1].retransmits}, final accuracy {h[-1].accuracy:.4f}, "
+          f"{wall / max(done, 1):.4f} s per round, codecs {codecs}, "
+          f"launches {launches}"
+          + "".join(f", {k} {extra[k]}" for k in
+                    ("capacity", "resident_links", "evictions", "audit")
+                    if k in extra))
+    for ctr in ("encode", "select", "mom", "adam", "merge_mom",
+                "merge_adam"):
+        if launches[ctr]:
+            raise AssertionError(f"{key}: {launches[ctr]} {ctr} launches")
+    if not all(np.isfinite(p.accuracy) for p in h):
+        raise AssertionError(f"{key}: non-finite accuracy")
+    kind, run_kw = spec["kind"], spec["run_kw"]
+    if kind in ("lossy", "main", "scale"):
+        # the worker tier's merges: one B2 (sync) or B1 (FedAsync) each
+        ctr = "mix" if run_kw["mode"] == "async" else "agg"
+        other = "agg" if ctr == "mix" else "mix"
+        if launches[ctr] != merges or launches[other]:
+            raise AssertionError(f"{key}: {launches['agg']} B2 and "
+                                 f"{launches['mix']} B1 launches for "
+                                 f"{merges} merges")
+    if kind == "lossy" and h[-1].retransmits < 1:
+        raise AssertionError(f"{key}: no retransmit on lossy links")
+    if key == "lossy/uplink_only":
+        check_encodes(launches["ef_encode"], extra["ledger"],
+                      extra["retx_up"], key)
+        if launches["decode_rows"] != merges:
+            raise AssertionError(f"{key}: {launches['decode_rows']} "
+                                 f"dequant_add_rows for {merges} merges")
+    if kind == "scale" and "cohort" in run_kw:
+        cap, links = extra["capacity"], extra["resident_links"]
+        cohort = run_kw["cohort"]
+        if launches["agg"] != done:
+            raise AssertionError(f"{key}: {launches['agg']} B2 launches "
+                                 f"in {done} rounds")
+        if cap > 2 * cohort or links > max(4 * cohort, 64):
+            raise AssertionError(f"{key}: row buffer of {cap} rows, "
+                                 f"{links} resident links")
+    return report[key]
+
+
+def fleet_compare(key, setup, report):
+    """Fleet run ``key`` again on the CPU: every non-accuracy field equal
+    (retransmits included), and what the kind adds (the lossy runs'
+    ledger, the scale runs' evictions, the chaos runs' failover and
+    audit); the auto runs' codec counts within AUTO_CODEC_GAP, at the
+    backbone every field too.  Returns the CPU history and extras."""
+    spec = FLEET[key]
+    with recorded_codecs() as codecs:
+        h, extra = fleet_call(key, setup)
+    gpu = report[key]
+    if spec["compare"]:
+        if len(gpu["history"]) != len(h):
+            raise AssertionError(f"{key}: {len(gpu['history'])} points on "
+                                 f"the card, {len(h)} on the CPU")
+        for g, c in zip(gpu["history"], h):
+            for f in FLEET_FIELDS:
+                if g[f] != getattr(c, f):
+                    raise AssertionError(f"{key}: {f} {g[f]} on the card, "
+                                         f"{getattr(c, f)} on the CPU")
+        for k in ("ledger", "evictions", "capacity", "resident_links",
+                  "failover_dispatches", "audit", "leaf_histories"):
+            if k in extra and _without_accuracy(extra[k]) != \
+                    _without_accuracy(gpu[k]):
+                raise AssertionError(f"{key}: {k} {gpu[k]} on the card, "
+                                     f"{extra[k]} on the CPU")
+    gap = codec_gap(gpu["codecs"], codecs)
+    a_gpu = np.array([g["accuracy"] for g in gpu["history"]])
+    a_cpu = np.array([c.accuracy for c in h])
+    n = min(len(a_gpu), len(a_cpu))
+    acc = (float(np.abs(a_gpu[:n] - a_cpu[:n]).max()),
+           float(abs(a_gpu[-5:].mean() - a_cpu[-5:].mean())))
+    gpu.update(cpu_history=[vars(p) for p in h], cpu_codecs=codecs,
+               codec_gap=gap, cpu_accuracy_gaps=acc)
+    print(f"cpu {key}: {'every non-accuracy field equal; ' if spec['compare'] else ''}"
+          f"codec gap {gap:.4f}; accuracy gap {acc[0]:.4f} at worst point, "
+          f"{acc[1]:.4f} in the last-5 mean")
+    if spec["kind"] == "auto" and gap > AUTO_CODEC_GAP:
+        raise AssertionError(f"{key}: codec counts {gpu['codecs']} on the "
+                             f"card, {codecs} on the CPU (gap {gap:.4f} > "
+                             f"{AUTO_CODEC_GAP})")
+    if spec["kind"] == "lossy" and spec["compare"] and any(
+            g > b for g, b in zip(acc, MAIN_GAPS)):
+        raise AssertionError(f"{key}: card vs CPU accuracy gaps {acc} "
+                             f"above {MAIN_GAPS}")
+    return h, extra, codecs
+
+
+def _without_accuracy(x):
+    """``x`` with every ``accuracy`` entry of its histories dropped."""
+    if isinstance(x, dict):
+        return {k: _without_accuracy(v) for k, v in x.items()
+                if k != "accuracy"}
+    if isinstance(x, (list, tuple)):
+        return [_without_accuracy(v) for v in x]
+    return x
+
+
+def run_fleet(setups, report):
+    """Phase 7: every FLEET run on the card, the card-only checks, the
+    controls, then the CPU runs."""
+    from repro_torch.core import server, time_to_accuracy
+    dev = setups.dev
+    main_w0 = setups._weights0[("main", "mlp")]
+    weights0 = {"main": main_w0, "lossy": main_w0}
+    for key in FLEET:
+        fleet_drive(key, fleet_setup(key, dev, weights0), report)
+    # the cohort covering every worker and the passthrough topology are
+    # the single-server run: phase 4's on the card, bit for bit
+    for key, spec in FLEET.items():
+        if "same_as" in spec:
+            same = report[key]["history"] == report[spec["same_as"]][
+                "history"]
+            report[key]["equals_" + spec["same_as"]] = same
+            print(f"fleet {key}: history equal to phase 4's "
+                  f"{spec['same_as']} bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"{key} differs from phase 4's "
+                                     f"{spec['same_as']}")
+    chaos = report["chaos/1x2"]
+    if chaos["audit"]["failovers"] != 1:
+        raise AssertionError(f"chaos/1x2: {chaos['audit']['failovers']} "
+                             "failovers")
+    bench = json.loads((ROOT / "benchmarks" / "results" /
+                        "BENCH_chaos.json").read_text())
+    h = [server.HistoryPoint(**p) for p in chaos["history"]]
+    chaos["t80"] = time_to_accuracy(h, CHAOS_TARGET)
+    chaos["bench_t80"] = bench["derived"]["loss0.1/failover_on"]["t80"]
+    print(f"fleet chaos/1x2: t80 {chaos['t80']} s (sim), "
+          f"BENCH_chaos.json loss0.1/failover_on {chaos['bench_t80']} s; "
+          f"{h[-1].version} root versions")
+    plain, big = report["cohort/scale_plain"], report["cohort/scale"]
+    print(f"fleet cohort/scale: W {SCALE['W']} cohort {SCALE['cohort']} "
+          f"{big['rounds_per_s']:.3f} rounds/s, W {SCALE['plain_W']} with "
+          f"no cohort {plain['rounds_per_s']:.3f} rounds/s")
+    controls = report["fleet_controls"] = {}
+    # the retransmit control: a sender that re-encodes each retransmitted
+    # copy must fail the encode check
+    key = "lossy/uplink_only"
+    with reencode_on_retransmit():
+        counters = launch_counters()
+        zero_counters()
+        _, extra = fleet_call(key, fleet_setup(key, dev, weights0), 3)
+        got = counters["ef_encode"]["ef_encode"]
+    try:
+        check_encodes(got, extra["ledger"], extra["retx_up"], key)
+        caught = False
+    except AssertionError:
+        caught = True
+    controls["reencode_on_retransmit"] = {
+        "ef_encode": got, "logical": extra["ledger"]["sent_count"]["up"],
+        "retx_up": extra["retx_up"], "caught": caught}
+    print(f"control reencode_on_retransmit: {got} ef_encode launches for "
+          f"{extra['ledger']['sent_count']['up']} logical uplinks "
+          f"({extra['retx_up']} retransmitted copies); caught: {caught}")
+    if not caught:
+        raise AssertionError("the re-encoding control passed the check")
+    cpu = {}
+    for key, spec in FLEET.items():
+        if spec["compare"] or spec["kind"] == "auto":
+            cpu[key] = fleet_compare(key, fleet_setup(key, "cpu", weights0),
+                                     report)
+    # the tuner's controls, on the card against the CPU's correct counts
+    key = f"auto/{AUTO_FAULT_TIER}"
+    for fault in AUTO_FAULTS:
+        with faulty_tuner(fault), recorded_codecs() as codecs:
+            fleet_call(key, fleet_setup(key, dev, weights0))
+        gap = codec_gap(codecs, cpu[key][2])
+        controls[f"tuner {fault}"] = {"codecs": codecs, "codec_gap": gap}
+        print(f"control tuner {fault}: codecs {codecs}, gap {gap:.4f} "
+              f"against the CPU (limit {AUTO_CODEC_GAP})")
+        if gap <= AUTO_CODEC_GAP:
+            raise AssertionError(f"the faulty tuner ({fault}) passed the "
+                                 "codec check")
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1928,7 +2502,7 @@ def _greedy_run(models, params, cfg, prompt, n_steps, next_tokens=None):
 
 
 def run_lm(dev, rec):
-    """Phase 7: gemma2-2b serving at full width and depth through B8;
+    """Phase 8: gemma2-2b serving at full width and depth through B8;
     fills ``rec`` and returns B8's launches on the main path."""
     from repro_torch import configs, models
     from repro_torch.data import lm
@@ -2070,7 +2644,7 @@ def _tree_clone(tree):
 
 
 def run_rwkv(dev, rec):
-    """Phase 8: rwkv6-3b serving at full width and depth (the prefill's
+    """Phase 9: rwkv6-3b serving at full width and depth (the prefill's
     blocks run B9's state form, decode the plain ``wkv_step``), then B9 on
     the prefill's own layer-0 streams, through ``ops.wkv`` and in the
     state form.  Fills ``rec`` and returns B9's launches on the model's
@@ -2294,11 +2868,17 @@ def main() -> int:
             t0 = time.perf_counter()
             run_phase(phase, setups, runs)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_fleet(setups, runs)
+        print(f"phase fleet: {time.perf_counter() - t0:.1f} s")
         fl_runs = [r for r in runs.values() if "launches" in r]
-        for name, (ctr, keys) in REQUIRED.items():
-            for key in keys:
-                if runs[key]["launches"][ctr] < 1:
-                    raise AssertionError(f"{name} never launched in {key}")
+        for required in (REQUIRED, FLEET_REQUIRED):
+            for name, (ctr, keys) in required.items():
+                for key in keys:
+                    if runs[key]["launches"][ctr] < 1:
+                        raise AssertionError(f"{name} never launched in "
+                                             f"{key}")
+        for name, (ctr, _) in REQUIRED.items():
             records[name]["launches"] = sum(r["launches"][ctr]
                                             for r in fl_runs)
         for name, ctr in RETIRED.items():

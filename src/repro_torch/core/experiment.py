@@ -7,9 +7,8 @@ Every entry point runs on the setup's device: ``make_setup(device=None)``
 means the CUDA card, and raises when there is none.  Each worker's shard
 and the test set move to the device once, at setup.
 
-Not ported yet, and raising ``NotImplementedError``: ``topology``
-(ROADMAP A9), checkpoints and ``resume`` (A10), ``server_mesh`` (A11) and
-``cohort`` (A6).
+Not ported yet, and raising ``NotImplementedError``: checkpoints and
+``resume`` (ROADMAP A4) and ``server_mesh`` (A7).
 """
 from __future__ import annotations
 
@@ -216,11 +215,12 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
            transport_down: Optional[str] = None,
            transport_frac: float = 0.1,
            server_mesh: Optional[int] = None,
-           cohort: Optional[int] = None, server_opt=None,
-           server_opt_kw: Optional[dict] = None,
+           cohort: Optional[int] = None, cohort_seed: int = 0,
+           server_opt=None, server_opt_kw: Optional[dict] = None,
            partition: Optional[str] = None,
            partition_kw: Optional[dict] = None,
-           topology=None, max_events: int = 200_000,
+           topology=None, topology_kw: Optional[dict] = None,
+           max_events: int = 200_000,
            checkpoint_every: Optional[int] = None,
            checkpoint_dir: Optional[str] = None,
            resume: bool = False) -> List[HistoryPoint]:
@@ -237,14 +237,36 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
     ``partition_kw={"alpha": ..., "seed": ...}``, ``"quantity"``,
     ``"iid"``; see :func:`repartition_setup`); None leaves the shards as
     they are.  ``max_events`` caps the event loop (the run raises rather
-    than silently truncate the history)."""
+    than silently truncate the history).
+
+    ``cohort`` samples that many alive workers each round (seeded by
+    ``cohort_seed``); only cohort members get links, tickets or events,
+    and ``cohort >= W`` is the run without a cohort.  ``topology`` runs a
+    hierarchical federation (``core.topology``): ``"1xL"`` or an int is
+    one root over ``L`` leaf servers, ``topology_kw`` overrides
+    :class:`~repro_torch.core.topology.TopologyConfig` fields, and the
+    root's history is returned; ``"1x1"`` is the single-server run."""
     if partition is not None:
         setup = repartition_setup(setup, partition=partition,
                                   **(partition_kw or {}))
-    if topology is not None:
-        _not_ported("topology", "A9")
     if checkpoint_every is not None or checkpoint_dir is not None or resume:
-        _not_ported("checkpointing and resume", "A10")
+        _not_ported("checkpointing and resume", "A4")
+    if topology is not None:
+        from .topology import parse_topology, run_fl_topology
+        res = run_fl_topology(
+            setup, topology=parse_topology(topology, **(topology_kw or {})),
+            mode=mode, selector=selector, aggregator=aggregator,
+            epochs_per_round=epochs_per_round, max_rounds=max_rounds,
+            target_accuracy=target_accuracy, selector_kw=selector_kw,
+            server_freq=server_freq, async_alpha=async_alpha,
+            async_stale_pow=async_stale_pow,
+            async_min_updates=async_min_updates, async_delta=async_delta,
+            async_latest_table=async_latest_table, transport=transport,
+            transport_down=transport_down, transport_frac=transport_frac,
+            server_mesh=server_mesh, cohort=cohort, cohort_seed=cohort_seed,
+            server_opt=server_opt, server_opt_kw=server_opt_kw,
+            max_events=max_events)
+        return res.root_history
     loop, server = build_experiment(
         setup, mode=mode, selector=selector, aggregator=aggregator,
         epochs_per_round=epochs_per_round, max_rounds=max_rounds,
@@ -254,8 +276,8 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
         async_min_updates=async_min_updates, async_delta=async_delta,
         async_latest_table=async_latest_table, transport=transport,
         transport_down=transport_down, transport_frac=transport_frac,
-        server_mesh=server_mesh, cohort=cohort, server_opt=server_opt,
-        server_opt_kw=server_opt_kw)
+        server_mesh=server_mesh, cohort=cohort, cohort_seed=cohort_seed,
+        server_opt=server_opt, server_opt_kw=server_opt_kw)
     server.start()
     loop.run(max_events=max_events)
     if loop.exhausted:
@@ -280,12 +302,12 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
                      transport_down: Optional[str] = None,
                      transport_frac: float = 0.1,
                      server_mesh: Optional[int] = None,
-                     cohort: Optional[int] = None, server_opt=None,
-                     server_opt_kw: Optional[dict] = None):
+                     cohort: Optional[int] = None, cohort_seed: int = 0,
+                     server_opt=None, server_opt_kw: Optional[dict] = None):
     """Build one single-server federation, wired but NOT started; returns
     ``(loop, server)``."""
     if server_mesh is not None:
-        _not_ported("server_mesh", "A11")
+        _not_ported("server_mesh", "A7")
     loop = EventLoop()
     est = TimeEstimator(server_freq=server_freq,
                         t_onebatch_server=setup.per_batch_server)
@@ -294,6 +316,7 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
     tr = Transport(setup.weights0, codec=transport,
                    down_codec=transport_down, frac=transport_frac,
                    raw_bytes=setup.model_bytes)
+    bind_nominal_bandwidth(tr, est, setup.profiles)
     sel = make_selector(selector, est, tr.expected_oneway_bytes,
                         **(selector_kw or {}))
     server = AggregationServer(
@@ -304,8 +327,8 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
         async_alpha=async_alpha, async_stale_pow=async_stale_pow,
         async_min_updates=async_min_updates, async_delta=async_delta,
         async_latest_table=async_latest_table, transport=tr,
-        population=pop, cohort=cohort, server_opt=server_opt,
-        server_opt_kw=server_opt_kw)
+        population=pop, cohort=cohort, cohort_seed=cohort_seed,
+        server_opt=server_opt, server_opt_kw=server_opt_kw)
     for prof, shard in zip(setup.profiles, setup.device_shards):
         w = FLWorker(prof.worker_id, profile=prof, data=shard,
                      train_fn=setup.train_fn, loop=loop,
@@ -313,6 +336,29 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
                      max(prof.cpu_freq * prof.cpu_prop, 1e-9))
         server.add_worker(w)
     return loop, server
+
+
+def bind_nominal_bandwidth(tr: Transport, est: TimeEstimator,
+                           profiles: Sequence[WorkerProfile]) -> None:
+    """Bandwidth sources of an auto transport's tuner (a no-op for fixed
+    codecs): each link prices the estimator's measured rate, seeded by its
+    profile's advertised nominal rate until the first measurement, and
+    transport-wide estimates price the median the same way."""
+    if tr.tuner is None:
+        return
+    nominal = {p.worker_id: float(p.bandwidth) for p in profiles}
+    nominal_rep = (sorted(nominal.values())[len(nominal) // 2]
+                   if nominal else None)
+
+    def _bw_of(wid):
+        m = est.bandwidth(wid)
+        return m if m is not None else nominal.get(wid)
+
+    def _rep_bw():
+        m = est.median_bandwidth()
+        return m if m is not None else nominal_rep
+
+    tr.tuner.bind_bandwidth(_bw_of, _rep_bw)
 
 
 def repartition_setup(setup: FLSetup, *, partition: str, seed: int = 0,

@@ -50,7 +50,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a sharded aggregation substrate (mesh=) is not ported yet "
-            "(ROADMAP A11)")
+            "(ROADMAP A7)")
 
 
 @dataclass(frozen=True)
@@ -126,13 +126,17 @@ class ParamBundle:
     def _set_rows(self, rows: torch.Tensor, vecs: Sequence) -> torch.Tensor:
         """Land packed vectors in rows [0..len(vecs)) and zero the stale
         rows beyond: a non-finite value left by a past round would turn
-        0 * inf into NaN inside the merge.  ``EncodedVec``s (a merge holds
-        either kind only) are decoded into their rows, with the stale rows
-        zeroed, by one ``dequant_add_rows``."""
-        if vecs and isinstance(vecs[0], EncodedVec):
+        0 * inf into NaN inside the merge.  A merge of ``EncodedVec``s
+        alone is decoded into its rows, with the stale rows zeroed, by one
+        ``dequant_add_rows``; in a merge that mixes both kinds (an auto
+        transport's links resolve codecs apart) each encoded one is
+        decoded by ``dequant_add`` first."""
+        if vecs and all(isinstance(v, EncodedVec) for v in vecs):
             return topk_quant.dequant_add_rows(
                 [v.q for v in vecs], [v.scale for v in vecs],
                 [v.base for v in vecs], rows)
+        vecs = [topk_quant.dequant_add(v.q, v.scale, v.base)
+                if isinstance(v, EncodedVec) else v for v in vecs]
         n = len(vecs)
         if n:
             torch.stack(tuple(vecs), out=rows[:n])
@@ -276,6 +280,12 @@ class FlatServerState:
             # the optimizer's prev anchor may be this very buffer
             self.server_opt.release(buf)
         return buf
+
+    def forget_server(self) -> None:
+        """The server model was replaced from outside (a leaf's install of
+        a new global): drop the packed mirror of the old one."""
+        self._server_flat = None
+        self._server_tree = None
 
     def merge(self, server_tree, update_trees: Sequence,
               weights: Sequence[float], alpha: float = 1.0):

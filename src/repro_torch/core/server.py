@@ -13,14 +13,29 @@ is immediately re-dispatched.
 Responses decode straight to packed flat vectors (or wait encoded, to be
 decoded into their rows by the merge) and merge in one kernel
 pass (``FlatServerState``), followed by the optional server-side
-optimizer (``core/server_opt.py``) in packed space.  Not ported yet: the
-sharded substrate (ROADMAP A11), cohorts (A6), the leaf role under a
-topology (A9) and checkpoint timers (A10).
+optimizer (``core/server_opt.py``) in packed space.
+
+Cohorts (``cohort=``): each round samples that many alive workers from a
+seeded ``random.Random``; only cohort members get links, tickets or
+events.  Responses land at arrival in a claimed row of the merge's row
+window (a quantised one decoded there by one ``dequant_add``), the merge
+contracts the window, and resident links are LRU-bounded.
+
+Leaf role: under a ``core/topology.Topology`` (``topology_hook``) the
+server reports every aggregate and its completion upward, and
+``hold``/``release``/``install_global`` gate dispatch around the root's
+replacement of its model.
+
+Not ported yet: the sharded substrate (ROADMAP A7) and the checkpoint
+timers' resume (A4).
 """
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
+
+import numpy as np
 
 from . import aggregation as agg
 from . import flatbuf
@@ -28,7 +43,7 @@ from . import server_opt as server_opt_mod
 from . import transport as transport_mod
 from .estimator import TimeEstimator
 from .events import EventLoop
-from .population import WorkerPopulation
+from .population import WorkerPopulation, as_view
 from .selection import Selector
 from .warehouse import DataWarehouse, Pointer
 from .worker import FLWorker, TrainResult
@@ -59,16 +74,14 @@ class AggregationServer:
                  transport="raw", transport_down: Optional[str] = None,
                  mesh=None, name: str = "aggregator",
                  population: Optional[WorkerPopulation] = None,
-                 cohort: Optional[int] = None, server_opt=None,
+                 cohort: Optional[int] = None, cohort_seed: int = 0,
+                 max_resident_links: Optional[int] = None, server_opt=None,
                  server_opt_kw: Optional[dict] = None):
         if mode not in ("sync", "async"):
             raise ValueError(f"unknown mode {mode!r}")
         if aggregator not in agg.UPDATE_WEIGHT_FNS:
             raise ValueError(f"unknown aggregator {aggregator!r}; have "
                              f"{sorted(agg.UPDATE_WEIGHT_FNS)}")
-        if cohort is not None:
-            raise NotImplementedError("cohort sampling is not ported yet "
-                                      "(ROADMAP A6)")
         self.name = name
         self.address = f"server://{name}"
         self.weights = weights
@@ -116,8 +129,30 @@ class AggregationServer:
                              "flat-buffer bundle")
         self.total_up_bytes = 0
         self.total_down_bytes = 0
+        # --- massive-scale control plane ---
+        # cohort: sample this many alive workers per round; the (W, N) row
+        # buffer shrinks to a claimed-row window and resident link state
+        # is LRU-bounded by max_resident_links
         self.population = population
+        self.cohort = cohort
+        self._cohort_rng = (random.Random(cohort_seed)
+                            if cohort is not None else None)
+        if max_resident_links is None and cohort is not None:
+            max_resident_links = max(4 * cohort, 64)
+        self.max_resident_links = max_resident_links
         self._profiles_view = None          # cached population view
+        self._row_of: Dict[str, int] = {}   # worker -> claimed window row
+        self._window = cohort is not None
+        self._inflight_w: set = set()       # dispatched, response pending
+        # leaf role under a root aggregator (core/topology.py): _finish
+        # defers the loop stop to the orchestrator, every aggregate is
+        # reported upward, and hold()/release() gate dispatch while a
+        # pushed model's global replacement is in flight
+        self.topology_hook = None
+        self._hold = False
+        self._held: List[str] = []          # async workers parked while held
+        self._pending_dispatch = False      # sync round deferred while held
+        self._started = False               # start() called (mid-run joins)
         self.workers: Dict[str, FLWorker] = {}
         self.warehouse = DataWarehouse()
         self.pointer = Pointer(self.address, self.warehouse.put(weights))
@@ -131,11 +166,22 @@ class AggregationServer:
 
     # --- relationship (thesis §3.3.1) ---
     def add_worker(self, worker: FLWorker):
+        joined_mid_run = (self._started and self.mode == "async"
+                          and worker.worker_id not in self.workers
+                          and not self.done)
         self.workers[worker.worker_id] = worker
         if self.population is not None:
             self.population.adopt(worker.profile)
         self._profiles_view = None
         worker.add_server(self.pointer)
+        if joined_mid_run:
+            # an async server dispatches per response, so a worker joining
+            # it mid-run has nothing to trigger on: kick its first
+            # instruction now (sync picks it up at the next selection)
+            if self._hold:
+                self._held.append(worker.worker_id)
+            else:
+                self._send_train(worker.worker_id, self.version)
 
     def remove_worker(self, worker_id: str):
         w = self.workers.pop(worker_id, None)
@@ -159,6 +205,7 @@ class AggregationServer:
 
     # --- main loop ---
     def start(self):
+        self._started = True
         self._dispatch_round()
 
     def _accuracy(self) -> float:
@@ -166,7 +213,46 @@ class AggregationServer:
 
     def _finish(self):
         self.done = True
-        self.loop.stop()
+        if self.topology_hook is not None:
+            self.topology_hook.on_leaf_done(self)
+        else:
+            self.loop.stop()
+
+    # --- leaf role under a root aggregator (core/topology.py) ---
+    def hold(self):
+        """Freeze new dispatches: a leaf push is in flight and the root's
+        global replacement has not been installed yet."""
+        self._hold = True
+
+    def release(self):
+        """Re-open dispatch after :meth:`install_global`: re-run a sync
+        round deferred while held, re-dispatch the parked async workers."""
+        if not self._hold:
+            return
+        self._hold = False
+        if self.done:
+            self._held.clear()
+            return
+        held, self._held = self._held, []
+        for wid in held:
+            if wid in self.workers:
+                self._send_train(wid, self.version)
+        if self._pending_dispatch:
+            self._pending_dispatch = False
+            self._dispatch_round()
+
+    def install_global(self, weights) -> None:
+        """Replace this (leaf) server's model with the root's new global.
+        The pointer uid stays (workers' ACLs keep working) and the version
+        is not bumped (sync's stale-discard must not fire on an install).
+        The packed mirror of the old model, and a server optimizer's
+        ``prev`` anchor, are dropped: a merge may have consumed them, and
+        neither describes the new model."""
+        self.weights = weights
+        self._flat.forget_server()
+        if self.server_opt is not None:
+            self.server_opt.rebase()
+        self.warehouse.put(weights, uid=self.pointer.uid)
 
     def _point(self, acc: float, n_upd: int) -> HistoryPoint:
         return HistoryPoint(self.loop.now, self.version, acc, n_upd, n_upd,
@@ -176,10 +262,18 @@ class AggregationServer:
     def _dispatch_round(self):
         if self.done:
             return
+        if self._hold:
+            # held by the topology layer: release() re-enters once the
+            # new global is installed
+            self._pending_dispatch = True
+            return
         if self.version >= self.max_rounds:
             self._finish()
             return
-        selected = self.selector.select(self.profiles())
+        pool = self.profiles()
+        if self.cohort is not None:
+            pool = self._sample_cohort(pool)
+        selected = self.selector.select(pool)
         self._round_id += 1
         if not selected:
             # nothing admitted (e.g. Alg2 with T=0): burn a no-op round so
@@ -211,6 +305,24 @@ class AggregationServer:
                 self.straggler_timeout_factor * max(t_max, 1e-3),
                 self._round_timeout, rid)
 
+    def _sample_cohort(self, pool):
+        """Seeded per-round cohort draw: ``cohort`` of the ALIVE workers,
+        the pool filtered to the draw in its order.  At ``cohort >=
+        alive`` the draw is the whole alive pool, so the run is the run
+        without a cohort."""
+        view = as_view(pool)
+        if view is not None:
+            alive = view.ids_where(view.alive_mask())
+        else:
+            alive = [p.worker_id for p in pool if not p.failed]
+        chosen = set(self._cohort_rng.sample(alive,
+                                             min(self.cohort, len(alive))))
+        if view is not None:
+            mask = np.fromiter((wid in chosen for wid in view.worker_ids()),
+                               bool, len(view))
+            return view.where(mask)
+        return [p for p in pool if p.worker_id in chosen]
+
     def _send_train(self, wid: str, base_version: int) -> int:
         """Dispatch one train instruction; returns the actual downlink
         payload bytes."""
@@ -222,6 +334,7 @@ class AggregationServer:
         self.total_down_bytes += down.wire_bytes
         if self.async_delta:
             self._dispatch_base[wid] = self.weights
+        self._inflight_w.add(wid)
         w.train_async(self.pointer, down, base_version,
                       self.epochs_per_round, link, self._on_response)
         return down.wire_bytes
@@ -233,6 +346,7 @@ class AggregationServer:
             return
         # redeem FIRST: redemption deletes the stored payload
         payload = w.warehouse.redeem_ticket(res.weights_ticket)
+        self._inflight_w.discard(res.worker_id)
         if self.done:
             return
         self.total_up_bytes += res.up_bytes   # the bytes crossed the wire
@@ -253,9 +367,10 @@ class AggregationServer:
         # + dequantised delta in one fused pass); where the merge is its
         # only reader (not a delta merge, no latest-response table), a
         # quantised response stays encoded until the merge decodes all of
-        # its rows in one launch
-        if self.mode == "sync" or not (self.async_delta
-                                       or self.async_latest_table):
+        # its rows in one launch.  Under a cohort it lands in its claimed
+        # window row now, so it is decoded now.
+        if not self._window and (self.mode == "sync" or not (
+                self.async_delta or self.async_latest_table)):
             weights = link.up_vec_deferred(payload)
         else:
             weights = link.decode_up_vec(payload)
@@ -267,6 +382,16 @@ class AggregationServer:
                             self._dispatch_base.get(res.worker_id,
                                                     self.weights)))
             weights = self._flat.delta_vec(self.weights, weights, base_vec)
+        if self._window:
+            # from here on the update is its claimed row INDEX: _cache and
+            # _latest carry the int, and the merge contracts the window.
+            # A re-responding worker (latest table) overwrites its row.
+            row = self._row_of.get(res.worker_id)
+            if row is None:
+                row = self._flat.win_claim()
+                self._row_of[res.worker_id] = row
+            self._flat.win_write(row, weights)
+            weights = row
         self._outstanding.discard(res.worker_id)
         if self.mode == "async":
             if self.async_latest_table:
@@ -287,8 +412,14 @@ class AggregationServer:
                 self._aggregate()
             else:
                 self._cache = []
+                if self._window and not self.async_latest_table:
+                    # discarded below-min updates: recycle their rows
+                    self._release_rows()
             if not self.done:
-                self._send_train(res.worker_id, self.version)
+                if self._hold:
+                    self._held.append(res.worker_id)
+                else:
+                    self._send_train(res.worker_id, self.version)
         else:
             self._cache.append(agg.WorkerUpdate(weights=weights,
                                                 staleness=staleness,
@@ -308,6 +439,7 @@ class AggregationServer:
                 if wid in self.workers:
                     self.workers[wid].profile.failed = True
                     self.workers[wid].cancel_inflight(self.pointer)
+                self._inflight_w.discard(wid)
             self._outstanding.clear()
             if self._cache:
                 self._aggregate()
@@ -327,12 +459,28 @@ class AggregationServer:
             alpha = 1.0
         ws = agg.update_weights(self.aggregator, self._cache)
         # the staleness-weighted sum + alpha-mix in one kernel pass
-        self.weights = self._flat.merge_rows(
-            self.weights, [u.weights for u in self._cache], ws, alpha)
+        if self._window:
+            # cache entries carry claimed row indices: the merge contracts
+            # the window with each weight scattered to its row
+            self.weights = self._flat.merge_window(
+                self.weights, [u.weights for u in self._cache], ws, alpha)
+            if not (self.mode == "async" and self.async_latest_table):
+                # merged rows are dead (latest-table workers keep theirs)
+                self._release_rows()
+        else:
+            self.weights = self._flat.merge_rows(
+                self.weights, [u.weights for u in self._cache], ws, alpha)
         # the pointer names the *model*: overwrite in place, uid stays stable
         self.warehouse.put(self.weights, uid=self.pointer.uid)
         n_upd = len(self._cache)
         self._cache = []
+        if self.max_resident_links is not None:
+            # bound resident link state: evict the coldest quiescent links,
+            # never one mid-conversation (in-flight response, claimed
+            # window row, parked while held)
+            keep = (self._outstanding | self._inflight_w
+                    | set(self._row_of) | set(self._held))
+            self.transport.lru_evict(keep, self.max_resident_links)
         self.version += 1
         acc = self._accuracy()
         self.selector.on_round_end(acc)
@@ -342,6 +490,15 @@ class AggregationServer:
             self._finish()
         elif self.version >= self.max_rounds:
             self._finish()
+        if self.topology_hook is not None:
+            # leaf-push hook last: the orchestrator sees the appended
+            # history point (and, on the final round, the done flag)
+            self.topology_hook.on_leaf_aggregate(self)
+
+    def _release_rows(self) -> None:
+        for row in self._row_of.values():
+            self._flat.win_release(row)
+        self._row_of.clear()
 
 
 def run_sequential(*, weights, train_fn, eval_fn, data, per_batch_time: float,

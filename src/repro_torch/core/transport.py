@@ -21,6 +21,8 @@ kept = entries surviving the top-k threshold):
   topk_ef        top-k delta w/ EF              same, vs acked base ceil(n/8) + 4*kept
   topk_ef+int8   top-k + int8 on kept values    same, vs acked base ceil(n/8) + 4
                                                                       + kept
+  auto           per-link: whichever row above  per-link, same rule the chosen row's
+                 minimises expected latency                         cost per dispatch
   ============== ============================== =================== ==================
 
 The uplink compresses ``delta + residual`` (error feedback); the downlink
@@ -41,14 +43,37 @@ is the decoded vector's only reader, waits encoded
 at once.  ``int(kept)`` is the one host sync of a top-k encode: the wire
 bytes need it.
 
-Not ported yet: the ``auto`` codec resolver and ``LinkReliability`` lossy
-links (ROADMAP A5) and the ``mesh=`` sharded substrate (ROADMAP A11).
+``auto`` is a per-dispatch resolver (``core/autotune.py``), not a codec:
+at every encode the link picks the concrete row minimising ``expected
+bytes * retx_factor / bandwidth + encode_cost``.  A ``delta``/``int8``
+dispatch folds a carried uplink residual into its delta and a ``raw`` one
+parks it; each such seam keeps the pre-encode residual per payload, so a
+cancelled dispatch restores it exactly.  With a fixed codec none of this
+triggers.
+
+Unreliable links.  With a :class:`LinkReliability` attached
+(``runtime/faults.inject_link_reliability``), every transfer goes through
+:func:`transmit`'s seeded lossy channel: each logical payload gets a
+per-link sequence number, each copy independently drops or duplicates,
+the receiver dedups by sequence number *before* anything touches decode
+state, EF residuals or byte counters, and the sender re-sends the SAME
+:class:`Payload` (never re-encoded) after an ack timeout with exponential
+backoff, priced off the estimator's measured bandwidth.  Retransmits count
+on ``Transport.total_retransmits``, never in the byte counters.  With no
+reliability model :func:`transmit` is one scheduled delivery.
+
+Links materialise on first contact, and ``Transport.lru_evict`` drops the
+least recently used quiescent links above a bound (cohort runs).
+
+Not ported yet: the ``mesh=`` sharded substrate (ROADMAP A7).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import topk_quant
@@ -81,6 +106,12 @@ CODECS: Dict[str, CodecSpec] = {
     "topk_ef+int8": CodecSpec("topk_ef+int8", delta=True, topk=True,
                               quantize=True, ef=True),
 }
+
+# the ``auto`` direction-level pseudo-spec: a transport configured auto
+# provisions for the most stateful codec its tuner can resolve to (packed
+# tx_base, downlink ack protocol, EF residuals).  Not in CODECS: no payload
+# ever travels as "auto"
+AUTO_SPEC = CodecSpec("auto", delta=True, topk=True, quantize=True, ef=True)
 
 
 @dataclass(slots=True)
@@ -227,25 +258,171 @@ class WorkerAckRegistry:
         return st
 
 
+@dataclass(frozen=True)
 class LinkReliability:
-    """Seeded lossy links with retransmits: not ported yet."""
+    """Seeded per-link loss model + retransmit policy.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "lossy links (LinkReliability) are not ported yet (ROADMAP A5)")
+    Each transmitted copy of a payload independently never arrives with
+    probability ``drop_p`` and is delivered twice (the duplicate arriving
+    at ``dup_delay * t_tx``) with probability ``dup_p``.  The sender
+    retransmits the SAME payload after ``timeout_mult`` times the
+    estimated one-way time, backing off by ``backoff`` per attempt, up to
+    ``max_attempts`` copies.  Every draw comes from a per-(link, seed)
+    ``numpy.random.RandomState``, the JAX package's generator, so a
+    (topology, schedule, seed) triple replays its draws exactly."""
+    drop_p: float = 0.0
+    dup_p: float = 0.0
+    seed: int = 0
+    timeout_mult: float = 3.0
+    backoff: float = 2.0
+    max_attempts: int = 64
+    dup_delay: float = 2.0
+
+
+def _per_dir() -> Dict[str, int]:
+    return {"up": 0, "down": 0}
+
+
+@dataclass
+class TransportAudit:
+    """Delivery ledger of one transport's links, written only by
+    :func:`transmit` (plus the fetch log receivers note at fetch time):
+    what ``runtime/faults.audit_chaos_run`` closes the books against.
+
+    ``sent_bytes[dir]`` counts original sends only (attempt 0);
+    retransmitted copies land in ``retx_count``/``retx_bytes``; a
+    deduplicated arrival lands in ``dup_count`` and nowhere else."""
+    sent_bytes: Dict[str, int] = field(default_factory=_per_dir)
+    sent_count: Dict[str, int] = field(default_factory=_per_dir)
+    delivered_bytes: Dict[str, int] = field(default_factory=_per_dir)
+    delivered_count: Dict[str, int] = field(default_factory=_per_dir)
+    dup_count: Dict[str, int] = field(default_factory=_per_dir)
+    retx_count: int = 0
+    retx_bytes: int = 0
+    # receiver-side fetch log: worker/leaf id -> model versions fetched,
+    # in fetch-completion order
+    fetch_versions: Dict[str, List[int]] = field(default_factory=dict)
+
+    def note_sent(self, direction: str, nbytes: int, retransmit: bool):
+        if retransmit:
+            self.retx_count += 1
+            self.retx_bytes += nbytes
+        else:
+            self.sent_bytes[direction] += nbytes
+            self.sent_count[direction] += 1
+
+    def note_delivered(self, direction: str, nbytes: int):
+        self.delivered_bytes[direction] += nbytes
+        self.delivered_count[direction] += 1
+
+    def note_dup(self, direction: str):
+        self.dup_count[direction] += 1
+
+    def note_fetch(self, worker_id: str, version: int):
+        self.fetch_versions.setdefault(worker_id, []).append(version)
+
+
+class _Channel:
+    """Per-link lossy-channel state: the seeded RNG, the per-payload
+    sequence counter, and the receiver's delivered set (never pruned, so
+    arbitrarily late duplicates still dedup)."""
+
+    __slots__ = ("rng", "_seq", "delivered")
+
+    def __init__(self, seed: int):
+        self.rng = np.random.RandomState(seed & 0xFFFFFFFF)
+        self._seq = 0
+        self.delivered: set = set()
+
+    def next_seq(self) -> int:
+        self._seq += 1
+        return self._seq
+
+
+def _booked(aud: TransportAudit, direction: str, nbytes: int, deliver):
+    def _deliver_booked():
+        aud.note_delivered(direction, nbytes)
+        deliver()
+    return _deliver_booked
 
 
 def transmit(loop, link: "Link", payload: Payload, t_tx: float, deliver,
              direction: str = "up"):
-    """Send ``payload`` over ``link``: on a perfect wire, one delivery
-    event ``t_tx`` from now.  Returns the event."""
-    return loop.schedule(t_tx, deliver)
+    """Send ``payload`` over ``link``; ``deliver`` runs exactly once, when
+    the first copy arrives.
+
+    With no reliability model this is ``loop.schedule(t_tx, deliver)``
+    (booked on the transport's audit when it has one) and returns the
+    event.  With one, the payload rides the lossy channel: dropped copies
+    trigger an ack-timeout retransmit of the SAME payload with
+    exponential backoff, and duplicate or late copies are dropped by the
+    receiver's sequence dedup before they reach ``deliver``.  Returns
+    None on that path."""
+    rel = link.reliability
+    aud = link.t.audit
+    if rel is None:
+        if aud is None:
+            return loop.schedule(t_tx, deliver)
+        aud.note_sent(direction, payload.wire_bytes, False)
+        return loop.schedule(t_tx, _booked(aud, direction,
+                                           payload.wire_bytes, deliver))
+    t = link.t
+    ch = link.channel()
+    seq = ch.next_seq()
+    # the pending ack-timeout event: the first delivery cancels it
+    timer = [None]
+
+    def _arrive():
+        if seq in ch.delivered:          # duplicate or late retransmit:
+            if aud is not None:          # dropped before ANY codec state
+                aud.note_dup(direction)
+            return
+        ch.delivered.add(seq)            # doubles as the (instant) ack
+        if timer[0] is not None:
+            loop.cancel(timer[0])
+            timer[0] = None
+        if aud is not None:
+            aud.note_delivered(direction, payload.wire_bytes)
+        deliver()
+
+    def _send(attempt: int):
+        if aud is not None:
+            aud.note_sent(direction, payload.wire_bytes, attempt > 0)
+        if attempt > 0:
+            t.total_retransmits += 1
+        dropped = ch.rng.random_sample() < rel.drop_p
+        duped = ch.rng.random_sample() < rel.dup_p
+        if not dropped:
+            loop.schedule(t_tx, _arrive)
+            if duped:                    # network-level duplicate, late
+                loop.schedule(rel.dup_delay * t_tx, _arrive)
+        if attempt + 1 < rel.max_attempts:
+            timer[0] = loop.schedule(
+                link.rto(payload.wire_bytes, t_tx, attempt), _check, attempt)
+
+    def _check(attempt: int):
+        timer[0] = None
+        if seq in ch.delivered or t.closed:   # acked, or the sender died
+            return
+        _send(attempt + 1)
+
+    _send(0)
+    return None
 
 
 def resume_transmit(loop, link: "Link", payload: Payload, t_abs: float,
                     deliver, direction: str = "up"):
-    """Re-create a delivery event at its absolute deadline ``t_abs``."""
+    """Re-create a reliable-path delivery event whose send was already
+    booked, at its absolute deadline ``t_abs``: the audit (if any) books
+    only the delivery."""
+    aud = link.t.audit
+    if link.reliability is None and aud is not None:
+        deliver = _booked(aud, direction, payload.wire_bytes, deliver)
     return loop.schedule_abs(t_abs, deliver)
+
+
+# sentinel: "no per-link override, inherit the transport's reliability"
+_REL_INHERIT = object()
 
 
 class Link:
@@ -260,7 +437,8 @@ class Link:
     codec stage returns new tensors."""
 
     __slots__ = ("t", "worker_id", "tx_base", "residual", "_ack",
-                 "_pending_down", "__dict__", "__weakref__")
+                 "_pending_down", "_up_restore", "_reliability", "_chan",
+                 "__dict__", "__weakref__")
 
     def __init__(self, transport: "Transport",
                  ack: Optional[WorkerAckState] = None,
@@ -273,6 +451,46 @@ class Link:
         # in-flight downlink awaiting ack:
         # (payload, revert-chain entry or None, pinned encode base or None)
         self._pending_down: Optional[tuple] = None
+        # auto-mode codec seam: (payload, pre-encode residual) of the last
+        # uplink encode that folded carried EF mass, so a cancel restores
+        # exactly what the seam consumed
+        self._up_restore: Optional[tuple] = None
+        self._reliability = _REL_INHERIT   # per-link override (loopbacks)
+        self._chan: Optional[_Channel] = None
+
+    # --- lossy-channel state ---
+    @property
+    def reliability(self) -> Optional[LinkReliability]:
+        r = self._reliability
+        return self.t.reliability if r is _REL_INHERIT else r
+
+    @reliability.setter
+    def reliability(self, value: Optional[LinkReliability]):
+        self._reliability = value
+
+    def channel(self) -> _Channel:
+        ch = self._chan
+        if ch is None:
+            # crc32, not hash(): per-process hash randomisation would
+            # break the seeded replay
+            mix = (zlib.crc32(self.worker_id.encode())
+                   ^ (self.reliability.seed * 2654435761)) & 0xFFFFFFFF
+            ch = self._chan = _Channel(mix)
+        return ch
+
+    def rto(self, wire_bytes: int, t_tx: float, attempt: int) -> float:
+        """Retransmit timeout of copy ``attempt``: ``timeout_mult`` times
+        the estimated one-way time (the estimator's measured bandwidth
+        when one is bound, the actual transmit time otherwise, whichever
+        is longer), with exponential backoff."""
+        rel = self.reliability
+        base = t_tx
+        est = self.t.rel_estimator
+        if est is not None and self.worker_id:
+            bw = est.bandwidth(self.worker_id)
+            if bw:
+                base = wire_bytes / bw
+        return rel.timeout_mult * max(base, t_tx) * rel.backoff ** attempt
 
     @property
     def acked_base(self) -> Optional[torch.Tensor]:
@@ -284,14 +502,20 @@ class Link:
 
     # --- shared flat-delta codec stages ---
     def _codec_encode(self, new: torch.Tensor, base: torch.Tensor, residual,
-                      spec: CodecSpec) -> Tuple[Payload, object]:
+                      spec: CodecSpec, frac: Optional[float] = None
+                      ) -> Tuple[Payload, object]:
         """Encode the packed flat delta ``(new - base) + residual``
-        through ``spec``; returns ``(payload, new_residual)``."""
+        through ``spec`` at sparsity ``frac`` (the transport's when None);
+        returns ``(payload, new_residual)``.  A carried residual folds in
+        for every delta codec; for a non-EF spec that happens only at an
+        auto codec seam, and the caller then clears the residual."""
         t = self.t
         n = t.bundle.n_params
+        if frac is None:
+            frac = t.frac
         if spec.topk:
             data, resid, wire = _ef_encode_parts(
-                new, base, residual, n_params=n, frac=t.frac,
+                new, base, residual, n_params=n, frac=frac,
                 quantize=spec.quantize)
             return Payload(spec.name, wire, data), \
                 (resid if spec.ef else residual)
@@ -321,12 +545,18 @@ class Link:
 
     def encode_down(self, weights_tree) -> Payload:
         t = self.t
-        sd = t.spec_down
+        sd, frac = t.resolve_down(self)
         if not sd.delta:
             if t.tracks_tx_base:
                 # remember the packed base so the uplink delta decodes
                 self.tx_base = t._pack_down(weights_tree)
-            return Payload("raw", t.raw_bytes, weights_tree)
+            payload = Payload("raw", t.raw_bytes, weights_tree)
+            if t.auto_down:
+                # an auto-resolved raw dispatch still rides the ack
+                # machinery: its fetch-complete ack establishes the base
+                # later delta dispatches encode against
+                self._pending_down = (payload, None, None)
+            return payload
         vec = t._pack_down(weights_tree)
         if self.acked_base is None:
             # first dispatch: the worker holds no base yet -> raw fallback
@@ -339,7 +569,7 @@ class Link:
         # EF codecs still emit the residual OUTPUT (the worker's deficit)
         base = self.acked_base
         entry = self._ack.push()             # joins the revert chain
-        payload, new_res = self._codec_encode(vec, base, None, sd)
+        payload, new_res = self._codec_encode(vec, base, None, sd, frac)
         self._ack.down_residual = entry[1] = new_res
         # the worker-visible model after this fetch: the uplink base
         self.tx_base = self._codec_apply(payload.data, sd, base)
@@ -406,18 +636,34 @@ class Link:
     # --- uplink: worker -> server (codec'd response) ---
     def upfront_up_bytes(self) -> Optional[int]:
         """Exact uplink cost known before training, or None when it is
-        data-dependent (top-k codecs)."""
+        data-dependent (top-k codecs; auto, whose codec is resolved at
+        encode time)."""
         if self.t.spec_up.topk:
             return None
         return self.t.expected_up_bytes()
 
     def encode_up(self, new_tree) -> Payload:
-        spec = self.t.spec_up
+        t = self.t
+        spec, frac = t.resolve_up(self)
         if not spec.delta:                       # raw: ship the dict as-is
-            return Payload(spec.name, self.t.raw_bytes, new_tree)
-        vec = self.t.bundle.pack(new_tree)
+            if t.auto_up:
+                # raw cannot carry EF mass: the residual is parked for the
+                # next compressed dispatch (nothing consumed)
+                self._up_restore = None
+            return Payload(spec.name, t.raw_bytes, new_tree)
+        vec = t.bundle.pack(new_tree)
+        prev_res = self.residual
         payload, self.residual = self._codec_encode(
-            vec, self.tx_base, self.residual, spec)
+            vec, self.tx_base, prev_res, spec, frac)
+        if t.auto_up:
+            if not spec.ef and prev_res is not None:
+                # auto codec seam: the carried residual was folded into
+                # this exact/quantised delta, so the memory ends here;
+                # keep it so a cancelled dispatch restores the mass
+                self._up_restore = (payload, prev_res)
+                self.residual = None
+            else:
+                self._up_restore = None
         return payload
 
     def decode_up_vec(self, payload: Payload) -> torch.Tensor:
@@ -447,8 +693,17 @@ class Link:
 
     def restore_uplink(self, payload: Payload) -> None:
         """Credit a never-applied uplink's reconstruction back into the EF
-        residual (encode debited it assuming delivery)."""
+        residual (encode debited it assuming delivery).  The spec is the
+        payload's; a cancelled non-EF dispatch that folded carried residual
+        at an auto codec seam restores the pre-encode residual instead."""
         spec = CODECS[payload.codec]
+        if self._up_restore is not None and self._up_restore[0] is payload:
+            restore = self._up_restore[1]
+            self._up_restore = None
+            if not spec.ef:
+                self.residual = restore if self.residual is None \
+                    else self.residual + restore
+                return
         if not spec.ef:
             return
         data = payload.data
@@ -461,7 +716,8 @@ class Transport:
     """Codec registry instance + per-worker links for one server.
 
     ``codec`` names the uplink codec, ``down_codec`` the downlink one
-    (None = the same both ways; ``"raw"`` = uplink-only compression).
+    (None = the same both ways; ``"raw"`` = uplink-only compression;
+    ``"auto"`` = the per-link tuner, with ``auto_policy`` its knobs).
     ``raw_bytes`` defaults to the template's native byte size.
     ``ack_registry`` shares per-worker downlink ack state across servers.
     """
@@ -469,28 +725,44 @@ class Transport:
     def __init__(self, template, codec: str = "raw", *,
                  down_codec: Optional[str] = None, frac: float = 0.1,
                  raw_bytes: Optional[int] = None, mesh=None,
-                 ack_registry: Optional[WorkerAckRegistry] = None):
+                 ack_registry: Optional[WorkerAckRegistry] = None,
+                 auto_policy=None):
         if down_codec is None:
             down_codec = codec
         for c in (codec, down_codec):
-            if c == "auto":
-                raise NotImplementedError(
-                    "the auto codec resolver is not ported yet "
-                    "(ROADMAP A5)")
-            if c not in CODECS:
+            if c not in CODECS and c != AUTO_SPEC.name:
                 raise ValueError(f"unknown codec {c!r}; have "
-                                 f"{sorted(CODECS)}")
-        self.spec_up = CODECS[codec]
-        self.spec_down = CODECS[down_codec]
+                                 f"{sorted(CODECS) + [AUTO_SPEC.name]}")
+        self.auto_up = codec == AUTO_SPEC.name
+        self.auto_down = down_codec == AUTO_SPEC.name
+        self.spec_up = AUTO_SPEC if self.auto_up else CODECS[codec]
+        self.spec_down = AUTO_SPEC if self.auto_down else CODECS[down_codec]
         self.frac = float(frac)
         self.bundle = flatbuf.bundle_for(template, mesh)
         self.raw_bytes = (int(raw_bytes) if raw_bytes is not None
                           else self.bundle.raw_bytes)
         self._ack_registry = ack_registry
+        # auto mode: the per-link codec/frac resolver; whoever owns the
+        # estimator binds its bandwidth sources
+        if self.auto_up or self.auto_down:
+            from .autotune import AutoTuner
+            self.tuner: Optional[object] = AutoTuner(
+                self.bundle.n_params, self.raw_bytes, auto_policy)
+        else:
+            self.tuner = None
+        # access-ordered (link() re-inserts on a hit), so iteration order
+        # is least-recently-used order, what lru_evict walks
         self._links: Dict[str, Link] = {}
-        # retransmits over lossy links; stays 0 until they are ported
-        # (ROADMAP A1)
+        self.total_link_evictions = 0
+        # lossy-channel model (None = perfect wire, the default);
+        # runtime/faults injects these per tier
+        self.reliability: Optional[LinkReliability] = None
+        self.rel_estimator = None     # TimeEstimator pricing retransmit RTOs
         self.total_retransmits = 0
+        self.audit: Optional[TransportAudit] = None
+        # a dead owner (a failed-over root) closes its transport: copies on
+        # the wire still arrive, but retransmit timers stop re-sending
+        self.closed = False
         # one packed copy of the current server model per dispatch round:
         # every selected worker's encode_down shares it (keyed on identity)
         self._down_tree = None
@@ -503,6 +775,14 @@ class Transport:
         return self._down_vec
 
     @property
+    def codec(self) -> str:
+        return self.spec_up.name
+
+    @property
+    def down_codec(self) -> str:
+        return self.spec_down.name
+
+    @property
     def flat_capable(self) -> bool:
         return self.bundle is not None
 
@@ -512,9 +792,26 @@ class Transport:
         is a delta codec)."""
         return self.spec_up.delta or self.spec_down.delta
 
+    # --- per-dispatch codec resolution (auto mode) ---
+    def resolve_up(self, link: Link) -> Tuple[CodecSpec, float]:
+        """The concrete (spec, frac) of this link's next uplink encode:
+        the configured constants, or the tuner's per-link choice."""
+        if not self.auto_up:
+            return self.spec_up, self.frac
+        name, frac = self.tuner.choose(link.worker_id, self._retx_factor())
+        return CODECS[name], frac
+
+    def resolve_down(self, link: Link) -> Tuple[CodecSpec, float]:
+        if not self.auto_down:
+            return self.spec_down, self.frac
+        name, frac = self.tuner.choose(link.worker_id, self._retx_factor())
+        return CODECS[name], frac
+
     def note_round(self, point) -> None:
-        """HistoryPoint feedback after each round, for the auto codec
-        tuner; a no-op while ``auto`` raises (ROADMAP A1)."""
+        """HistoryPoint feedback after each round: advances the auto
+        tuner's warmup/plateau schedule (a no-op with fixed codecs)."""
+        if self.tuner is not None:
+            self.tuner.note_round(point.accuracy)
 
     def link(self, worker_id: str) -> Link:
         l = self._links.get(worker_id)
@@ -522,20 +819,62 @@ class Transport:
             ack = (self._ack_registry.state(worker_id)
                    if self._ack_registry is not None else None)
             l = self._links[worker_id] = Link(self, ack, worker_id)
+        else:
+            # move to the end: dict order is recency order for lru_evict
+            del self._links[worker_id]
+            self._links[worker_id] = l
         return l
 
+    def lru_evict(self, keep=(), max_links: Optional[int] = None) -> int:
+        """Evict least-recently-used QUIESCENT links until at most
+        ``max_links`` remain; returns how many were dropped.  Links in
+        ``keep`` (the server passes its outstanding, in-flight, windowed
+        and held workers) and links with a pending downlink are never
+        candidates.  A re-contacted link starts fresh: no acked base (a
+        raw first-contact dispatch) and no uplink residual."""
+        if max_links is None or len(self._links) <= max_links:
+            return 0
+        evicted = 0
+        keep = set(keep)
+        for wid in list(self._links):
+            if len(self._links) <= max_links:
+                break
+            l = self._links[wid]
+            if wid in keep or l._pending_down is not None:
+                continue
+            del self._links[wid]
+            evicted += 1
+        self.total_link_evictions += evicted
+        return evicted
+
     # --- expected costs (selection time budgets / straggler timeouts) ---
+    def _retx_factor(self) -> float:
+        """Expected transmissions per delivered payload on a lossy link
+        (geometric: 1/(1-drop_p)); 1.0 on a perfect wire."""
+        rel = self.reliability
+        if rel is None or rel.drop_p <= 0.0:
+            return 1.0
+        return 1.0 / max(1.0 - rel.drop_p, 1e-3)
+
+    def _expected_bytes(self, spec: CodecSpec, auto: bool) -> int:
+        frac = self.frac
+        if auto:
+            name, frac = self.tuner.steady_choice(self._retx_factor())
+            spec = CODECS[name]
+        return int(expected_codec_bytes(spec, self.bundle.n_params,
+                                        self.raw_bytes, frac)
+                   * self._retx_factor())
+
     def expected_down_bytes(self) -> int:
         """Per-dispatch downlink estimate from the down codec spec (first
-        contact costs ``raw_bytes``)."""
-        return expected_codec_bytes(self.spec_down, self.bundle.n_params,
-                                    self.raw_bytes, self.frac)
+        contact costs ``raw_bytes``); under auto, the tuner's current
+        steady choice, so it varies from round to round."""
+        return self._expected_bytes(self.spec_down, self.auto_down)
 
     def expected_up_bytes(self) -> int:
         """Per-response uplink estimate from the codec spec (top-k codecs:
-        assumes exactly k survivors)."""
-        return expected_codec_bytes(self.spec_up, self.bundle.n_params,
-                                    self.raw_bytes, self.frac)
+        assumes exactly k survivors); auto as :meth:`expected_down_bytes`."""
+        return self._expected_bytes(self.spec_up, self.auto_up)
 
     def expected_oneway_bytes(self) -> int:
         """Mean per-direction bytes of a round trip: what the selection

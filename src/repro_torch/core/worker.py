@@ -6,8 +6,12 @@ Numerics run for real (PyTorch on the setup's device); durations are
 simulated from the same profile statistics the estimator sees, but with
 the *true* per-worker speed.
 
+Every send goes through ``transport.transmit`` with its direction and
+link, so a lossy link (``LinkReliability``) drops, duplicates and
+retransmits it; on a perfect wire each leg is one scheduled event.
+
 Not ported yet: the checkpoint bookkeeping of in-flight conversations and
-their resume (ROADMAP A10).
+``resume_conversation`` (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -103,17 +107,21 @@ class FLWorker:
         response through the link's codec, and respond (T_transmit over
         the uplink payload bytes).  ``on_done`` fires on the event loop.
 
-        Stateful (delta) downlinks schedule an explicit fetch-complete
-        event that decodes and advances the ack.  Codecs whose uplink size
-        is known before training run the rest as one event; top-k codecs
-        train first and schedule the respond leg after encoding."""
+        Stateful (delta) downlinks, and every downlink of a lossy link,
+        schedule an explicit fetch-complete event that decodes (and, when
+        stateful, advances the ack).  On a perfect wire, codecs whose
+        uplink size is known before training run the rest as one event;
+        top-k codecs, auto and lossy links train first and send the
+        response as its own leg."""
         if not self.accepts(server_pointer) or self.profile.failed:
             # a dispatch that never lands: un-debit the downlink EF state
             link.restore_downlink(down)
             return
         self.busy = True
         t_fetch = self.true_t_transmit(down.wire_bytes)
-        if link.needs_down_ack:
+        if link.needs_down_ack or link.reliability is not None:
+            # the channel must deliver before the worker can decode, and
+            # the staged event is what transmit() retransmits against
             self._fetching[server_pointer] = (down, link)
             transmit(self.loop, link, down, t_fetch,
                      lambda: self._fetch_done(server_pointer, down,
@@ -135,7 +143,12 @@ class FLWorker:
             link.restore_downlink(down)
             self.busy = False
             return
-        weights = link.complete_fetch(down)
+        # stateless downlinks staged only for the lossy channel skip the
+        # ack bookkeeping
+        if link.needs_down_ack:
+            weights = link.complete_fetch(down)
+        else:
+            weights = link.decode_down(down)
         self._after_fetch(server_pointer, weights, base_version, epochs,
                           link, on_done, 0.0)
 
@@ -149,9 +162,14 @@ class FLWorker:
                      base_version: int, epochs: int, link: Link, on_done,
                      t_fetch: float):
         """Train + respond, scheduled ``t_fetch`` from now."""
+        if link.t.audit is not None:
+            # chaos ledger: this worker now holds this server version
+            link.t.audit.note_fetch(self.worker_id, base_version)
         t_train = self.true_t_one() * epochs
         up_bytes = link.upfront_up_bytes()
-        if up_bytes is not None:
+        if up_bytes is not None and link.reliability is None:
+            # one event for the rest, only on a perfect wire: a lossy
+            # uplink needs the staged in-flight record to retransmit
             self.loop.schedule(
                 t_fetch + t_train + self.true_t_transmit(up_bytes),
                 self._finish, server_pointer, link, on_done, weights,
@@ -211,3 +229,11 @@ class FLWorker:
         on_done(TrainResult(self.worker_id, ticket, base_version, epochs,
                             self.profile.n_batches, t_train, t_up=t_up,
                             up_bytes=up.wire_bytes))
+
+    # --- checkpoint/resume ---
+    def resume_conversation(self, server_pointer: Pointer, link: Link,
+                            on_done, rec: dict, t_abs: float):
+        """Re-create one snapshotted in-flight leg: not ported yet."""
+        raise NotImplementedError(
+            "resuming a worker conversation from a checkpoint is not "
+            "ported yet (ROADMAP A4)")

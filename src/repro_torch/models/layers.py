@@ -5,7 +5,7 @@ MLPs and the token embedding.
 Plain functions over dicts of tensors, in the JAX package's layouts and
 dtypes: parameters live in bf16 (``COMPUTE_DTYPE``), norms and rotary
 angles are computed in f32 and cast back.  The chunked vocabulary loss is
-training and is not ported yet (ROADMAP A13).
+training and is not ported yet (ROADMAP A5).
 """
 from __future__ import annotations
 

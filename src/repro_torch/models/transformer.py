@@ -13,7 +13,7 @@ A decode step writes its state IN PLACE (the KV caches through
 ``attention.cache_write``; rwkv6's shift and WKV states by copy) and
 returns that same state.
 
-Not ported yet (ROADMAP A13), each raising ``NotImplementedError``: the
+Not ported yet (ROADMAP A5), each raising ``NotImplementedError``: the
 mamba2 block type and mixture-of-experts configs.  The loss and
 ``train_step`` are training and wait for a later slice.
 """
@@ -36,11 +36,11 @@ def _check_supported(cfg) -> None:
     if cfg.block_type not in ("attn", "rwkv6"):
         raise NotImplementedError(
             f"{cfg.name}: block_type {cfg.block_type!r} is not ported to "
-            f"repro_torch yet (ROADMAP A13)")
+            f"repro_torch yet (ROADMAP A5)")
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: mixture-of-experts blocks are not ported to "
-            f"repro_torch yet (ROADMAP A13)")
+            f"repro_torch yet (ROADMAP A5)")
 
 
 def _lead(cfg) -> tuple:

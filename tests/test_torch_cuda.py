@@ -788,3 +788,56 @@ def test_cuda_uplink_run_launches_fused_codec(h100, mode):
     else:
         # an async merge per arriving response, decoded as it arrives
         assert got["decode_rows"] == 0 and got["decode"] == merges
+
+
+def _fleet_pair(key, h100, rounds):
+    """A fleet run of chip_smoke.py on the card and on the CPU from the
+    same initial weights, short: (card history, card extras, cpu
+    history, cpu extras, the card's encodes)."""
+    w0 = {}
+    with chip_smoke.counted_encodes() as encodes:
+        hg, eg = chip_smoke.fleet_call(
+            key, chip_smoke.fleet_setup(key, h100, w0), rounds)
+    hc, ec = chip_smoke.fleet_call(
+        key, chip_smoke.fleet_setup(key, "cpu", w0), rounds)
+    return hg, eg, hc, ec, encodes[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["lossy/sync", "cohort/main_k10",
+                                 "chaos_raw/1x2"])
+def test_cuda_fleet_run_matches_cpu(h100, key):
+    """Lossy links, a cohort and a failing-over 1x2 topology, 3 rounds:
+    every non-accuracy field (retransmits included) and the kind's books
+    equal the CPU's."""
+    hg, eg, hc, ec, _ = _fleet_pair(key, h100, 3)
+    assert [[getattr(p, f) for f in chip_smoke.FLEET_FIELDS] for p in hg] \
+        == [[getattr(p, f) for f in chip_smoke.FLEET_FIELDS] for p in hc]
+    for k in ("ledger", "audit", "failover_dispatches"):
+        if k in eg:
+            assert eg[k] == ec[k], k
+
+
+@pytest.mark.cuda
+def test_cuda_lossy_topk_run_encodes_once_per_logical_uplink(h100):
+    """Top-k+int8 uplinks over lossy links: one ef_encode launch per
+    logical uplink payload, while copies were retransmitted."""
+    n0 = dict(topk_quant.LAUNCHES)
+    hg, eg, _, _, encodes = _fleet_pair("lossy/uplink_only", h100, 3)
+    launched = topk_quant.LAUNCHES["ef_encode"] - n0["ef_encode"]
+    assert launched == encodes
+    chip_smoke.check_encodes(launched, eg["ledger"], eg["retx_up"],
+                             "lossy/uplink_only")
+
+
+@pytest.mark.cuda
+def test_cuda_cohort_w_and_flat1x1_equal_the_single_server_run(h100):
+    """cohort = W and the 1x1 topology, on the card: the single-server
+    run bit for bit, accuracy included."""
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    setup = make_setup(TABLE_4_1["mnist_even"], seed=0, noise=0.25,
+                       batch_size=32, het="strong", device=h100)
+    kw = dict(epochs_per_round=3, max_rounds=4, mode="sync", selector="all")
+    want = [vars(p) for p in run_fl(setup, **kw)]
+    assert [vars(p) for p in run_fl(setup, cohort=10, **kw)] == want
+    assert [vars(p) for p in run_fl(setup, topology="1x1", **kw)] == want

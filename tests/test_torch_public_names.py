@@ -1,8 +1,11 @@
 """Public names and fields of the port against the JAX package's:
 ``HistoryPoint``'s fields, the server's per-round ``note_round`` call,
 ``experiment.mlp_prox_train_wrapper``, ``cnn.model_nbytes``,
-``layers.rmsnorm_init`` / ``glu_mlp_init`` / ``embed_init``, and the MLP
-entry points' default device (the card, as every entry point's).
+``layers.rmsnorm_init`` / ``glu_mlp_init`` / ``embed_init``, the MLP
+entry points' default device (the card, as every entry point's), the
+public names of the auto tuner, lossy links, topology and fault tools,
+and each raise that remains naming its current ROADMAP step
+(checkpoints A4, the sharded substrate A7).
 
 Tolerances: the FedProx wrapper's parameters within 1e-5 of JAX's after
 three epochs (tests/test_torch_mlp.py's bound); byte counts and shapes
@@ -108,3 +111,94 @@ def test_mlp_entry_points_default_to_the_card(monkeypatch):
                lambda: layers.embed_init(g, 10, 4)):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
+
+
+def _raises_of_unported():
+    """Each raise that remains in the port, with the ROADMAP step it names:
+    checkpoints and their resume seams (A4), the sharded substrate (A7)."""
+    from repro_torch.core import flatbuf, topology
+    from repro_torch.core.warehouse import Pointer
+    from repro_torch.core.worker import FLWorker
+    setup = make_setup(TABLE_4_1["mnist_even"], device="cpu")
+    _, topo = topology.build_topology(setup, topology="1x2")
+    lf = topo.leaves["leaf0"]
+    w = FLWorker("w0", profile=setup.profiles[0], data={}, train_fn=None,
+                 loop=topo.loop)
+    return {
+        "run_fl checkpoint_every": ("A4", lambda: run_fl(
+            setup, max_rounds=1, checkpoint_every=1, checkpoint_dir="c")),
+        "run_fl resume": ("A4", lambda: run_fl(setup, max_rounds=1,
+                                               resume=True)),
+        "run_fl topology checkpoint": ("A4", lambda: run_fl(
+            setup, max_rounds=1, topology="1x2", checkpoint_every=1,
+            checkpoint_dir="c")),
+        "run_fl_topology resume": ("A4", lambda: topology.run_fl_topology(
+            setup, topology="1x2", resume=True)),
+        "Topology.resume_push": ("A4", lambda: topo.resume_push(lf, {}, 0.0)),
+        "Topology.resume_fan": ("A4", lambda: topo.resume_fan(lf, {}, 0.0)),
+        "Topology.resume_done_settled": (
+            "A4", lambda: topo.resume_done_settled(lf, 0.0)),
+        "FLWorker.resume_conversation": (
+            "A4", lambda: w.resume_conversation(Pointer("s", "u"), None,
+                                                None, {}, 0.0)),
+        "run_fl server_mesh": ("A7", lambda: run_fl(setup, max_rounds=1,
+                                                    server_mesh=1)),
+        "run_fl_topology server_mesh": (
+            "A7", lambda: topology.run_fl_topology(setup, topology="1x2",
+                                                   server_mesh=2)),
+        "ParamBundle mesh": ("A7", lambda: flatbuf.ParamBundle(
+            setup.weights0, mesh=object())),
+        "Transport mesh": ("A7", lambda: transport.Transport(
+            setup.weights0, mesh=object())),
+    }
+
+
+UNPORTED_RAISES = sorted((
+    "run_fl checkpoint_every", "run_fl resume", "run_fl topology checkpoint",
+    "run_fl_topology resume", "Topology.resume_push", "Topology.resume_fan",
+    "Topology.resume_done_settled", "FLWorker.resume_conversation",
+    "run_fl server_mesh", "run_fl_topology server_mesh", "ParamBundle mesh",
+    "Transport mesh"))
+
+
+@pytest.mark.parametrize("name", UNPORTED_RAISES)
+def test_unported_raises_name_the_current_roadmap_step(name):
+    step, call = _raises_of_unported()[name]
+    with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {step}\)"):
+        call()
+
+
+def test_ported_slice_keeps_the_references_public_names():
+    """The modules of ROADMAP A1-A3 export what the JAX package's do."""
+    from repro.core import autotune as jautotune
+    from repro.core import topology as jtopology
+    from repro.core import transport as jtransport
+    from repro.runtime import faults as jfaults
+    from repro_torch.core import autotune, topology
+    from repro_torch.runtime import faults
+    for mod, jmod, names in (
+            (autotune, jautotune, ("AutoPolicy", "AutoTuner",
+                                   "_CANDIDATES")),
+            (transport, jtransport, ("LinkReliability", "TransportAudit",
+                                     "_Channel", "transmit",
+                                     "resume_transmit", "AUTO_SPEC")),
+            (topology, jtopology, ("TopologyConfig", "parse_topology",
+                                   "Topology", "TopologyResult",
+                                   "build_topology", "run_fl_topology")),
+            (faults, jfaults, ("FaultInjector", "ElasticPool",
+                               "TopologyFaultInjector",
+                               "inject_link_reliability", "ChaosSchedule",
+                               "audit_chaos_run"))):
+        for name in names:
+            assert hasattr(mod, name) and hasattr(jmod, name), name
+    for cls, jcls in ((topology.TopologyConfig, jtopology.TopologyConfig),
+                      (transport.LinkReliability, jtransport.LinkReliability),
+                      (transport.TransportAudit, jtransport.TransportAudit),
+                      (faults.ChaosSchedule, jfaults.ChaosSchedule)):
+        assert [f.name for f in dataclasses.fields(cls)] == \
+            [f.name for f in dataclasses.fields(jcls)]
+    for meth in ("resolve_up", "resolve_down", "note_round", "lru_evict",
+                 "_retx_factor", "expected_up_bytes", "expected_down_bytes"):
+        assert hasattr(transport.Transport, meth)
+    for meth in ("hold", "release", "install_global"):
+        assert hasattr(server.AggregationServer, meth)

@@ -139,10 +139,16 @@ def test_link_protocol_matches_jax(codec):
 
 
 def test_auto_and_lossy_links_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        ttr.Transport(_tt(_tree(0)), "auto")
-    with pytest.raises(NotImplementedError):
-        ttr.LinkReliability(drop_p=0.1)
+    """The auto resolver and lossy links are ported (tests/
+    test_torch_autotune.py, tests/test_torch_transport_lossy.py): an auto
+    transport builds its tuner and ``LinkReliability`` has JAX's fields
+    and defaults; an unknown codec still raises as JAX's does."""
+    tr = ttr.Transport(_tt(_tree(0)), "auto")
+    jt = jtr.Transport(_jt(_tree(0)), "auto")
+    assert (tr.codec, tr.auto_up, tr.auto_down, tr.tuner.n_params) == \
+        (jt.codec, jt.auto_up, jt.auto_down, jt.tuner.n_params)
+    assert vars(ttr.LinkReliability(drop_p=0.1)) == \
+        vars(jtr.LinkReliability(drop_p=0.1))
     with pytest.raises(ValueError):
         ttr.Transport(_tt(_tree(0)), "gzip")
 

@@ -5,13 +5,17 @@
 
 For each named run of ``chip_smoke.py`` (default: the main path's raw
 sync and top-k+int8 uplink sync; e.g. ``hetero/sync/fedadam`` or
-``cnn/sync/fedadam`` for the other phases) builds its setup on the CUDA
-card, runs one warm-up round, then profiles ``--rounds`` rounds with
-``torch.profiler`` (CPU and CUDA activities) and prints, per run: wall
-seconds per round (inflated by the profiler itself), the device's busy
-time (the sum of kernel times: one stream, so kernels do not overlap)
-and idle share, the time inside this repo's kernels, kernel launches per
-round, the calls of ``torch.topk``/``sort`` and the host syncs
+``cnn/sync/fedadam`` for the other phases, or a run of its fleet phase:
+``lossy/sync``, ``cohort/scale``, ``chaos_raw/1x2``, any key of
+``chip_smoke.FLEET``, driven by ``chip_smoke.fleet_call``; a round of a
+chaos run is a root round, and cohort/scale's window includes building
+its 10,000 workers) builds its setup on the CUDA card, runs one warm-up
+round, then profiles ``--rounds`` rounds with ``torch.profiler`` (CPU and
+CUDA activities) and prints, per run: wall seconds per round (inflated
+by the profiler itself), the device's busy time (the sum of kernel
+times: one stream, so kernels do not overlap) and idle share, the time
+inside this repo's kernels, kernel launches and lossy-link retransmits
+per round, the calls of ``torch.topk``/``sort`` and the host syncs
 (``aten::_local_scalar_dense``, stream syncs) per round, the operators that
 take the most host time and the kernels that take the most device time.  With ``--prefill [ARCH]`` it profiles instead
 one full-width prefill of 2 prompts of 8192 tokens after a warm-up one:
@@ -129,6 +133,28 @@ def profile_prefill(arch: str):
               f"{e.key[:70]}")
 
 
+def _runner(key):
+    """``(run, setup)`` of a ``chip_smoke.py`` run on the card:
+    ``run(setup, rounds)`` drives it and returns its retransmits (over
+    every transport of a topology, as ``audit_chaos_run`` counts them)."""
+    if key in chip_smoke.FLEET:
+        setup = chip_smoke.fleet_setup(key, "cuda", {})
+
+        def run(s, r):
+            h, extra = chip_smoke.fleet_call(key, s, r)
+            return extra.get("audit", {}).get("retransmits",
+                                              h[-1].retransmits)
+        return run, setup
+    spec = chip_smoke.RUNS[key]
+    table, kw = chip_smoke.PHASES[spec["phase"]]
+    setup = core.make_setup(getattr(core, table)["mnist_even"],
+                            cfg=MNIST_CNN, model=spec["model"], seed=0,
+                            **kw, **spec["setup_kw"], device="cuda")
+    rkw = dict(epochs_per_round=chip_smoke.EPOCHS, **spec["run_kw"])
+    return (lambda s, r: core.run_fl(s, max_rounds=r, **rkw)[-1]
+            .retransmits), setup
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
@@ -149,15 +175,10 @@ def main():
         profile_prefill(args.prefill)
         return
     for key in args.runs.split(","):
-        spec = chip_smoke.RUNS[key]
-        table, kw = chip_smoke.PHASES[spec["phase"]]
-        setup = core.make_setup(getattr(core, table)["mnist_even"],
-                                cfg=MNIST_CNN, model=spec["model"], seed=0,
-                                **kw, **spec["setup_kw"], device="cuda")
-        rkw = dict(epochs_per_round=chip_smoke.EPOCHS, **spec["run_kw"])
-        core.run_fl(setup, max_rounds=1, **rkw)              # warm-up
-        prof, wall = _profile(
-            lambda: core.run_fl(setup, max_rounds=args.rounds, **rkw))
+        run, setup = _runner(key)
+        run(setup, 1)                                         # warm-up
+        retx = []
+        prof, wall = _profile(lambda: retx.append(run(setup, args.rounds)))
         events = prof.key_averages()
         # kernel-level events only: operator rows repeat their kernels' time
         kernels = [e for e in events
@@ -172,7 +193,8 @@ def main():
               f"(profiled); device busy {busy:.4f} s of {wall:.4f} s, idle "
               f"share {1 - busy / wall:.3f}; this repo's kernels "
               f"{own * 1e3:.3f} ms; {launches / args.rounds:.0f} kernel "
-              f"launches per round")
+              f"launches and {retx[0] / args.rounds:g} retransmits per "
+              f"round")
         print("  per round: " + ", ".join(f"{k} {v:g}"
                                           for k, v in counted.items()))
         if busy == 0.0:
