@@ -119,7 +119,23 @@ follow the numerics).
    the ledger, evictions, the failover included; the lossy runs'
    accuracy within ``MAIN_GAPS``), and every auto run's codec counts
    within ``AUTO_CODEC_GAP``.
-8. LM serving: gemma2-2b at full width and depth (26 layers, seeded
+8. Resume (``RESUME``, ``run_resume``): six runs at MNIST width (table
+   4.2, het strong), ``RESUME_ROUNDS`` rounds: raw/sync,
+   raw/async_delta, uplink_only/sync, async over the auto codec, FedAdam
+   over a Dirichlet split and a 1x2 topology over top-k+int8 links.
+   Each runs in a writer process of its own (this script with
+   ``--resume-writer``, all started together) with ``checkpoint_every=
+   RESUME_EVERY``, SIGKILLed as soon as its first snapshot is on disk;
+   so does ``RESUME_CHAOS``, chaos/1x2's lossy setup without failover.
+   One fresh process (``--resume-reader``) then resumes every run with
+   ``resume=True``, every launch counter at 0 before each, while this
+   one runs each of the six uninterrupted.  Each resumed history (the
+   topology's leaves too) must equal the uninterrupted card run in
+   every field, accuracy bits included; the resumed process must show
+   each kernel of ``RESUME_REQUIRED``; the chaos run's
+   ``audit_chaos_run`` must close.  Reports each snapshot's bytes and the
+   seconds of its capture, of reading it and of the restore.
+9. LM serving: gemma2-2b at full width and depth (26 layers, seeded
    random weights on the card), attention through kernel B8: prefill of
    2 prompts of 8192 tokens from ``synthetic_token_batches`` (cut from
    ``SHAPES["prefill_32k"]``: batch 32 -> 2, 32,768 -> 8192 tokens), then
@@ -134,8 +150,8 @@ follow the numerics).
    (``LM_FAULTS``); those in ``LM_CAUGHT`` must fail it.  Reports prefill
    seconds and tokens/s, decode seconds per step, peak device memory and
    the prefill's model FLOPs over its time as a share of the bf16 peak.
-9. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
-   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 8 is:
+10. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
+   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 9 is:
    prefill of 2 prompts of 8192 tokens, then 64 greedy decode steps,
    every counter at 0 before and read after.  The prefill's blocks run B9
    in its state form (chunk 64): exactly one launch a layer after the
@@ -150,8 +166,8 @@ follow the numerics).
    ``wkv_chunked``: through ``ops.wkv`` (chunk 16, zero state; counters
    at 0 before and read after: one launch), y within ``WKV_TOL`` (a plain
    version with no carry must fail); and in the state form, y and the
-   final state within their limits.  Reports as phase 8.
-10. Result: the ``kernels`` JSON line, the card line, and last the
+   final state within their limits.  Reports as phase 9.
+11. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
@@ -2448,6 +2464,343 @@ def run_fleet(setups, report):
                                  "codec check")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8, resume: checkpoints across a process boundary, at MNIST width
+
+RESUME_ROUNDS = 6
+RESUME_EVERY = 2
+RESUME_TIMEOUT_S = 600.0     # a writer's first snapshot; the reader's run
+# run key -> run_fl kwargs on the main setup (table 4.2, het strong); a
+# "topology" entry runs run_fl_topology, whose leaf histories are held too
+RESUME = {
+    "raw/sync": RAW_SYNC,
+    "raw/async_delta": {**MODES["async_delta"], **TRANSPORTS["raw"]},
+    "uplink_only/sync": {**SYNC, **TRANSPORTS["uplink_only"]},
+    "auto/async": {**MODES["async"], "transport": "auto"},
+    "hetero/sync/fedadam": {**SYNC, **DIRICHLET, **FEDADAM},
+    "topology/1x2": {**SYNC, "transport": "topk_ef+int8",
+                     "transport_frac": 0.1,
+                     "topology": dict(n_leaves=2, push="sync")},
+}
+# the lossy run: chaos/1x2's setup (ChaosSchedule(**CHAOS) on every tier)
+# without failover, RESUME_ROUNDS root versions; its bar is the audit
+RESUME_CHAOS = "chaos/1x2"
+# kernel -> (launch counter key, the runs whose RESUMED process must show it)
+RESUME_REQUIRED = {
+    "fedavg_agg_flat": ("agg", ["raw/sync", "uplink_only/sync",
+                                "topology/1x2"]),
+    "fedavg_mix_flat": ("mix", ["raw/async_delta", "auto/async"]),
+    "ef_encode": ("ef_encode", ["uplink_only/sync", "topology/1x2"]),
+    "dequant_add_rows": ("decode_rows", ["uplink_only/sync",
+                                         "topology/1x2"]),
+    "dequant_add": ("decode", ["topology/1x2"]),
+    "merge_opt_flat_adam": ("merge_adam", ["hetero/sync/fedadam"]),
+}
+
+
+def resume_setup(key, device, weights0):
+    """The setup of resume run ``key`` on ``device``.  ``weights0`` maps
+    the run's kind ("main": phase 4's setup, "chaos": chaos/1x2's) to its
+    initial weights (numpy), drawn by the first setup made of that kind."""
+    from repro_torch import core
+    from repro_torch.configs.paper_cnn import MNIST_CNN
+    if key == RESUME_CHAOS:
+        return fleet_setup(key, device, weights0)
+    setup = core.make_setup(core.TABLE_4_2["mnist_even"], cfg=MNIST_CNN,
+                            seed=0, **PHASES["main"][1],
+                            weights0=weights0.get("main"), device=device)
+    weights0.setdefault("main", {k: v.cpu().numpy()
+                                 for k, v in setup.weights0.items()})
+    return setup
+
+
+def resume_call(key, setup, rounds=RESUME_ROUNDS, epochs=EPOCHS, **ckpt):
+    """Resume run ``key`` through ``run_fl`` or ``run_fl_topology`` with
+    the checkpoint arguments ``ckpt``; returns ``(histories, topology)``,
+    histories keyed "root" (the run's own) and by leaf."""
+    from repro_torch.core import run_fl, topology
+    from repro_torch.runtime import faults
+    if key == RESUME_CHAOS:
+        cfg = topology.parse_topology(
+            "1x2", push="sync", server_codec="topk_ef+int8",
+            server_frac=0.1, server_bandwidth=BASE_SERVER_BW / 40,
+            root_failover=False, root_rounds=rounds)
+        # the schedule is applied once: a resumed run's snapshot carries
+        # the lossy channels and their ledgers
+        on_build = (None if ckpt.get("resume")
+                    else faults.ChaosSchedule(**CHAOS).apply)
+        res = topology.run_fl_topology(
+            setup, topology=cfg, mode="sync", selector="all",
+            epochs_per_round=epochs, max_rounds=CHAOS_MAX_ROUNDS,
+            transport="topk_ef+int8", transport_frac=0.1,
+            on_build=on_build, **ckpt)
+    elif "topology" in RESUME[key]:
+        kw = dict(RESUME[key])
+        cfg = topology.parse_topology(topology.TopologyConfig(
+            **kw.pop("topology")))
+        res = topology.run_fl_topology(setup, topology=cfg,
+                                       epochs_per_round=epochs,
+                                       max_rounds=rounds, **kw, **ckpt)
+    else:
+        h = run_fl(setup, epochs_per_round=epochs, max_rounds=rounds,
+                   **RESUME[key], **ckpt)
+        return {"root": h}, None
+    return {"root": res.root_history, **res.leaf_histories}, res.topology
+
+
+def _hex_histories(hists) -> dict:
+    """Histories as dicts of every field, floats as ``float.hex``."""
+    return {name: [{k: v.hex() if isinstance(v, float) else v
+                    for k, v in vars(p).items()} for p in h]
+            for name, h in hists.items()}
+
+
+@contextlib.contextmanager
+def timed_snapshots(log):
+    """While the block runs, each snapshot capture, manager restore and
+    federation restore appends ``(what, seconds, detail)`` to ``log``."""
+    from repro_torch.checkpoint import CheckpointManager, FederationSnapshot
+    real = {n: FederationSnapshot.__dict__[n] for n in (
+        "capture_run", "capture_topology", "restore_run",
+        "restore_topology")}
+    real_latest = CheckpointManager.restore_latest
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            log.append((name, time.perf_counter() - t0, None))
+            return out
+        return call
+
+    def latest(self):
+        t0 = time.perf_counter()
+        got = real_latest(self)
+        log.append(("read", time.perf_counter() - t0,
+                    None if got is None else got[0]))
+        return got
+    for n in ("capture_run", "capture_topology"):
+        setattr(FederationSnapshot, n, classmethod(
+            timed("capture", real[n].__func__)))
+    for n in ("restore_run", "restore_topology"):
+        setattr(FederationSnapshot, n, timed("restore", real[n]))
+    CheckpointManager.restore_latest = latest
+    try:
+        yield log
+    finally:
+        for n, fn in real.items():
+            setattr(FederationSnapshot, n, fn)
+        CheckpointManager.restore_latest = real_latest
+
+
+def _child_weights0(work) -> dict:
+    w0 = dict(np.load(Path(work) / "weights0.npz"))
+    return {kind: {k[len(kind) + 1:]: v for k, v in w0.items()
+                   if k.startswith(kind + "/")} for kind in ("main", "chaos")}
+
+
+def resume_writer(key, work, device, rounds, epochs, hold):
+    """Child process: run resume run ``key`` with ``checkpoint_every``;
+    the parent SIGKILLs it once its first snapshot is on disk.  With
+    ``hold`` it waits to be killed after that save, so the kill lands
+    before the run ends however fast the device runs it."""
+    from repro_torch.checkpoint import CheckpointManager
+    device = torch.device(device)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    setup = resume_setup(key, device, _child_weights0(work))
+    d = Path(work) / key.replace("/", "_")
+    log = []
+    real_save = CheckpointManager.save
+
+    def save(self, step, state, metadata=None, *, raw=False):
+        # the capture ran just before: its time goes out before the
+        # snapshot is published (the parent kills at the publish)
+        (d.parent / (d.name + ".capture.json")).write_text(json.dumps(
+            {"step": step, "capture_s": log[-1][1]}))
+        real_save(self, step, state, metadata, raw=raw)
+        if hold:
+            time.sleep(600)
+    CheckpointManager.save = save
+    with timed_snapshots(log):
+        resume_call(key, setup, rounds, epochs,
+                    checkpoint_every=RESUME_EVERY, checkpoint_dir=str(d))
+    print(f"resume writer {key}: the run ended before its kill",
+          flush=True)
+    return 3
+
+
+def resume_reader(work, device, rounds, epochs):
+    """Child process: resume every killed run of ``work`` from its newest
+    snapshot (``resume=True``), every launch counter at 0 before each and
+    read after; writes ``resumed.json``."""
+    from repro_torch.runtime import faults
+    device = torch.device(device)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    out, setups, weights0 = {}, {}, _child_weights0(work)
+    for key in list(RESUME) + [RESUME_CHAOS]:
+        d = Path(work) / key.replace("/", "_")
+        kind = "chaos" if key == RESUME_CHAOS else "main"
+        if kind not in setups:
+            setups[kind] = resume_setup(key, device, weights0)
+        setup = setups[kind]
+        counters = launch_counters()
+        log = []
+        with timed_snapshots(log):
+            zero_counters()
+            hists, topo = resume_call(key, setup, rounds, epochs,
+                                      checkpoint_dir=str(d), resume=True)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        (_, read_s, step), (_, restore_s, _) = log
+        rec = {"histories": _hex_histories(hists), "step": step,
+               "launches": {k: counters[k][k] for k in counters},
+               "bytes": (d / f"ckpt_{step:012d}.pkl").stat().st_size,
+               "read_s": read_s, "restore_s": restore_s}
+        if key == RESUME_CHAOS:
+            rec["audit"] = faults.audit_chaos_run(topo)  # books must close
+        out[key] = rec
+    (Path(work) / "resumed.json").write_text(json.dumps(out))
+    return 0
+
+
+def _spawn(args, work, name):
+    log = open(Path(work) / f"{name}.log", "wb")
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             *map(str, args)], stdout=log,
+                            stderr=subprocess.STDOUT), log
+
+
+def _log_tail(work, name, n=2000) -> str:
+    p = Path(work) / f"{name}.log"
+    return p.read_text(errors="replace")[-n:] if p.exists() else ""
+
+
+def run_resume(device, report, weights0, rounds=RESUME_ROUNDS,
+               epochs=EPOCHS):
+    """Phase 8: each RESUME run (and RESUME_CHAOS) in a child process with
+    ``checkpoint_every``, all in parallel, each SIGKILLed once its first
+    snapshot is published; then one fresh process resumes them all while
+    this one runs each RESUME run uninterrupted.  Each resumed history
+    must equal the uninterrupted one in every field, accuracy bits
+    included (root and leaves), the resumed process must have launched
+    each kernel of RESUME_REQUIRED, and the chaos run's audit must close.
+    On the CPU (the tests' rehearsal, where a round takes milliseconds)
+    each writer waits for its kill after its first save."""
+    import shutil
+    import signal
+    import tempfile
+    device = torch.device(device)
+    hold = device.type == "cpu"
+    keys = list(RESUME) + [RESUME_CHAOS]
+    main_setup = resume_setup(keys[0], device, weights0)
+    resume_setup(RESUME_CHAOS, device, weights0)     # draws its weights
+    work = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    procs = {}
+    try:
+        np.savez(Path(work) / "weights0.npz", **{
+            f"{kind}/{k}": v for kind, w in weights0.items()
+            for k, v in w.items()})
+        for key in keys:
+            procs[key] = _spawn(["--resume-writer", key, work, device.type,
+                                 rounds, epochs, int(hold)], work,
+                                "writer_" + key.replace("/", "_"))
+        deadline = time.perf_counter() + RESUME_TIMEOUT_S
+        pending = dict(procs)
+        while pending:
+            for key in list(pending):
+                proc, _ = pending[key]
+                d = Path(work) / key.replace("/", "_")
+                if d.is_dir() and any(d.glob("ckpt_*.pkl")):
+                    proc.send_signal(signal.SIGKILL)
+                    proc.wait(timeout=60)
+                    del pending[key]
+                elif proc.poll() is not None:
+                    raise AssertionError(
+                        f"resume writer {key} exited ({proc.returncode}) "
+                        f"before its first snapshot:\n"
+                        + _log_tail(work, "writer_" + key.replace("/", "_")))
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"resume writers {sorted(pending)} "
+                                     f"published no snapshot in "
+                                     f"{RESUME_TIMEOUT_S} s")
+            time.sleep(0.01)
+        for key, (proc, _) in procs.items():
+            if proc.returncode != -signal.SIGKILL:
+                raise AssertionError(f"resume writer {key} ended with "
+                                     f"{proc.returncode}, not by SIGKILL")
+        reader, _ = procs["reader"] = _spawn(
+            ["--resume-reader", work, device.type, rounds, epochs], work,
+            "reader")
+        full = {}
+        for key in RESUME:
+            counters = launch_counters()
+            zero_counters()
+            t0 = time.perf_counter()
+            hists, _ = resume_call(key, main_setup, rounds, epochs)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            full[key] = {"histories": _hex_histories(hists),
+                         "wall_s": time.perf_counter() - t0,
+                         "launches": {k: counters[k][k] for k in counters}}
+        if reader.wait(timeout=RESUME_TIMEOUT_S) != 0:
+            raise AssertionError("resume reader failed:\n"
+                                 + _log_tail(work, "reader"))
+        resumed = json.loads((Path(work) / "resumed.json").read_text())
+        if device.type == "cuda":
+            print(f"resume: the readings below were taken on "
+                  f"{card_line()}")
+        rec = report["resume"] = {}
+        for key in keys:
+            got = resumed[key]
+            cap = json.loads((Path(work) / (key.replace("/", "_")
+                                            + ".capture.json")).read_text())
+            r = rec[key] = {
+                "snapshot_step": got["step"], "snapshot_bytes": got["bytes"],
+                "capture_s": cap["capture_s"], "read_s": got["read_s"],
+                "restore_s": got["restore_s"],
+                "launches_resumed": got["launches"]}
+            if key == RESUME_CHAOS:
+                r["audit"] = got["audit"]
+            else:
+                r.update(launches_uninterrupted=full[key]["launches"],
+                         uninterrupted_wall_s=full[key]["wall_s"],
+                         history=full[key]["histories"],
+                         equal=got["histories"] == full[key]["histories"])
+            print(f"resume {key}: snapshot of version {got['step']} "
+                  f"({got['bytes']} bytes), capture {cap['capture_s']:.4f} "
+                  f"s, read {got['read_s']:.4f} s, restore "
+                  f"{got['restore_s']:.4f} s; "
+                  + (f"audit {got['audit']}" if key == RESUME_CHAOS else
+                     f"resumed == uninterrupted in every field: "
+                     f"{r['equal']}")
+                  + f"; resumed launches {got['launches']}")
+            if key != RESUME_CHAOS and not r["equal"]:
+                diff = [(name, i) for name, h in full[key][
+                    "histories"].items() for i, (a, b) in enumerate(
+                        zip(h, got["histories"].get(name, [])))
+                        if a != b]
+                raise AssertionError(f"resume {key}: the resumed history "
+                                     f"differs from the uninterrupted one "
+                                     f"at {diff[:4]}")
+        # the kernels' plain versions (CPU tensors) count no launches
+        for name, (ctr, need) in RESUME_REQUIRED.items():
+            for key in need:
+                if device.type == "cuda" and \
+                        resumed[key]["launches"][ctr] < 1:
+                    raise AssertionError(f"{name} never launched in the "
+                                         f"resumed process of {key}")
+        return rec
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            log.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -2832,6 +3185,13 @@ def _leaves(tree):
 
 def main() -> int:
     t_script = time.perf_counter()
+    if sys.argv[1:2] == ["--resume-writer"]:
+        key, work, dev, rounds, epochs, hold = sys.argv[2:8]
+        return resume_writer(key, work, dev, int(rounds), int(epochs),
+                             bool(int(hold)))
+    if sys.argv[1:2] == ["--resume-reader"]:
+        work, dev, rounds, epochs = sys.argv[2:6]
+        return resume_reader(work, dev, int(rounds), int(epochs))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
@@ -2884,6 +3244,18 @@ def main() -> int:
         for name, ctr in RETIRED.items():
             records[name]["launches"] = sum(r["launches"][ctr]
                                             for r in fl_runs)
+        t0 = time.perf_counter()
+        resume = run_resume(dev, runs, {
+            "main": setups._weights0[("main", "mlp")]})
+        print(f"phase resume: {time.perf_counter() - t0:.1f} s")
+        # the resumed processes' launches, and those of the uninterrupted
+        # runs they were held against
+        for name, ctr in [(n, c) for n, (c, _) in REQUIRED.items()] + \
+                list(RETIRED.items()):
+            records[name]["launches"] += sum(
+                r["launches_resumed"][ctr]
+                + r.get("launches_uninterrupted", {}).get(ctr, 0)
+                for r in resume.values())
         t0 = time.perf_counter()
         records["flash_attention"]["launches"] = run_lm(dev, lm_rec)
         print(f"phase lm: {time.perf_counter() - t0:.1f} s")

@@ -7,8 +7,8 @@ Every entry point runs on the setup's device: ``make_setup(device=None)``
 means the CUDA card, and raises when there is none.  Each worker's shard
 and the test set move to the device once, at setup.
 
-Not ported yet, and raising ``NotImplementedError``: checkpoints and
-``resume`` (ROADMAP A4) and ``server_mesh`` (A7).
+Not ported yet, and raising ``NotImplementedError``: ``server_mesh``
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -223,7 +223,10 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
            max_events: int = 200_000,
            checkpoint_every: Optional[int] = None,
            checkpoint_dir: Optional[str] = None,
-           resume: bool = False) -> List[HistoryPoint]:
+           checkpoint_keep: int = 3,
+           resume: bool = False,
+           stop_after_checkpoints: Optional[int] = None
+           ) -> List[HistoryPoint]:
     """One end-to-end FL run on the setup's device; returns the server's
     HistoryPoint sequence.
 
@@ -245,12 +248,20 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
     hierarchical federation (``core.topology``): ``"1xL"`` or an int is
     one root over ``L`` leaf servers, ``topology_kw`` overrides
     :class:`~repro_torch.core.topology.TopologyConfig` fields, and the
-    root's history is returned; ``"1x1"`` is the single-server run."""
+    root's history is returned; ``"1x1"`` is the single-server run.
+
+    ``checkpoint_every=k`` saves a crash-consistent
+    :class:`~repro_torch.checkpoint.FederationSnapshot` to
+    ``checkpoint_dir`` every time the server version crosses a multiple
+    of ``k`` (the newest ``checkpoint_keep`` readable ones are kept);
+    ``resume=True`` restores the newest readable snapshot there into the
+    freshly built federation and continues, bit-identically to the
+    uninterrupted run on loss-free links.  ``stop_after_checkpoints``
+    stops right after that many saves (the kill-at-checkpoint harness).
+    ``max_events`` counts across the segments."""
     if partition is not None:
         setup = repartition_setup(setup, partition=partition,
                                   **(partition_kw or {}))
-    if checkpoint_every is not None or checkpoint_dir is not None or resume:
-        _not_ported("checkpointing and resume", "A4")
     if topology is not None:
         from .topology import parse_topology, run_fl_topology
         res = run_fl_topology(
@@ -265,7 +276,9 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
             transport_down=transport_down, transport_frac=transport_frac,
             server_mesh=server_mesh, cohort=cohort, cohort_seed=cohort_seed,
             server_opt=server_opt, server_opt_kw=server_opt_kw,
-            max_events=max_events)
+            max_events=max_events, checkpoint_every=checkpoint_every,
+            checkpoint_dir=checkpoint_dir, checkpoint_keep=checkpoint_keep,
+            resume=resume, stop_after_checkpoints=stop_after_checkpoints)
         return res.root_history
     loop, server = build_experiment(
         setup, mode=mode, selector=selector, aggregator=aggregator,
@@ -278,8 +291,19 @@ def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
         transport_down=transport_down, transport_frac=transport_frac,
         server_mesh=server_mesh, cohort=cohort, cohort_seed=cohort_seed,
         server_opt=server_opt, server_opt_kw=server_opt_kw)
-    server.start()
-    loop.run(max_events=max_events)
+    if resume or checkpoint_every is not None:
+        from repro_torch.checkpoint.snapshot import (FederationSnapshot,
+                                                     run_checkpointed)
+        run_checkpointed(
+            loop, server.start, lambda: server.version,
+            lambda: FederationSnapshot.capture_run(loop, server),
+            lambda snap: snap.restore_run(loop, server),
+            checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+            checkpoint_keep=checkpoint_keep, resume=resume,
+            max_events=max_events, stop_after=stop_after_checkpoints)
+    else:
+        server.start()
+        loop.run(max_events=max_events)
     if loop.exhausted:
         raise RuntimeError(
             f"event loop exhausted max_events={max_events} with work "

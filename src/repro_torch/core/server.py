@@ -26,8 +26,12 @@ server reports every aggregate and its completion upward, and
 ``hold``/``release``/``install_global`` gate dispatch around the root's
 replacement of its model.
 
-Not ported yet: the sharded substrate (ROADMAP A7) and the checkpoint
-timers' resume (A4).
+The pending straggler timeout and no-op-round re-dispatch keep their
+event handles (``_timeout_ev``, ``_noop_ev``), so a checkpoint can
+serialize them and ``resume_round_timeout``/``resume_noop_dispatch``
+re-create them.
+
+Not ported yet: the sharded substrate (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -160,6 +164,12 @@ class AggregationServer:
         self._outstanding: set = set()
         self._round_open = False
         self._round_id = 0
+        # pending-timer handles (checkpoint bookkeeping): the live event of
+        # the current round's straggler timeout and of the no-op round's
+        # re-dispatch, so a snapshot can serialize and re-create them
+        self._timeout_ev = None
+        self._timeout_rid = 0
+        self._noop_ev = None
         self.history: List[HistoryPoint] = [
             HistoryPoint(0.0, 0, float(eval_fn(weights)), 0, 0)]
         self.done = False
@@ -283,7 +293,7 @@ class AggregationServer:
             self.history.append(self._point(acc, 0))
             self.transport.note_round(self.history[-1])
             self.version += 1
-            self.loop.schedule(1e-3, self._dispatch_round)
+            self._noop_ev = self.loop.schedule(1e-3, self._noop_dispatch)
             return
         self._outstanding = set(selected)
         self._round_open = True
@@ -301,7 +311,8 @@ class AggregationServer:
                                             down_b[w]) +
                         self.est.t_transmit(self.workers[w].profile, up_b)
                         for w in selected)
-            self.loop.schedule(
+            self._timeout_rid = rid
+            self._timeout_ev = self.loop.schedule(
                 self.straggler_timeout_factor * max(t_max, 1e-3),
                 self._round_timeout, rid)
 
@@ -429,7 +440,27 @@ class AggregationServer:
                 if not self.done:
                     self._dispatch_round()
 
+    def _noop_dispatch(self):
+        """The deferred re-dispatch of an empty-selection round (tracked so
+        a snapshot can serialize the pending timer)."""
+        self._noop_ev = None
+        self._dispatch_round()
+
+    def resume_noop_dispatch(self, t_abs: float):
+        """Re-create a snapshotted no-op-round re-dispatch timer.  Consumes
+        exactly one ``loop.schedule_abs`` call (see
+        :meth:`FLWorker.resume_conversation`)."""
+        self._noop_ev = self.loop.schedule_abs(t_abs, self._noop_dispatch)
+
+    def resume_round_timeout(self, rid: int, t_abs: float):
+        """Re-create a snapshotted straggler-timeout timer (one schedule)."""
+        self._timeout_rid = rid
+        self._timeout_ev = self.loop.schedule_abs(t_abs,
+                                                  self._round_timeout, rid)
+
     def _round_timeout(self, rid: int):
+        if rid == self._timeout_rid:
+            self._timeout_ev = None
         if self.done or rid != self._round_id or not self._round_open:
             return
         if self.mode == "sync" and self._outstanding:

@@ -31,9 +31,13 @@ most senior surviving leaf is promoted in place, every survivor re-parents
 to the promoted root's fresh transport, and the first dispatch to each is
 a delta against the global it holds.
 
-Not ported yet: the checkpoint resume seams (``resume_push``,
-``resume_fan``, ``resume_done_settled``; ROADMAP A4) and ``server_mesh``
-(A7).
+Each in-flight push and fan-out keeps a record (``push_rec``,
+``fan_rec``) of the inputs its delivery consumes, so a checkpoint can
+serialize the leg and ``resume_push``/``resume_fan``/
+``resume_done_settled`` re-create it; ``run_fl_topology`` takes the
+checkpoint arguments of ``run_fl``.
+
+Not ported yet: ``server_mesh`` (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -119,8 +123,8 @@ class _Leaf:
 
     __slots__ = ("lid", "server", "link", "bandwidth", "dead", "started",
                  "agg_since_push", "n_data_since_push", "push_inflight",
-                 "fan_inflight", "done_settling", "base_root_version",
-                 "merged_base")
+                 "fan_inflight", "push_rec", "fan_rec", "done_settling",
+                 "base_root_version", "merged_base")
 
     def __init__(self, lid: str, server: AggregationServer, link,
                  bandwidth: float):
@@ -134,6 +138,8 @@ class _Leaf:
         self.n_data_since_push = 0    # worker updates folded in since then
         self.push_inflight = None     # leaf->root Payload in flight
         self.fan_inflight = None      # root->leaf Payload in flight
+        self.push_rec = None          # checkpoint record of the push leg
+        self.fan_rec = None           # checkpoint record of the fan leg
         self.done_settling = None     # pending _leaf_done_settled event
         self.base_root_version = 0    # root version the leaf last installed
         # the leaf model of this leaf's most recently MERGED push: what the
@@ -306,21 +312,32 @@ class Topology:
         lf.agg_since_push = 0
         lf.n_data_since_push = 0
         lf.push_inflight = payload
-        transport_mod.transmit(
+        rec = {"payload": payload, "base_rv": base_rv, "n_data": n_data,
+               "snap": snap, "ev": None}
+        lf.push_rec = rec
+        rec["ev"] = transport_mod.transmit(
             self.loop, lf.link, payload,
             payload.wire_bytes / max(lf.bandwidth, 1.0),
             lambda: self._push_arrive(lf, payload, base_rv, n_data, snap),
             direction="up")
 
     def resume_push(self, lf: _Leaf, rec: dict, t_abs: float):
-        """Re-create a snapshotted in-flight push leg: not ported yet."""
-        _not_ported("resuming a topology push from a checkpoint", "A4")
+        """Re-create a snapshotted in-flight push leg (one schedule)."""
+        payload = rec["payload"]
+        lf.push_inflight = payload
+        lf.push_rec = rec
+        base_rv, n_data, snap = rec["base_rv"], rec["n_data"], rec["snap"]
+        rec["ev"] = transport_mod.resume_transmit(
+            self.loop, lf.link, payload, t_abs,
+            lambda: self._push_arrive(lf, payload, base_rv, n_data, snap),
+            direction="up")
 
     def _push_arrive(self, lf: _Leaf, payload, base_rv: int, n_data: int,
                      snap):
         if lf.push_inflight is not payload:
             return        # cancelled (leaf died mid-push); EF already reverted
         lf.push_inflight = None
+        lf.push_rec = None
         if self.done:
             lf.link.restore_uplink(payload)
             return
@@ -405,24 +422,35 @@ class Topology:
         # pin the rebase snapshot at dispatch: THIS global contains only
         # the snapshot merged so far
         v_enc, base = self.version, lf.merged_base
-        transport_mod.transmit(
+        rec = {"payload": payload, "v_enc": v_enc, "base": base, "ev": None}
+        lf.fan_rec = rec
+        rec["ev"] = transport_mod.transmit(
             self.loop, lf.link, payload,
             payload.wire_bytes / max(lf.bandwidth, 1.0),
             lambda: self._fan_arrive(lf, payload, v_enc, base),
             direction="down")
 
     def resume_fan(self, lf: _Leaf, rec: dict, t_abs: float):
-        """Re-create a snapshotted in-flight fan-out leg: not ported yet."""
-        _not_ported("resuming a topology fan-out from a checkpoint", "A4")
+        """Re-create a snapshotted in-flight fan-out leg (one schedule)."""
+        payload = rec["payload"]
+        lf.fan_inflight = payload
+        lf.fan_rec = rec
+        v_enc, base = rec["v_enc"], rec["base"]
+        rec["ev"] = transport_mod.resume_transmit(
+            self.loop, lf.link, payload, t_abs,
+            lambda: self._fan_arrive(lf, payload, v_enc, base),
+            direction="down")
 
     def resume_done_settled(self, lf: _Leaf, t_abs: float):
-        """Re-create a snapshotted leaf-done settle: not ported yet."""
-        _not_ported("resuming a topology settle from a checkpoint", "A4")
+        """Re-create a snapshotted pending leaf-done settle (one schedule)."""
+        lf.done_settling = self.loop.schedule_abs(
+            t_abs, self._leaf_done_settled, lf)
 
     def _fan_arrive(self, lf: _Leaf, payload, v_enc: int, base=None):
         if lf.fan_inflight is not payload:
             return        # cancelled (leaf died mid-fetch); ack untouched
         lf.fan_inflight = None
+        lf.fan_rec = None
         if lf.dead or lf.server.done:
             # never delivered: the ack must not advance, the downlink EF
             # revert chain unlinks this encode
@@ -462,9 +490,11 @@ class Topology:
         if lf.push_inflight is not None:
             lf.link.restore_uplink(lf.push_inflight)
             lf.push_inflight = None
+            lf.push_rec = None
         if lf.fan_inflight is not None:
             lf.link.restore_downlink(lf.fan_inflight)
             lf.fan_inflight = None
+            lf.fan_rec = None
         if self.cfg.push == "sync":
             self._maybe_sync_merge()
         self._check_done()
@@ -489,9 +519,11 @@ class Topology:
             if lf.push_inflight is not None:
                 lf.link.restore_uplink(lf.push_inflight)
                 lf.push_inflight = None
+                lf.push_rec = None
             if lf.fan_inflight is not None:
                 lf.link.restore_downlink(lf.fan_inflight)
                 lf.fan_inflight = None
+                lf.fan_rec = None
         self._pending.clear()
         if not self.cfg.root_failover:
             self._finish_all()
@@ -671,19 +703,41 @@ def run_fl_topology(setup, *, topology,
                     max_events: int = 200_000,
                     checkpoint_every: Optional[int] = None,
                     checkpoint_dir: Optional[str] = None,
-                    resume: bool = False, **kw) -> TopologyResult:
+                    checkpoint_keep: int = 3,
+                    resume: bool = False,
+                    stop_after_checkpoints: Optional[int] = None,
+                    **kw) -> TopologyResult:
     """Build and run one hierarchical FL experiment end to end.  ``kw``
     mirrors ``run_fl``'s per-server kwargs; ``on_build`` runs after
     construction and before the first dispatch (fault schedules and lossy
-    links are installed through it).  Checkpointing raises (ROADMAP
-    A4)."""
-    if checkpoint_every is not None or checkpoint_dir is not None or resume:
-        _not_ported("checkpointing and resume", "A4")
+    links are installed through it; on a ``resume=True`` run it must NOT
+    re-apply past fault schedules: the snapshot already carries the
+    injected reliability and audit state).
+    ``checkpoint_every``/``checkpoint_dir``/``resume`` snapshot and
+    restore the FULL topology state at global-version boundaries (the
+    leaf version in passthrough, where there is no root counter), as
+    ``run_fl``'s do."""
     loop, topo = build_topology(setup, topology=topology, **kw)
     if on_build is not None:
         on_build(topo)
-    topo.start()
-    loop.run(max_events=max_events)
+    if resume or checkpoint_every is not None:
+        from repro_torch.checkpoint.snapshot import (FederationSnapshot,
+                                                     run_checkpointed)
+        if topo.cfg.passthrough:
+            (only,) = topo.leaves.values()
+            version_fn = lambda: only.server.version
+        else:
+            version_fn = lambda: topo.version
+        run_checkpointed(
+            loop, topo.start, version_fn,
+            lambda: FederationSnapshot.capture_topology(loop, topo),
+            lambda snap: snap.restore_topology(loop, topo),
+            checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+            checkpoint_keep=checkpoint_keep, resume=resume,
+            max_events=max_events, stop_after=stop_after_checkpoints)
+    else:
+        topo.start()
+        loop.run(max_events=max_events)
     if loop.exhausted:
         raise RuntimeError(
             f"event loop exhausted max_events={max_events} with work "

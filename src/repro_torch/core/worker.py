@@ -10,8 +10,12 @@ Every send goes through ``transport.transmit`` with its direction and
 link, so a lossy link (``LinkReliability``) drops, duplicates and
 retransmits it; on a perfect wire each leg is one scheduled event.
 
-Not ported yet: the checkpoint bookkeeping of in-flight conversations and
-``resume_conversation`` (ROADMAP A4).
+Every in-flight train conversation keeps a phase record in ``_conv``
+(fetch -> train -> send), holding exactly the inputs the pending event will
+consume when it fires.  A checkpoint reads those records to serialize the
+leg; :meth:`FLWorker.resume_conversation` re-creates the pending event
+from one, bit-identically.  The records are pure bookkeeping: no
+behaviour of the live run reads them.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Callable, Dict, List, Optional
 
 from .estimator import WorkerProfile
 from .events import EventLoop
-from .transport import Link, Payload, transmit
+from .transport import Link, Payload, resume_transmit, transmit
 from .warehouse import DataWarehouse, Pointer
 
 
@@ -39,7 +43,7 @@ class TrainResult:
 class FLWorker:
     __slots__ = ("worker_id", "address", "profile", "data", "train_fn",
                  "loop", "warehouse", "server_pointers", "_inflight",
-                 "_fetching", "busy", "_per_batch_time")
+                 "_fetching", "_conv", "busy", "_per_batch_time")
 
     def __init__(self, worker_id: str, *, profile: WorkerProfile,
                  data: Dict, train_fn: Callable, loop: EventLoop,
@@ -58,6 +62,8 @@ class FLWorker:
         # in-flight downlink fetch per server: (payload, link) from dispatch
         # until the fetch-complete event
         self._fetching: Dict[Pointer, tuple] = {}
+        # per-server conversation phase record (checkpoint bookkeeping)
+        self._conv: Dict[Pointer, dict] = {}
         self.busy = False
         # ground-truth speed (may differ from the estimator's eq-3.4 guess)
         self._per_batch_time = per_batch_time if per_batch_time is not None \
@@ -84,11 +90,17 @@ class FLWorker:
         fetch = self._fetching.pop(server_pointer, None)
         if fetch is not None:
             down, link = fetch
+            rec = self._conv.get(server_pointer)
+            if rec is not None and rec.get("down") is down:
+                self._conv.pop(server_pointer)
             link.restore_downlink(down)
             self.busy = False
         entry = self._inflight.pop(server_pointer, None)
         if entry is not None:
             ticket, up, link = entry
+            rec = self._conv.get(server_pointer)
+            if rec is not None and rec.get("ticket") == ticket:
+                self._conv.pop(server_pointer)
             self.warehouse.revoke_ticket(ticket)
             link.restore_uplink(up)
 
@@ -123,11 +135,15 @@ class FLWorker:
             # the channel must deliver before the worker can decode, and
             # the staged event is what transmit() retransmits against
             self._fetching[server_pointer] = (down, link)
-            transmit(self.loop, link, down, t_fetch,
-                     lambda: self._fetch_done(server_pointer, down,
-                                              base_version, epochs, link,
-                                              on_done),
-                     direction="down")
+            rec = {"phase": "fetch", "down": down,
+                   "base_version": base_version, "epochs": epochs,
+                   "ev": None}
+            self._conv[server_pointer] = rec
+            rec["ev"] = transmit(
+                self.loop, link, down, t_fetch,
+                lambda: self._fetch_done(server_pointer, down, base_version,
+                                         epochs, link, on_done),
+                direction="down")
             return
         weights = link.decode_down(down)
         self._after_fetch(server_pointer, weights, base_version, epochs,
@@ -139,6 +155,9 @@ class FLWorker:
         if entry is None or entry[0] is not down:
             return      # this fetch was cancelled (round closed)
         self._fetching.pop(server_pointer)
+        rec = self._conv.get(server_pointer)
+        if rec is not None and rec.get("down") is down:
+            self._conv.pop(server_pointer)
         if self.profile.failed:          # died mid-fetch: never received
             link.restore_downlink(down)
             self.busy = False
@@ -170,70 +189,143 @@ class FLWorker:
         if up_bytes is not None and link.reliability is None:
             # one event for the rest, only on a perfect wire: a lossy
             # uplink needs the staged in-flight record to retransmit
-            self.loop.schedule(
-                t_fetch + t_train + self.true_t_transmit(up_bytes),
-                self._finish, server_pointer, link, on_done, weights,
-                base_version, epochs, t_train, up_bytes)
+            rec = {"phase": "train_fast", "weights": weights,
+                   "base_version": base_version, "epochs": epochs,
+                   "up_bytes": up_bytes, "t_train": t_train, "ev": None}
+            self._conv[server_pointer] = rec
+            self._schedule_finish(server_pointer, link, on_done, rec,
+                                  t_fetch + t_train +
+                                  self.true_t_transmit(up_bytes))
             return
-        self.loop.schedule(t_fetch + t_train, self._train_then_send,
-                           server_pointer, link, on_done, weights,
-                           base_version, epochs, t_train)
+        rec = {"phase": "train", "weights": weights,
+               "base_version": base_version, "epochs": epochs,
+               "t_train": t_train, "ev": None}
+        self._conv[server_pointer] = rec
+        self._schedule_train_send(server_pointer, link, on_done, rec,
+                                  t_fetch + t_train)
 
-    def _finish(self, server_pointer, link, on_done, weights, base_version,
-                epochs, t_train, up_bytes):
-        # died mid-training, or the server dropped this worker
-        if self.profile.failed or not self.accepts(server_pointer):
-            self.busy = False
-            return
-        up = link.encode_up(self._train(weights, epochs))
-        if up.wire_bytes != up_bytes:
-            raise RuntimeError(f"uplink size {up.wire_bytes} != the "
-                               f"upfront {up_bytes}")
-        ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
-        self.busy = False
-        on_done(TrainResult(self.worker_id, ticket, base_version, epochs,
-                            self.profile.n_batches, t_train,
-                            t_up=self.true_t_transmit(up.wire_bytes),
-                            up_bytes=up.wire_bytes))
+    def _schedule_finish(self, server_pointer: Pointer, link: Link,
+                         on_done, rec: dict, delay: float, *,
+                         at_abs: Optional[float] = None):
+        weights, epochs = rec["weights"], rec["epochs"]
+        base_version, t_train = rec["base_version"], rec["t_train"]
+        up_bytes = rec["up_bytes"]
 
-    def _train_then_send(self, server_pointer, link, on_done, weights,
-                         base_version, epochs, t_train):
-        if self.profile.failed or not self.accepts(server_pointer):
-            self.busy = False
-            return
-        up = link.encode_up(self._train(weights, epochs))
-        ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
-        self._inflight[server_pointer] = (ticket, up, link)
-        t_up = self.true_t_transmit(up.wire_bytes)
-        transmit(self.loop, link, up, t_up,
-                 lambda: self._send(server_pointer, link, on_done, ticket,
-                                    up, base_version, epochs, t_train, t_up),
-                 direction="up")
-
-    def _send(self, server_pointer, link, on_done, ticket, up, base_version,
-              epochs, t_train, t_up):
-        entry = self._inflight.get(server_pointer)
-        if entry is None or entry[0] != ticket:
-            # cancelled (round closed; ticket revoked, EF mass restored);
-            # a newer dispatch may already own the in-flight slot
-            if entry is None:
+        def _finish():
+            if self._conv.get(server_pointer) is rec:
+                self._conv.pop(server_pointer)
+            # died mid-training, or the server dropped this worker
+            if self.profile.failed or not self.accepts(server_pointer):
                 self.busy = False
-            return
-        self._inflight.pop(server_pointer)
-        if self.profile.failed:      # died mid-transmit
-            self.warehouse.revoke_ticket(ticket)
-            link.restore_uplink(up)
+                return
+            up = link.encode_up(self._train(weights, epochs))
+            if up.wire_bytes != up_bytes:
+                raise RuntimeError(f"uplink size {up.wire_bytes} != the "
+                                   f"upfront {up_bytes}")
+            ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
             self.busy = False
-            return
-        self.busy = False
-        on_done(TrainResult(self.worker_id, ticket, base_version, epochs,
-                            self.profile.n_batches, t_train, t_up=t_up,
-                            up_bytes=up.wire_bytes))
+            on_done(TrainResult(self.worker_id, ticket, base_version,
+                                epochs, self.profile.n_batches, t_train,
+                                t_up=self.true_t_transmit(up.wire_bytes),
+                                up_bytes=up.wire_bytes))
+        rec["ev"] = (self.loop.schedule_abs(at_abs, _finish)
+                     if at_abs is not None
+                     else self.loop.schedule(delay, _finish))
+
+    def _schedule_train_send(self, server_pointer: Pointer, link: Link,
+                             on_done, rec: dict, delay: float, *,
+                             at_abs: Optional[float] = None):
+        weights, epochs = rec["weights"], rec["epochs"]
+        base_version, t_train = rec["base_version"], rec["t_train"]
+
+        def _train_then_send():
+            if self._conv.get(server_pointer) is rec:
+                self._conv.pop(server_pointer)
+            if self.profile.failed or not self.accepts(server_pointer):
+                self.busy = False
+                return
+            up = link.encode_up(self._train(weights, epochs))
+            ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
+            self._inflight[server_pointer] = (ticket, up, link)
+            t_up = self.true_t_transmit(up.wire_bytes)
+            srec = {"phase": "send", "ticket": ticket, "up": up,
+                    "base_version": base_version, "epochs": epochs,
+                    "t_train": t_train, "t_up": t_up, "ev": None}
+            self._conv[server_pointer] = srec
+            self._schedule_send(server_pointer, link, on_done, srec, t_up)
+        rec["ev"] = (self.loop.schedule_abs(at_abs, _train_then_send)
+                     if at_abs is not None
+                     else self.loop.schedule(delay, _train_then_send))
+
+    def _schedule_send(self, server_pointer: Pointer, link: Link, on_done,
+                       rec: dict, delay: float, *, resumed: bool = False,
+                       at_abs: Optional[float] = None):
+        ticket, up = rec["ticket"], rec["up"]
+        base_version, epochs = rec["base_version"], rec["epochs"]
+        t_train, t_up = rec["t_train"], rec["t_up"]
+
+        def _send():
+            entry = self._inflight.get(server_pointer)
+            if entry is None or entry[0] != ticket:
+                # cancelled (round closed; ticket revoked, EF mass
+                # restored); a newer dispatch may already own the slot
+                if entry is None:
+                    self.busy = False
+                return
+            self._inflight.pop(server_pointer)
+            if self._conv.get(server_pointer) is rec:
+                self._conv.pop(server_pointer)
+            if self.profile.failed:      # died mid-transmit
+                self.warehouse.revoke_ticket(ticket)
+                link.restore_uplink(up)
+                self.busy = False
+                return
+            self.busy = False
+            on_done(TrainResult(self.worker_id, ticket, base_version,
+                                epochs, self.profile.n_batches, t_train,
+                                t_up=t_up, up_bytes=up.wire_bytes))
+        if resumed:
+            # the send was booked by the transmit() before the snapshot:
+            # re-create only the delivery event
+            rec["ev"] = self._sched_delivery(link, up, _send, at_abs, "up")
+        else:
+            rec["ev"] = transmit(self.loop, link, up, delay, _send,
+                                 direction="up")
 
     # --- checkpoint/resume ---
+    def _sched_delivery(self, link: Link, payload: Payload, deliver,
+                        t_abs: float, direction: str):
+        return resume_transmit(self.loop, link, payload, t_abs, deliver,
+                               direction)
+
     def resume_conversation(self, server_pointer: Pointer, link: Link,
                             on_done, rec: dict, t_abs: float):
-        """Re-create one snapshotted in-flight leg: not ported yet."""
-        raise NotImplementedError(
-            "resuming a worker conversation from a checkpoint is not "
-            "ported yet (ROADMAP A4)")
+        """Re-create one snapshotted in-flight leg.  Consumes exactly one
+        ``loop.schedule_abs`` call, so the restore's sorted (time, seq)
+        replay keeps the original tie-break order, and the serialized
+        absolute deadline is replayed exactly."""
+        phase = rec["phase"]
+        self.busy = True
+        self._conv[server_pointer] = rec
+        if phase == "fetch":
+            down = rec["down"]
+            self._fetching[server_pointer] = (down, link)
+            rec["ev"] = self._sched_delivery(
+                link, down,
+                lambda: self._fetch_done(server_pointer, down,
+                                         rec["base_version"],
+                                         rec["epochs"], link, on_done),
+                t_abs, "down")
+        elif phase == "train_fast":
+            self._schedule_finish(server_pointer, link, on_done, rec, 0.0,
+                                  at_abs=t_abs)
+        elif phase == "train":
+            self._schedule_train_send(server_pointer, link, on_done, rec,
+                                      0.0, at_abs=t_abs)
+        elif phase == "send":
+            self._inflight[server_pointer] = (rec["ticket"], rec["up"],
+                                              link)
+            self._schedule_send(server_pointer, link, on_done, rec, 0.0,
+                                resumed=True, at_abs=t_abs)
+        else:
+            raise ValueError(f"unknown conversation phase: {phase!r}")

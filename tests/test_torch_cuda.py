@@ -36,6 +36,7 @@ ties, all zeros, k = 1 and k = n, the strided-sample and grid paths,
 misaligned views), with chip_smoke's controls failing, and a short run
 over top-k+int8 uplinks launching each as the FL path must.
 """
+import io
 import itertools
 import sys
 from pathlib import Path
@@ -841,3 +842,68 @@ def test_cuda_cohort_w_and_flat1x1_equal_the_single_server_run(h100):
     want = [vars(p) for p in run_fl(setup, **kw)]
     assert [vars(p) for p in run_fl(setup, cohort=10, **kw)] == want
     assert [vars(p) for p in run_fl(setup, topology="1x1", **kw)] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uplink_only/sync", "fedadam/async",
+                                  "topk/1x2"])
+def test_cuda_snapshot_round_trip_resumes_bit_for_bit(h100, case, tmp_path):
+    """A run on the card stopped after its first snapshot and resumed from
+    disk equals the uninterrupted card run in every field, accuracy bits
+    included; the snapshot's tensors are host copies (the file needs no
+    card to read), the restored ones live on the card, the responses
+    pinned to one model keep one base, and the resumed segment launches
+    the path's kernels."""
+    import pickle
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    setup = make_setup(TABLE_4_1["mnist_even"], seed=0, noise=0.25,
+                       batch_size=32, het="strong", device=h100)
+    kw = {"uplink_only/sync": dict(mode="sync", transport="topk_ef+int8",
+                                   transport_down="raw",
+                                   transport_frac=0.1),
+          "fedadam/async": dict(mode="async", async_alpha=0.9,
+                                async_latest_table=False,
+                                aggregator="linear", server_opt="fedadam",
+                                server_opt_kw={"lr": 0.05}),
+          "topk/1x2": dict(mode="sync", transport="topk_ef+int8",
+                           transport_frac=0.1, topology="1x2")}[case]
+    kw.update(epochs_per_round=3, max_rounds=4)
+    want = [vars(p) for p in run_fl(setup, **kw)]
+    d = str(tmp_path / "ckpt")
+    run_fl(setup, **kw, checkpoint_every=2, checkpoint_dir=d,
+           stop_after_checkpoints=1)
+    _, snap, _ = CheckpointManager(d).restore_latest()
+    tensors = []
+
+    class Spy(pickle.Pickler):
+        def persistent_id(self, o):
+            if isinstance(o, torch.Tensor):
+                tensors.append(o)
+            return None
+    Spy(io.BytesIO()).dump(snap)
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    if case != "topk/1x2":
+        from repro_torch.core import build_experiment
+        loop, server = build_experiment(setup, **kw)
+        snap.restore_run(loop, server)
+        assert all(t.device.type == "cuda" for t in server.weights.values())
+        assert server._flat._rows is None or \
+            server._flat._rows.device.type == "cuda"
+        cache = [u.weights for u in server._cache]
+        if case == "uplink_only/sync":
+            assert all(v.base is cache[0].base and v.q.is_cuda
+                       for v in cache)
+    zero = {k: 0 for k in fedavg_agg.LAUNCHES}
+    fedavg_agg.LAUNCHES.update(zero)
+    topk_quant.LAUNCHES.update({k: 0 for k in topk_quant.LAUNCHES})
+    got = [vars(p) for p in run_fl(setup, **kw, checkpoint_dir=d,
+                                   resume=True)]
+    assert got == want
+    if case == "fedadam/async":
+        assert fedavg_agg.LAUNCHES["merge_adam"] > 0
+    else:
+        assert fedavg_agg.LAUNCHES["agg"] > 0
+        assert topk_quant.LAUNCHES["ef_encode"] > 0
+        assert topk_quant.LAUNCHES["decode_rows"] > 0

@@ -46,7 +46,7 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.analytics, repro_torch.kernels.ops, "
             "repro_torch.kernels.rwkv6_kernel, repro_torch.models.rwkv6, "
             "repro_torch.core.autotune, repro_torch.core.topology, "
-            "repro_torch.runtime.faults\n"
+            "repro_torch.runtime.faults, repro_torch.checkpoint\n"
             "assert 'repro_torch.core.experiment' in sys.modules\n"
             "assert 'repro_torch.models.transformer' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -66,14 +66,15 @@ def test_make_setup_without_device_needs_the_card():
             make_setup(TABLE_4_1["mnist_even"])
 
 
-# topology and cohorts are ported; each still raises where it meets an
-# option that is not (checkpoints: ROADMAP A4; a sharded server: A7)
+# topology, cohorts and checkpoints are ported; each still raises where
+# it meets an option that is not (a sharded server: ROADMAP A7), and the
+# checkpoint options raise as the JAX package's do without a directory
 UNPORTED = [
-    (dict(topology="1x2", checkpoint_every=2, checkpoint_dir="ckpt"),
-     NotImplementedError, "ROADMAP A4"),
-    (dict(checkpoint_every=2, checkpoint_dir="ckpt"), NotImplementedError,
-     "ROADMAP A4"),
-    (dict(resume=True), NotImplementedError, "ROADMAP A4"),
+    (dict(topology="1x2", checkpoint_every=2), ValueError,
+     "checkpointing needs checkpoint_dir"),
+    (dict(checkpoint_every=2), ValueError,
+     "checkpointing needs checkpoint_dir"),
+    (dict(resume=True), ValueError, "checkpointing needs checkpoint_dir"),
     (dict(server_mesh=1), NotImplementedError, "ROADMAP A7"),
     (dict(cohort=4, server_mesh=1), NotImplementedError, "ROADMAP A7"),
     # the three server optimizers are ported; any other name raises

@@ -4,8 +4,9 @@
 ``layers.rmsnorm_init`` / ``glu_mlp_init`` / ``embed_init``, the MLP
 entry points' default device (the card, as every entry point's), the
 public names of the auto tuner, lossy links, topology and fault tools,
-and each raise that remains naming its current ROADMAP step
-(checkpoints A4, the sharded substrate A7).
+and of the checkpoint slice (A4), whose entry points and resume seams
+now run under the JAX package's signatures, and each raise that remains
+naming its current ROADMAP step (the sharded substrate A7).
 
 Tolerances: the FedProx wrapper's parameters within 1e-5 of JAX's after
 three epochs (tests/test_torch_mlp.py's bound); byte counts and shapes
@@ -13,6 +14,8 @@ exact; the random inits' spread within 5% of the scale they are drawn at
 (the generators differ, so only the distribution can match).
 """
 import dataclasses
+import inspect
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,7 @@ from repro.models import cnn as jcnn
 from repro.models import layers as jlayers
 from repro.models import mlp as jmlp
 from repro_torch.core import TABLE_4_1, experiment, make_setup, run_fl
-from repro_torch.core import server, transport
+from repro_torch.core import build_experiment, server, transport
 from repro_torch.models import cnn, layers, mlp
 
 
@@ -113,34 +116,108 @@ def test_mlp_entry_points_default_to_the_card(monkeypatch):
             fn()
 
 
-def _raises_of_unported():
-    """Each raise that remains in the port, with the ROADMAP step it names:
-    checkpoints and their resume seams (A4), the sharded substrate (A7)."""
+def _same_signature(fn, jfn) -> bool:
+    """Parameter names, kinds and defaults equal to the JAX package's."""
+    def params(f):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(f).parameters.values()]
+    return params(fn) == params(jfn)
+
+
+def _entry_points(tmp_path):
+    """Each entry point that raised until its ROADMAP step was ported, with
+    the step: the checkpoints and their resume seams (A4) now run, each
+    under the JAX package's signature; the sharded substrate (A7) still
+    raises."""
+    from repro.core import experiment as jexperiment
+    from repro.core import topology as jtopology
+    from repro.core import worker as jworker
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import flatbuf, topology
-    from repro_torch.core.warehouse import Pointer
     from repro_torch.core.worker import FLWorker
     setup = make_setup(TABLE_4_1["mnist_even"], device="cpu")
-    _, topo = topology.build_topology(setup, topology="1x2")
-    lf = topo.leaves["leaf0"]
-    w = FLWorker("w0", profile=setup.profiles[0], data={}, train_fn=None,
-                 loop=topo.loop)
+    kw = dict(max_rounds=2, epochs_per_round=1)
+
+    def records(h):
+        return [vars(p) for p in h]
+
+    def checkpointed(topo=None):
+        d = str(tmp_path / "c")
+        extra = {} if topo is None else {"topology": topo}
+        h = run_fl(setup, **kw, **extra, checkpoint_every=1,
+                   checkpoint_dir=d)
+        assert records(h) == records(run_fl(setup, **kw, **extra))
+        assert CheckpointManager(d).steps() == [1]
+        assert _same_signature(run_fl, jexperiment.run_fl)
+
+    def resumed():
+        d = str(tmp_path / "r")
+        run_fl(setup, **kw, checkpoint_every=1, checkpoint_dir=d,
+               stop_after_checkpoints=1)
+        h = run_fl(setup, **kw, checkpoint_dir=d, resume=True)
+        assert records(h) == records(run_fl(setup, **kw))
+
+    def topology_resumed():
+        d = str(tmp_path / "t")
+        run = topology.run_fl_topology
+        run(setup, topology="1x2", **kw, checkpoint_every=1,
+            checkpoint_dir=d, stop_after_checkpoints=1)
+        res = run(setup, topology="1x2", **kw, checkpoint_dir=d,
+                  resume=True)
+        full = run(setup, topology="1x2", **kw)
+        assert records(res.root_history) == records(full.root_history)
+        assert _same_signature(run, jtopology.run_fl_topology)
+
+    def seam(name):
+        """A resume seam re-creates its leg at the exact deadline with one
+        event, and keeps the record it was given."""
+        loop, topo = topology.build_topology(setup, topology="1x2")
+        lf = topo.leaves["leaf0"]
+        payload = transport.Payload("raw", 1, setup.weights0)
+        rec = {"payload": payload, "base_rv": 0, "n_data": 1,
+               "snap": setup.weights0, "v_enc": 0, "base": None}
+        t = 0.1 + 2 ** -30
+        if name == "resume_done_settled":
+            topo.resume_done_settled(lf, t)
+            ev = lf.done_settling
+        else:
+            getattr(topo, name)(lf, rec, t)
+            ev = rec["ev"]
+            if name == "resume_push":
+                assert lf.push_inflight is payload and lf.push_rec is rec
+            else:
+                assert lf.fan_inflight is payload and lf.fan_rec is rec
+        assert ev.time == t and len(loop._q) == 1
+        assert _same_signature(getattr(topology.Topology, name),
+                               getattr(jtopology.Topology, name))
+
+    def conversation():
+        loop, server = build_experiment(setup, **kw)
+        w = server.workers["w0"]
+        link = server.transport.link("w0")
+        rec = {"phase": "train_fast", "weights": setup.weights0,
+               "base_version": 0, "epochs": 1, "up_bytes": 1,
+               "t_train": 0.0}
+        w.resume_conversation(server.pointer, link, server._on_response,
+                              rec, 0.25)
+        assert w.busy and w._conv[server.pointer] is rec
+        assert rec["ev"].time == 0.25 and len(loop._q) == 1
+        with pytest.raises(ValueError, match="unknown conversation phase"):
+            w.resume_conversation(server.pointer, link, None,
+                                  {"phase": "nap"}, 0.3)
+        assert _same_signature(FLWorker.resume_conversation,
+                               jworker.FLWorker.resume_conversation)
+
     return {
-        "run_fl checkpoint_every": ("A4", lambda: run_fl(
-            setup, max_rounds=1, checkpoint_every=1, checkpoint_dir="c")),
-        "run_fl resume": ("A4", lambda: run_fl(setup, max_rounds=1,
-                                               resume=True)),
-        "run_fl topology checkpoint": ("A4", lambda: run_fl(
-            setup, max_rounds=1, topology="1x2", checkpoint_every=1,
-            checkpoint_dir="c")),
-        "run_fl_topology resume": ("A4", lambda: topology.run_fl_topology(
-            setup, topology="1x2", resume=True)),
-        "Topology.resume_push": ("A4", lambda: topo.resume_push(lf, {}, 0.0)),
-        "Topology.resume_fan": ("A4", lambda: topo.resume_fan(lf, {}, 0.0)),
+        "run_fl checkpoint_every": ("A4", checkpointed),
+        "run_fl resume": ("A4", resumed),
+        "run_fl topology checkpoint": ("A4", lambda: checkpointed("1x2")),
+        "run_fl_topology resume": ("A4", topology_resumed),
+        "Topology.resume_push": ("A4", lambda: seam("resume_push")),
+        "Topology.resume_fan": ("A4", lambda: seam("resume_fan")),
         "Topology.resume_done_settled": (
-            "A4", lambda: topo.resume_done_settled(lf, 0.0)),
-        "FLWorker.resume_conversation": (
-            "A4", lambda: w.resume_conversation(Pointer("s", "u"), None,
-                                                None, {}, 0.0)),
+            "A4", lambda: seam("resume_done_settled")),
+        "FLWorker.resume_conversation": ("A4", conversation),
         "run_fl server_mesh": ("A7", lambda: run_fl(setup, max_rounds=1,
                                                     server_mesh=1)),
         "run_fl_topology server_mesh": (
@@ -159,13 +236,61 @@ UNPORTED_RAISES = sorted((
     "Topology.resume_done_settled", "FLWorker.resume_conversation",
     "run_fl server_mesh", "run_fl_topology server_mesh", "ParamBundle mesh",
     "Transport mesh"))
+PORTED_STEPS = ("A4",)
 
 
 @pytest.mark.parametrize("name", UNPORTED_RAISES)
-def test_unported_raises_name_the_current_roadmap_step(name):
-    step, call = _raises_of_unported()[name]
+def test_unported_raises_name_the_current_roadmap_step(name, tmp_path):
+    """Each entry point that raised names its ROADMAP step while the step
+    is open; once the step is ported (``PORTED_STEPS``) the entry point
+    runs under the JAX package's signature."""
+    step, call = _entry_points(tmp_path)[name]
+    if step in PORTED_STEPS:
+        call()
+        return
     with pytest.raises(NotImplementedError, match=rf"\(ROADMAP {step}\)"):
         call()
+
+
+def test_no_raise_names_a_ported_step():
+    """No ``NotImplementedError`` of the port names a ported step."""
+    root = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    for path in root.rglob("*.py"):
+        text = path.read_text()
+        for step in PORTED_STEPS:
+            assert f'"{step}")' not in text and \
+                f"ROADMAP {step})" not in text, (path, step)
+
+
+def test_checkpoint_slice_keeps_the_references_public_names():
+    """ROADMAP A4: the checkpoint package, the manager's and the
+    snapshot's methods, ``drive_checkpointed`` and the server's resume
+    seams, each under the JAX package's name and signature."""
+    import repro.checkpoint as jcheckpoint
+    from repro.checkpoint import manager as jmanager
+    from repro.checkpoint import snapshot as jsnapshot
+    from repro.core import server as jserver_mod
+    import repro_torch.checkpoint as checkpoint
+    from repro_torch.checkpoint import manager, snapshot
+    assert checkpoint.__all__ == jcheckpoint.__all__
+    assert manager.FederationSnapshot is snapshot.FederationSnapshot
+    for name in ("__init__", "save", "restore", "restore_latest", "steps",
+                 "_gc", "_readable", "_sweep_tmp", "_path"):
+        assert _same_signature(getattr(manager.CheckpointManager, name),
+                               getattr(jmanager.CheckpointManager, name))
+    snap, jsnap = snapshot.FederationSnapshot, jsnapshot.FederationSnapshot
+    assert [f.name for f in dataclasses.fields(snap)] == \
+        [f.name for f in dataclasses.fields(jsnap)]
+    for name in ("capture_run", "capture_topology", "restore_run",
+                 "restore_topology", "_replay", "_rekick"):
+        assert _same_signature(getattr(snap, name), getattr(jsnap, name))
+    assert _same_signature(snapshot.drive_checkpointed,
+                           jsnapshot.drive_checkpointed)
+    assert snapshot._LANES == jsnapshot._LANES
+    for name in ("resume_noop_dispatch", "resume_round_timeout",
+                 "_noop_dispatch"):
+        assert _same_signature(getattr(server.AggregationServer, name),
+                               getattr(jserver_mod.AggregationServer, name))
 
 
 def test_ported_slice_keeps_the_references_public_names():
