@@ -135,7 +135,30 @@ follow the numerics).
    each kernel of ``RESUME_REQUIRED``; the chaos run's
    ``audit_chaos_run`` must close.  Reports each snapshot's bytes and the
    seconds of its capture, of reading it and of the restore.
-9. LM serving: gemma2-2b at full width and depth (26 layers, seeded
+9. Shard (``run_shard``): the sharded aggregation substrate (B7) on
+   meshes of D = 1, 2 and 4 that repeat the one card
+   (``agg_mesh(devices=...)``).  ``check_b7``: each B7 wrapper
+   (the mix at s = ``B7_S`` in the merge path's form,
+   ``fedavg_mix_wvec_sharded``, the reference's ``fedavg_mix_flat_sharded``
+   held equal to it; ``fedavg_agg_flat_sharded``, ``merge_opt_flat_sharded`` in its
+   momentum form behind the aggregate and its adam form behind the mix,
+   ``server_opt_step_flat_sharded`` in both forms) at each (W, N) of
+   ``B7_SIZES`` (256 x 16,777,216: 17.2 GB of rows; the main path's MLP
+   padded for D = 4 at W = 30 and W = 1), bit for bit equal to the
+   unsharded kernel on the same data and to the plain sharded version,
+   each ``B7_FAULTS`` control failing (checked at small sizes in the
+   tests); timed with L2 flushed, D = 1 in turns with the unsharded
+   kernel and ``torch.addmv``/``torch.mv``, D > 1 with the unsharded
+   kernel, beside the byte bound.  Then each ``SHARD_RUNS`` run at MNIST
+   width (phase 4's setup, ``SHARD_ROUNDS`` rounds) unsharded and at
+   ``server_mesh`` 1, 2 and 4, counters at 0 before each run: every
+   sharded history equals the unsharded one in every field, accuracy
+   bits included (the topology's root and leaves), each merge kernel and
+   ``dequant_add_rows`` launches D times the unsharded run's, the codec
+   as often as there, and B5 never; then ``SHARD_RESUME`` stopped at its
+   first snapshot and resumed in this process, equal to the unsharded
+   run.
+10. LM serving: gemma2-2b at full width and depth (26 layers, seeded
    random weights on the card), attention through kernel B8: prefill of
    2 prompts of 8192 tokens from ``synthetic_token_batches`` (cut from
    ``SHAPES["prefill_32k"]``: batch 32 -> 2, 32,768 -> 8192 tokens), then
@@ -150,8 +173,8 @@ follow the numerics).
    (``LM_FAULTS``); those in ``LM_CAUGHT`` must fail it.  Reports prefill
    seconds and tokens/s, decode seconds per step, peak device memory and
    the prefill's model FLOPs over its time as a share of the bf16 peak.
-10. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
-   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 9 is:
+11. rwkv6: rwkv6-3b at full width and depth (32 layers, seeded random
+   weights on the card), cut from ``SHAPES["prefill_32k"]`` as phase 10 is:
    prefill of 2 prompts of 8192 tokens, then 64 greedy decode steps,
    every counter at 0 before and read after.  The prefill's blocks run B9
    in its state form (chunk 64): exactly one launch a layer after the
@@ -166,8 +189,8 @@ follow the numerics).
    ``wkv_chunked``: through ``ops.wkv`` (chunk 16, zero state; counters
    at 0 before and read after: one launch), y within ``WKV_TOL`` (a plain
    version with no carry must fail); and in the state form, y and the
-   final state within their limits.  Reports as phase 9.
-11. Result: the ``kernels`` JSON line, the card line, and last the
+   final state within their limits.  Reports as phase 10.
+12. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
@@ -832,9 +855,9 @@ def check_kernels(dev):
         for s in (0.1, 1.0):
             wvec = torch.cat([torch.full((1,), s, device=dev), w])
             plain = ref.reference_fedavg_mix(rows, w, server, wvec[0])
-            fresh = fedavg_agg.fedavg_mix_flat(rows, wvec, server)
+            fresh = fedavg_agg.fedavg_mix_wvec(rows, wvec, server)
             srv = server.clone()
-            inplace = fedavg_agg.fedavg_mix_flat(rows, wvec, srv, out=srv)
+            inplace = fedavg_agg.fedavg_mix_wvec(rows, wvec, srv, out=srv)
             if not torch.equal(inplace, fresh):
                 raise AssertionError("fedavg_mix_flat: in-place differs")
             errs["fedavg_mix_flat"] = max(errs["fedavg_mix_flat"],
@@ -972,7 +995,7 @@ def _merge_form(timer, label, W, s, opt, g, N):
 
     def chain():
         merged = (fedavg_agg.fedavg_agg_flat(rows, w) if srv is None else
-                  fedavg_agg.fedavg_mix_flat(rows, w, srv, out=srv))
+                  fedavg_agg.fedavg_mix_wvec(rows, w, srv, out=srv))
         return server_opt.server_opt_step_flat(prev, merged, m, v, sc,
                                                adam=adam, m_out=m, v_out=v)
     ms, chain_ms, turns = timer.turns(kern, chain)
@@ -999,6 +1022,8 @@ def time_b1(timer, g, N=101_888):
     called, so ``tools/torch_merge_times.py`` times another checkout's B1
     with it.  Returns one record per W."""
     from repro_torch.kernels import fedavg_agg, ref
+    # an older checkout's fedavg_mix_flat is this wvec form itself
+    mix = getattr(fedavg_agg, "fedavg_mix_wvec", fedavg_agg.fedavg_mix_flat)
     dev = g.device
     by_w = []
     for W, s in ((1, 0.1), (2, 1.0), (30, 0.1)):
@@ -1009,8 +1034,7 @@ def time_b1(timer, g, N=101_888):
         wvec = torch.cat([torch.full((1,), s, device=dev), w])
         server = torch.randn(N, device=dev, generator=g)
         ms, lib_ms, turns = timer.turns(
-            lambda: fedavg_agg.fedavg_mix_flat(rows, wvec, server,
-                                               out=server),
+            lambda: mix(rows, wvec, server, out=server),
             lambda: torch.addmv(server, rows.t(), w, beta=s))
         b_ms, b_by = bound_ms((W * N + W + 1 + 2 * N) * 4,
                               2 * W * N + 2 * N)
@@ -2801,6 +2825,405 @@ def run_resume(device, report, weights0, rounds=RESUME_ROUNDS,
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9, the sharded substrate (B7): the aggregation server's row buffer
+# and vectors split along N over a mesh that repeats the one card
+# (agg_mesh(devices=...)), each shard merged by its own launch of B1, B2
+# or merge_opt_flat
+
+# (W, N) of the B7 checks: benchmarks/agg_shard_bench.py's largest cell
+# (mlp_16m, 256 rows: 17.2 GB of rows), the main path's MLP padded for
+# D = 4 (101,770 parameters -> 102,400) at W = 30, and FedAsync's W = 1
+B7_SIZES = ((256, 16_777_216), (30, 102_400), (1, 102_400))
+B7_MESHES = (1, 2, 4)
+B7_FORMS = ("mix", "agg", "merge_mom", "merge_adam", "opt_mom", "opt_adam")
+B7_S = 0.4                      # the mix's server scale
+# controls: a faulty wrapper's result must fail the check
+B7_FAULTS = ("shards written back one block off",
+             "a shard's server term dropped")
+# kernels-line record -> (form, the launch counter of the kernel it runs
+# per shard, the TPU function it replaces)
+B7_RECORDS = {
+    "fedavg_mix_flat_sharded": ("mix", "mix", "fedavg_agg.py:234"),
+    "fedavg_agg_flat_sharded": ("agg", "agg", "fedavg_agg.py:268"),
+    "merge_opt_flat_sharded_mom": ("merge_mom", "merge_mom",
+                                   "fedavg_agg.py:289"),
+    "merge_opt_flat_sharded_adam": ("merge_adam", "merge_adam",
+                                    "fedavg_agg.py:289"),
+    "server_opt_step_flat_sharded_mom": ("opt_mom", "mom",
+                                         "fedavg_agg.py:289"),
+    "server_opt_step_flat_sharded_adam": ("opt_adam", "adam",
+                                          "fedavg_agg.py:289"),
+}
+N_TIMED_B7 = 10
+SHARD_ROUNDS = 3
+# phase 9's FL runs: the main phase's setup (table 4.2, het strong)
+SHARD_RUNS = {
+    "raw/sync": {**MODES["sync"], **TRANSPORTS["raw"]},
+    "uplink_only/sync": {**MODES["sync"], **TRANSPORTS["uplink_only"]},
+    "uplink_only/async_delta": {**MODES["async_delta"],
+                                **TRANSPORTS["uplink_only"]},
+    "hetero/sync/fedavgm": {**SYNC, **DIRICHLET, **FEDAVGM},
+    "hetero/sync/fedadam": {**SYNC, **DIRICHLET, **FEDADAM},
+    "time_based/T0=0": {**MODES["time_based"], **TRANSPORTS["raw"]},
+    "topology/1x2": {**SYNC, "topology": "1x2",
+                     "transport": "topk_ef+int8", "transport_frac": 0.1},
+}
+SHARD_RESUME = ("raw/sync", 2)   # killed at its first snapshot, resumed
+# launch counters that a sharded run multiplies by D (one per shard per
+# merge), and those it leaves as the unsharded run has them
+PER_SHARD = ("agg", "mix", "merge_mom", "merge_adam", "decode_rows")
+UNSHARDED = ("ef_encode", "decode", "encode", "select", "mom", "adam")
+
+
+def b7_inputs(dev, W, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn(W, N, device=dev, generator=g)
+    w = torch.rand(W, device=dev, generator=g) + 0.1
+    w /= w.sum()
+    server, prev, m = (torch.randn(N, device=dev, generator=g)
+                       for _ in range(3))
+    v = torch.rand(N, device=dev, generator=g)
+    w_mix = (1.0 - B7_S) * w
+    wvec = torch.cat([torch.full((1,), B7_S, device=dev), w_mix])
+    return dict(rows=rows, w=w, w_mix=w_mix, wvec=wvec, server=server,
+                prev=prev, m=m, v=v)
+
+
+def b7_sharded(o, mesh):
+    """The inputs ``o`` placed on ``mesh``: rows and (N,) vectors split,
+    the weights whole."""
+    from repro_torch.parallel import sharding as psh
+    N = o["rows"].shape[1]
+    return {k: (psh.split(t, mesh) if k == "rows" or t.numel() == N else t)
+            for k, t in o.items()}
+
+
+def _b7_scalars(form):
+    return np.asarray(OPT_SCALARS["fedadam" if form.endswith("adam")
+                                  else "fedavgm"], np.float32)
+
+
+def b7_call(form, o, mesh=None):
+    """One form on the inputs ``o``: through its B7 wrapper over ``mesh``
+    (the inputs whole or already sharded), or with mesh None through the
+    unsharded wrapper.  Returns the outputs, fresh (new, then the state)."""
+    from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import server_opt
+    sc, adam = _b7_scalars(form), form.endswith("adam")
+    v = o["v"] if adam else None
+    if form == "mix":                   # the merge path's (wvec) form
+        if mesh is None:
+            return (fa.fedavg_mix_wvec(o["rows"], o["wvec"], o["server"]),)
+        return (fa.fedavg_mix_wvec_sharded(o["rows"], o["wvec"],
+                                           o["server"], mesh=mesh),)
+    if form == "agg":
+        if mesh is None:
+            return (fa.fedavg_agg_flat(o["rows"], o["w"]),)
+        return (fa.fedavg_agg_flat_sharded(o["rows"], o["w"], mesh=mesh),)
+    if form.startswith("merge"):
+        # momentum behind the aggregate, adam behind the mix
+        wv, srv = (o["wvec"], o["server"]) if adam else (o["w"], None)
+        args = (o["rows"], wv, srv, o["prev"], o["m"], v, sc)
+        out = (fa.merge_opt_flat(*args, adam=adam) if mesh is None else
+               fa.merge_opt_flat_sharded(*args, adam=adam, mesh=mesh))
+        return out if adam else out[:2]
+    args = (o["prev"], o["server"], o["m"], v, sc)
+    out = (server_opt.server_opt_step_flat(*args, adam=adam) if mesh is None
+           else fa.server_opt_step_flat_sharded(*args, adam=adam, mesh=mesh))
+    return out if adam else out[:2]
+
+
+def b7_plain(form, o, D):
+    """The form's plain sharded version: the plain version on each of D
+    equal ranges of N, concatenated."""
+    from repro_torch.kernels import ref
+    sc, adam = _b7_scalars(form), form.endswith("adam")
+    v = o["v"] if adam else None
+    if form == "mix":
+        return (ref.reference_fedavg_sharded(o["rows"], o["w_mix"],
+                                             o["server"], B7_S, D),)
+    if form == "agg":
+        S = o["rows"].shape[1] // D
+        return (torch.cat([ref.reference_fedavg(
+            o["rows"][:, d * S:(d + 1) * S], o["w"]) for d in range(D)]),)
+    if form.startswith("merge"):
+        wv, srv = (o["wvec"], o["server"]) if adam else (o["w"], None)
+        out = ref.reference_merge_opt_sharded(
+            o["rows"], wv, srv, o["prev"], o["m"], v, sc, adam=adam,
+            n_shards=D)
+    else:
+        out = ref.reference_server_opt_sharded(
+            o["prev"], o["server"], o["m"], v, sc, adam=adam, n_shards=D)
+    return out if adam else out[:2]
+
+
+def b7_fault(fault, form, out, o_sh):
+    """What a faulty wrapper would return: shard pieces written back one
+    block off, or the last shard's mix taken without its server term."""
+    from repro_torch.core.flatbuf import BLOCK
+    from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.parallel import sharding as psh
+    first = out[0]
+    pieces = list(first.shards)
+    if fault == B7_FAULTS[0]:
+        pieces = [p.roll(BLOCK) for p in pieces]
+    elif form in ("mix", "merge_adam"):
+        rows = o_sh["rows"].shards[-1]
+        if form == "mix":
+            pieces[-1] = fa.fedavg_agg_flat(rows, o_sh["w_mix"])
+        else:
+            last = [o_sh[k].shards[-1].clone() for k in ("prev", "m", "v")]
+            pieces[-1] = fa.merge_opt_flat(
+                rows, o_sh["w_mix"], None, *last, _b7_scalars(form),
+                adam=True)[0]
+    return (psh.Sharded(pieces, first.mesh),) + tuple(out[1:])
+
+
+def _turns3(timer, kern, other, lib, n):
+    """``kern`` in turns with ``other`` and the library call ``lib`` (or
+    None): lib, other, kern, kern, other, lib; the means of each."""
+    first = timer(lib, n) if lib is not None else None
+    o = [timer(other, n)]
+    k = [timer(kern, n), timer(kern, n)]
+    o.append(timer(other, n))
+    lb = None if lib is None else statistics.mean([first, timer(lib, n)])
+    return statistics.mean(k), statistics.mean(o), lb, {
+        "kernel": k, "unsharded": o}
+
+
+def _b7_bound(form, W, N):
+    """(bytes, flops) of one form: every input read once, every output
+    written once."""
+    return {"mix": ((W * N + W + 1 + 2 * N) * 4, 2 * W * N + 2 * N),
+            "agg": ((W * N + W + N) * 4, 2 * W * N),
+            "merge_mom": ((W * N + W + 4 * N) * 4, (2 * W + 8) * N),
+            "merge_adam": ((W * N + W + 1 + 7 * N) * 4, (2 * W + 15) * N),
+            "opt_mom": (5 * N * 4 + 16, 8 * N),
+            "opt_adam": (7 * N * 4 + 16, 13 * N)}[form]
+
+
+def check_b7(dev, sizes=B7_SIZES, meshes=B7_MESHES, fault=None):
+    """B7 on ``dev``: each form of B7_FORMS at each (W, N) of ``sizes``
+    and each D of ``meshes`` (a mesh repeating ``dev``), its result equal
+    bit for bit to the unsharded kernel's on the same data and to the
+    plain sharded version.  On the card each form is also timed (D = 1 in
+    turns with the unsharded kernel and the one-call library form, D > 1
+    with the unsharded kernel), L2 flushed.  With ``fault`` the B7 result
+    is altered as a faulty wrapper would leave it: the check must fail.
+    Returns the record: cases, errors and timings."""
+    from repro_torch.kernels import fedavg_agg
+    from repro_torch.parallel import sharding as psh
+    timer = Timer(dev) if dev.type == "cuda" and fault is None else None
+    rec = {"cases": 0, "err": {f: 0.0 for f in B7_FORMS}, "by_case": []}
+    for i, (W, N) in enumerate(sizes):
+        o = b7_inputs(dev, W, N, seed=100 + i)
+        whole = {f: b7_call(f, o) for f in B7_FORMS}
+        libs = {"mix": lambda: torch.addmv(o["server"], o["rows"].t(),
+                                           o["w_mix"], beta=B7_S),
+                "agg": lambda: torch.mv(o["rows"].t(), o["w"])}
+        lib_ms = {}
+        for D in meshes:
+            mesh = psh.agg_mesh(devices=(dev,) * D)
+            o_sh = b7_sharded(o, mesh)
+            shard_bytes = W * (N // D) * 4
+            # the reference's form of the sharded mix is the same launch
+            ref_form = fedavg_agg.fedavg_mix_flat_sharded(
+                o_sh["rows"], o["w_mix"], o_sh["server"], B7_S, mesh=mesh)
+            if not torch.equal(ref_form.gather(), whole["mix"][0]):
+                raise AssertionError(f"B7 fedavg_mix_flat_sharded W = {W} "
+                                     f"N = {N} D = {D} differs from the "
+                                     f"unsharded kernel")
+            for form in B7_FORMS:
+                got = b7_call(form, o_sh, mesh)
+                if fault is not None:
+                    got = b7_fault(fault, form, got, o_sh)
+                plain = b7_plain(form, o, D)
+                for name, g, u, p in zip(MERGE_OUTPUTS, got, whole[form],
+                                         plain):
+                    g = g.gather()
+                    e = max_err(g, p)
+                    rec["err"][form] = max(rec["err"][form], e)
+                    if not (torch.equal(g, u) and torch.equal(g, p)):
+                        raise AssertionError(
+                            f"B7 {form} W = {W} N = {N} D = {D}: {name} "
+                            f"differs from the unsharded kernel "
+                            f"({max_err(g, u)}) or the plain sharded "
+                            f"version ({e})")
+                rec["cases"] += 1
+                if timer is None:
+                    continue
+                n = N_TIMED_B7 if W * N > 1 << 28 else 2 * N_TIMED_B7
+                kern = lambda: b7_call(form, o_sh, mesh)
+                unsh = lambda: b7_call(form, o)
+                lib = libs.get(form) if D == meshes[0] else None
+                ms, ums, lms, turns = _turns3(timer, kern, unsh, lib, n)
+                if lms is not None:
+                    lib_ms[form] = lms
+                n_bytes, flops = _b7_bound(form, W, N)
+                b_ms, b_by = bound_ms(n_bytes, flops)
+                case = {"form": form, "W": W, "N": N, "D": D, "ms": ms,
+                        "unsharded_ms": ums,
+                        "library_ms": lib_ms.get(form),
+                        "plain_ms": timer(lambda: b7_plain(form, o, D), n),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "n_bytes": n_bytes, "shard_row_bytes": shard_bytes,
+                        "turns": turns}
+                rec["by_case"].append(case)
+                print(f"time B7 {form} W = {W} N = {N} D = {D} ({shard_bytes}"
+                      f" B of rows a shard): {ms:.4f} ms, unsharded "
+                      f"{ums:.4f} ms, library {case['library_ms']} ms, "
+                      f"plain {case['plain_ms']:.4f} ms, bound {b_ms:.4f} "
+                      f"ms ({b_by})")
+            del o_sh
+        del o, whole
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    rec["ok"] = True
+    return rec
+
+
+def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
+              meshes=B7_MESHES):
+    """One SHARD_RUNS run unsharded, then at each D of ``meshes``
+    (``server_mesh=1``; D > 1 a mesh repeating the setup's device), every
+    launch counter at 0 before each run and read after.  Each sharded run
+    must equal the unsharded one in every field, accuracy bits included
+    (the topology's root and leaves).  On the card each merge kernel's
+    launches and ``dequant_add_rows``' must be D times the unsharded
+    run's (one per shard per merge), the codec's equal to its, and the
+    standalone B5's 0.  Returns the run's record."""
+    from repro_torch.core import run_fl
+    from repro_torch.core import topology as ttop
+    from repro_torch.parallel import sharding as psh
+    kw = dict(SHARD_RUNS[key])
+    topo = kw.pop("topology", None)
+    dev = next(iter(setup.weights0.values())).device
+    counters = launch_counters()
+
+    def call(mesh):
+        zero_counters()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if topo is not None:
+            res = ttop.run_fl_topology(setup, topology=topo,
+                                       epochs_per_round=epochs,
+                                       max_rounds=rounds, server_mesh=mesh,
+                                       **kw)
+            hists = {"root": res.root_history, **res.leaf_histories}
+        else:
+            hists = {"server": run_fl(setup, epochs_per_round=epochs,
+                                      max_rounds=rounds, server_mesh=mesh,
+                                      **kw)}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: counters[k][k] for k in counters}
+        return _hex_histories(hists), launches, wall
+
+    base, base_l, base_wall = call(None)
+    rec = {"rounds": rounds, "histories": base, "launches": {"0": base_l},
+           "wall_s": {"0": base_wall}, "equal": {}}
+    if dev.type == "cuda" and not any(base_l[k] for k in PER_SHARD[:4]):
+        raise AssertionError(f"shard {key}: no merge kernel launched")
+    for D in meshes:
+        mesh = 1 if D == 1 else psh.agg_mesh(devices=(dev,) * D)
+        hist, launches, wall = call(mesh)
+        rec["launches"][str(D)] = launches
+        rec["wall_s"][str(D)] = wall
+        if hist != base:
+            raise AssertionError(f"shard {key} D = {D}: the history differs "
+                                 f"from the unsharded run")
+        rec["equal"][str(D)] = True
+        if dev.type != "cuda":
+            continue
+        for k in PER_SHARD:
+            if launches[k] != D * base_l[k]:
+                raise AssertionError(f"shard {key} D = {D}: {launches[k]} "
+                                     f"{k} launches, {D} x {base_l[k]} "
+                                     f"expected")
+        for k in UNSHARDED:
+            if launches[k] != base_l[k]:
+                raise AssertionError(f"shard {key} D = {D}: {launches[k]} "
+                                     f"{k} launches, the unsharded run "
+                                     f"{base_l[k]}")
+        if launches["mom"] or launches["adam"]:
+            raise AssertionError(f"shard {key} D = {D}: B5 launched")
+    print(f"shard {key}: D = {', '.join(map(str, meshes))} equal to the "
+          f"unsharded run in every field; wall {rec['wall_s']}; launches "
+          f"{ {D: {k: v for k, v in l.items() if v} for D, l in rec['launches'].items()} }")
+    return rec
+
+
+def shard_resume(setup, key=SHARD_RESUME[0], D=SHARD_RESUME[1],
+                 rounds=SHARD_ROUNDS, epochs=EPOCHS, want=None):
+    """``key`` at D shards stopped at its first snapshot and resumed from
+    disk in this process: equal in every field to ``want`` (the unsharded
+    run's hex histories)."""
+    import shutil
+    import tempfile
+    from repro_torch.core import run_fl
+    from repro_torch.parallel import sharding as psh
+    dev = next(iter(setup.weights0.values())).device
+    mesh = psh.agg_mesh(devices=(dev,) * D)
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        kw = dict(SHARD_RUNS[key], epochs_per_round=epochs,
+                  max_rounds=rounds, server_mesh=mesh,
+                  checkpoint_dir=work)
+        run_fl(setup, **kw, checkpoint_every=1, stop_after_checkpoints=1)
+        h = run_fl(setup, **kw, resume=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    got = _hex_histories({"server": h})
+    if want is not None and got != want:
+        raise AssertionError(f"shard resume {key} D = {D}: the resumed "
+                             f"history differs from the unsharded run")
+    print(f"shard resume {key} D = {D}: split at the first snapshot and "
+          f"resumed, equal to the unsharded run in every field")
+    return {"key": key, "D": D, "equal": want is not None}
+
+
+def run_shard(dev, setups, report):
+    """Phase 9: B7 at full size (check_b7), then every SHARD_RUNS run at
+    MNIST width (shard_run) and one sharded split and resume.  Returns the
+    B7 records of the kernels line.  A run with a server mesh merges only
+    through B7 (its merge kernels launch D times the unsharded run's,
+    which shard_run holds), so a record's launches are its kernel's
+    counter summed over the sharded runs."""
+    rec = check_b7(dev)
+    setup = setups.get(RUNS["raw/sync"], dev)
+    runs = {key: shard_run(key, setup) for key in SHARD_RUNS}
+    resume = shard_resume(setup, want=runs[SHARD_RESUME[0]]["histories"])
+    report["shard"] = {"b7": rec, "runs": runs, "resume": resume}
+    records = {}
+    big = max(W * N for W, N in B7_SIZES)
+    for name, (form, ctr, tpu) in B7_RECORDS.items():
+        mine = [c for c in rec["by_case"] if c["form"] == form]
+        # the headline: the largest size at the largest mesh
+        head = max((c for c in mine if c["W"] * c["N"] == big),
+                   key=lambda c: c["D"])
+        src = "server_opt.cu" if form.startswith("opt") else "fedavg_agg.cu"
+        records[name] = {
+            "name": name, "route": "cuda", "ok": True,
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "wrapper": "src/repro_torch/kernels/fedavg_agg.py",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": sum(r["launches"][str(D)][ctr]
+                            for r in runs.values() for D in B7_MESHES),
+            "max_abs_err": rec["err"][form],
+            **{k: head[k] for k in ("W", "N", "D", "ms", "unsharded_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shard_row_bytes")},
+            "by_case": mine}
+    for name in ("fedavg_mix_flat_sharded", "fedavg_agg_flat_sharded",
+                 "merge_opt_flat_sharded_mom", "merge_opt_flat_sharded_adam"):
+        if records[name]["launches"] < 1:
+            raise AssertionError(f"{name} never launched in phase 9's runs")
+    return records
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -3256,6 +3679,9 @@ def main() -> int:
                 r["launches_resumed"][ctr]
                 + r.get("launches_uninterrupted", {}).get(ctr, 0)
                 for r in resume.values())
+        t0 = time.perf_counter()
+        records.update(run_shard(dev, setups, runs))
+        print(f"phase shard: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         records["flash_attention"]["launches"] = run_lm(dev, lm_rec)
         print(f"phase lm: {time.perf_counter() - t0:.1f} s")

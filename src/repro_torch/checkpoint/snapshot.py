@@ -29,7 +29,10 @@ live tensor, keyed by its ``id``, so that two references stay one object
 (an ``EncodedVec.base`` shared by the responses pinned to one model, a
 payload held by a link and its ack cell), with one sync for the batch.
 A restore moves each tensor once to the restoring federation's device,
-again as one batch.  A snapshot therefore pickles with no card in the
+again as one batch.  A sharded substrate's pieces (``Sharded`` row
+buffer, optimizer moments) are tensors of the image like any other, so
+the same batch copies every shard; restore puts each piece back on its
+own mesh device.  A snapshot therefore pickles with no card in the
 reader, and restoring one twice gives two independent federations.
 
 Event replay invariant.  Every ``resume_*`` helper in the core consumes
@@ -64,6 +67,7 @@ import torch
 
 from repro_torch.core import selection as selection_mod
 from repro_torch.core import transport as T
+from repro_torch.parallel import sharding as psh
 
 # population lanes restored wholesale (core/population.py mirror lanes +
 # measurement + bookkeeping lanes, in declaration order)
@@ -431,7 +435,9 @@ def _capture_flat(fl) -> Optional[dict]:
 def _restore_flat(fl, img: Optional[dict]) -> None:
     if img is None or fl is None:
         return
-    fl._rows = img["rows"]
+    rows = img["rows"]
+    # a sharded row buffer: each piece back on its own device
+    fl._rows = rows.to_mesh() if isinstance(rows, psh.Sharded) else rows
     fl._free = list(img["free"])
     fl._next_row = img["next_row"]
     fl._dirty = set(img["dirty"])

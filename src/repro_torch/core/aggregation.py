@@ -83,8 +83,10 @@ UPDATE_WEIGHT_FNS = {
 
 def use_flat_vec(flat, transport, aggregator: str) -> bool:
     """True when decoded payloads can land straight in the flat (W, N)
-    row buffer: the merge state exists, the transport shares its bundle,
-    and the aggregator has a scalar-weight form."""
+    row buffer: the merge state exists, the transport resolves to the
+    SAME (mesh-aware) bundle (else decoded vectors would not match the
+    row buffer's padded width), and the aggregator has a scalar-weight
+    form."""
     return (flat is not None and transport.flat_capable
             and transport.bundle is flat.bundle
             and aggregator in UPDATE_WEIGHT_FNS)

@@ -7,8 +7,12 @@ Every entry point runs on the setup's device: ``make_setup(device=None)``
 means the CUDA card, and raises when there is none.  Each worker's shard
 and the test set move to the device once, at setup.
 
-Not ported yet, and raising ``NotImplementedError``: ``server_mesh``
-(ROADMAP A7).
+``server_mesh`` shards the aggregation substrate over a 1-D ``agg`` mesh
+(``parallel.sharding.agg_mesh``): the packed server model, the ``(W, N)``
+row buffer and the server optimizer's state split along the packed
+parameter axis, and every merge runs one kernel launch per shard.  Every
+element is merged by the same arithmetic at any mesh size, so a sharded
+run equals the unsharded one bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.configs.paper_cnn import CNNConfig, FAST_MNIST_CNN
 from repro_torch.data.synth import make_classification_dataset, partition_split
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.parallel import sharding as psh
 
 from .estimator import TimeEstimator, WorkerProfile
 from .events import EventLoop
@@ -201,8 +206,14 @@ def mlp_prox_train_wrapper(params, x, y, epochs, lr=0.1, mu=0.0,
                              device=device)
 
 
-def _not_ported(name: str, step: str):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP {step})")
+def resolve_mesh(server_mesh, device: torch.device):
+    """``server_mesh`` as a mesh: None stays None, an int is that many
+    devices of ``device``'s platform (``agg_mesh``), and a mesh (from
+    ``agg_mesh(devices=...)``, which may repeat one device) is used as it
+    is."""
+    if server_mesh is None or isinstance(server_mesh, psh.AggMesh):
+        return server_mesh
+    return psh.agg_mesh(server_mesh, platform=device.type)
 
 
 def run_fl(setup: FLSetup, *, mode: str = "sync", selector: str = "all",
@@ -330,16 +341,15 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
                      server_opt=None, server_opt_kw: Optional[dict] = None):
     """Build one single-server federation, wired but NOT started; returns
     ``(loop, server)``."""
-    if server_mesh is not None:
-        _not_ported("server_mesh", "A7")
     loop = EventLoop()
     est = TimeEstimator(server_freq=server_freq,
                         t_onebatch_server=setup.per_batch_server)
     pop = WorkerPopulation()
     est.bind_population(pop)
+    mesh = resolve_mesh(server_mesh, setup.device)
     tr = Transport(setup.weights0, codec=transport,
                    down_codec=transport_down, frac=transport_frac,
-                   raw_bytes=setup.model_bytes)
+                   raw_bytes=setup.model_bytes, mesh=mesh)
     bind_nominal_bandwidth(tr, est, setup.profiles)
     sel = make_selector(selector, est, tr.expected_oneway_bytes,
                         **(selector_kw or {}))
@@ -350,7 +360,7 @@ def build_experiment(setup: FLSetup, *, mode: str = "sync",
         max_rounds=max_rounds, target_accuracy=target_accuracy,
         async_alpha=async_alpha, async_stale_pow=async_stale_pow,
         async_min_updates=async_min_updates, async_delta=async_delta,
-        async_latest_table=async_latest_table, transport=tr,
+        async_latest_table=async_latest_table, transport=tr, mesh=mesh,
         population=pop, cohort=cohort, cohort_seed=cohort_seed,
         server_opt=server_opt, server_opt_kw=server_opt_kw)
     for prof, shard in zip(setup.profiles, setup.device_shards):

@@ -1,5 +1,4 @@
-"""Flat-buffer aggregation path (port of ``repro/core/flatbuf.py``,
-unsharded).
+"""Flat-buffer aggregation path (port of ``repro/core/flatbuf.py``).
 
 * ``ParamBundle`` packs a dict of tensors into one contiguous f32 vector
   (leaves in sorted key order, JAX's pytree order, so packed vectors line
@@ -24,6 +23,17 @@ is told (``ServerOpt.release``); the fused merge then takes the buffer
 itself as ``prev``, and ``step_vec`` re-packs it.  ``unpack`` returns
 copies, so no weight dict handed out before a merge aliases a buffer the
 merge writes.
+
+Sharded substrate: with ``mesh=`` (a 1-D ``parallel.sharding.agg_mesh``)
+the bundle pads N to ``BLOCK * n_shards`` and the flat state holds its
+row buffer and server mirror as ``Sharded`` pieces, one a device, and
+merges through the sharded kernels (one launch per shard: B7).  Whole
+vectors (``pack``, every link's vectors, decoded responses) stay on the
+home device; ``_set_rows`` lands each shard's slice of them in its rows
+(an encoded merge decoded by one ``dequant_add_rows`` a shard), and
+``unpack`` gathers the shards on the home device.  Every element is
+computed by the same arithmetic as unsharded, so a sharded merge equals
+the unsharded one bit for bit at any mesh size.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import fedavg_agg, topk_quant
+from repro_torch.parallel import sharding as psh
 
 BLOCK = 512          # pack pads N up to a multiple
 
@@ -46,11 +57,24 @@ def padded_size_for(n_params: int, n_shards: int = 1) -> int:
     return -(-int(n_params) // lane) * lane
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded aggregation substrate (mesh=) is not ported yet "
-            "(ROADMAP A7)")
+def shard_spans(lo: int, hi: int, shard_size: int):
+    """Mesh-aware offsets: the global param range ``[lo, hi)`` split into
+    shard-local slices, one ``(shard, local_lo, local_hi, global_lo)``
+    tuple per device the range touches (a leaf crossing a shard boundary
+    owns one span per device)."""
+    spans = []
+    d = lo // shard_size
+    while lo < hi:
+        end = min(hi, (d + 1) * shard_size)
+        spans.append((d, lo - d * shard_size, end - d * shard_size, lo))
+        lo, d = end, d + 1
+    return tuple(spans)
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, psh.AggMesh):
+        raise TypeError(f"mesh must be a parallel.sharding.agg_mesh, got "
+                        f"{type(mesh).__name__}")
 
 
 @dataclass(frozen=True)
@@ -82,10 +106,13 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 class ParamBundle:
     """Pack/unpack one model structure to/from a flat f32 buffer.
 
-    Keys, shapes, dtypes and offsets are fixed at construction."""
+    Keys, shapes, dtypes and offsets are fixed at construction.  With
+    ``mesh``, N pads to ``BLOCK * n_shards``; ``shard_bounds`` and
+    ``leaf_spans`` give the mesh-aware offset table (which device owns
+    which slice of which leaf)."""
 
     def __init__(self, template: Mapping[str, torch.Tensor], mesh=None):
-        _no_mesh(mesh)
+        _check_mesh(mesh)
         if not packable(template):
             raise ValueError("cannot bundle: expected a non-empty dict of "
                              "tensors")
@@ -101,10 +128,26 @@ class ParamBundle:
         # wire transfer of this structure costs (core/transport.py)
         self.raw_bytes = int(sum(n * torch.empty((), dtype=d).element_size()
                                  for n, d in zip(self.sizes, self.dtypes)))
-        self.padded_size = padded_size_for(self.n_params)
+        self.mesh = mesh
+        self.n_shards = 1 if mesh is None else mesh.shape[psh.AGG_AXIS]
+        self.padded_size = padded_size_for(self.n_params, self.n_shards)
+        self.shard_size = self.padded_size // self.n_shards
         # every leaf f32: a packed vector unpacked and packed again keeps
         # its bits
         self.f32 = all(d == torch.float32 for d in self.dtypes)
+
+    # --- mesh-aware offsets ---
+    def shard_bounds(self, shard: int):
+        """Global ``[lo, hi)`` param range device ``shard`` owns."""
+        if not 0 <= shard < self.n_shards:
+            raise IndexError(shard)
+        return shard * self.shard_size, (shard + 1) * self.shard_size
+
+    def leaf_spans(self, leaf: int):
+        """Shard-local slices of leaf ``leaf``: ``(shard, local_lo,
+        local_hi, global_lo)`` per device the leaf touches."""
+        o = self.offsets[leaf]
+        return shard_spans(o, o + self.sizes[leaf], self.shard_size)
 
     def pack(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """tree -> new (padded_size,) f32 flat buffer (zero tail)."""
@@ -130,7 +173,12 @@ class ParamBundle:
         alone is decoded into its rows, with the stale rows zeroed, by one
         ``dequant_add_rows``; in a merge that mixes both kinds (an auto
         transport's links resolve codecs apart) each encoded one is
-        decoded by ``dequant_add`` first."""
+        decoded by ``dequant_add`` first.  Sharded ``rows`` take each
+        shard's slice of every vector (one ``dequant_add_rows`` a shard
+        for an encoded merge)."""
+        if isinstance(rows, psh.Sharded):
+            self._set_sharded_rows(rows, vecs)
+            return rows
         if vecs and all(isinstance(v, EncodedVec) for v in vecs):
             return topk_quant.dequant_add_rows(
                 [v.q for v in vecs], [v.scale for v in vecs],
@@ -143,9 +191,34 @@ class ParamBundle:
         rows[n:].zero_()
         return rows
 
+    def _set_sharded_rows(self, rows: "psh.Sharded", vecs: Sequence):
+        n = len(vecs)
+        encoded = bool(vecs) and all(isinstance(v, EncodedVec)
+                                     for v in vecs)
+        if not encoded:
+            vecs = [topk_quant.dequant_add(v.q, v.scale, v.base)
+                    if isinstance(v, EncodedVec) else v for v in vecs]
+        for d, (piece, dev) in enumerate(zip(rows.shards,
+                                             rows.mesh.devices)):
+            lo, hi = self.shard_bounds(d)
+            if encoded:
+                with psh.device_guard(dev):
+                    topk_quant.dequant_add_rows(
+                        [v.q[lo:hi].to(dev) for v in vecs],
+                        [v.scale.to(dev) for v in vecs],
+                        [v.base[lo:hi].to(dev) for v in vecs], piece)
+                continue
+            if n:
+                torch.stack([shard_piece(v, d, lo, hi, dev) for v in vecs],
+                            out=piece[:n])
+            piece[n:].zero_()
+
     def unpack(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(padded_size,) or (n_params,) buffer -> dict of new tensors at
-        the original dtypes (copies: never views into ``flat``)."""
+        the original dtypes (copies: never views into ``flat``).  A
+        ``Sharded`` buffer is gathered on the home device first."""
+        if isinstance(flat, psh.Sharded):
+            flat = flat.gather()
         return {k: flat[o:o + n].reshape(s).to(d, copy=True)
                 for k, o, n, s, d in zip(self.keys, self.offsets, self.sizes,
                                          self.shapes, self.dtypes)}
@@ -155,15 +228,25 @@ _BUNDLES: Dict[tuple, ParamBundle] = {}
 
 
 def bundle_for(template, mesh=None) -> ParamBundle:
-    """Memoised ParamBundle keyed on (keys, shapes, dtypes): the server
-    and its transport resolve to the SAME bundle."""
-    _no_mesh(mesh)
-    key = tuple((k, tuple(template[k].shape), str(template[k].dtype))
-                for k in sorted(template))
+    """Memoised ParamBundle keyed on (keys, shapes, dtypes, mesh): the
+    server and its transport resolve to the SAME (mesh-aware) bundle, so
+    decoded vectors match the row buffer's padded width."""
+    _check_mesh(mesh)
+    key = (tuple((k, tuple(template[k].shape), str(template[k].dtype))
+                 for k in sorted(template)), mesh)
     b = _BUNDLES.get(key)
     if b is None:
-        b = _BUNDLES[key] = ParamBundle(template)
+        b = _BUNDLES[key] = ParamBundle(template, mesh=mesh)
     return b
+
+
+def shard_piece(v, d: int, lo: int, hi: int, dev: torch.device
+                ) -> torch.Tensor:
+    """Shard ``d``'s slice ``[lo, hi)`` of a packed vector on ``dev``:
+    a ``Sharded`` vector's own piece, or a whole vector's slice."""
+    if isinstance(v, psh.Sharded):
+        return v.shards[d].to(dev)
+    return v[lo:hi].to(dev)
 
 
 # --- fused merge ops -------------------------------------------------------
@@ -176,36 +259,46 @@ def _weights_on(w, device: torch.device) -> torch.Tensor:
     return to_device(np.asarray(w, np.float32), device)
 
 
-def fused_merge(server_flat: torch.Tensor, rows: torch.Tensor, wvec,
-                mesh=None) -> torch.Tensor:
+def fused_merge(server_flat, rows, wvec, mesh=None):
     """One pass ``wvec[0]*server + wvec[1:] @ rows``, written into
     ``server_flat`` in place and returned: callers treat ``server_flat``
-    as consumed."""
-    _no_mesh(mesh)
-    return fedavg_agg.fedavg_mix_flat(
+    as consumed.  With ``mesh`` (``server_flat`` then ``Sharded``) the
+    pass runs per shard and returns the ``Sharded`` result."""
+    if mesh is not None:
+        return fedavg_agg.fedavg_mix_wvec_sharded(
+            rows, _weights_on(wvec, mesh.home), server_flat, mesh=mesh,
+            out=server_flat)
+    return fedavg_agg.fedavg_mix_wvec(
         rows, _weights_on(wvec, rows.device), server_flat, out=server_flat)
 
 
-def fused_merge_opt(rows: torch.Tensor, w, server: Optional[torch.Tensor],
-                    prev: torch.Tensor, m: torch.Tensor, v, scalars, *,
-                    adam: bool, mesh=None) -> torch.Tensor:
+def fused_merge_opt(rows, w, server, prev, m, v, scalars, *, adam: bool,
+                    mesh=None):
     """One pass: the merge (``fused_weighted_sum`` when ``server`` is None,
     else ``fused_merge``, written into ``server`` in place, which may also
     be ``prev``) and the server optimizer's step on its result, ``m`` and
-    ``v`` updated in place.  Returns the stepped vector."""
-    _no_mesh(mesh)
+    ``v`` updated in place.  Returns the stepped vector (``Sharded`` with
+    ``mesh``: one launch per shard)."""
+    if mesh is not None:
+        new, _, _ = fedavg_agg.merge_opt_flat_sharded(
+            rows, _weights_on(w, mesh.home), server, prev, m, v, scalars,
+            adam=adam, mesh=mesh, out=server, m_out=m, v_out=v)
+        return new
     new, _, _ = fedavg_agg.merge_opt_flat(
         rows, _weights_on(w, rows.device), server, prev, m, v, scalars,
         adam=adam, out=server, m_out=m, v_out=v)
     return new
 
 
-def fused_weighted_sum(rows: torch.Tensor, w, mesh=None) -> torch.Tensor:
+def fused_weighted_sum(rows, w, mesh=None):
     """One pass ``w @ rows`` into a new vector, with no server term: the
     alpha >= 1 replace path must not read the server buffer at all
     (``0 * server`` would turn a non-finite server model into NaN instead
-    of replacing it)."""
-    _no_mesh(mesh)
+    of replacing it).  With ``mesh``: one launch per shard, ``Sharded``
+    result."""
+    if mesh is not None:
+        return fedavg_agg.fedavg_agg_flat_sharded(
+            rows, _weights_on(w, mesh.home), mesh=mesh)
     return fedavg_agg.fedavg_agg_flat(rows, _weights_on(w, rows.device))
 
 
@@ -234,12 +327,20 @@ class FlatServerState:
     Keeps (a) the packed server model, mirrored against the weight dict
     the server hands in (re-packed only when that dict is not the one the
     last merge produced: an identity check), and (b) a pre-allocated
-    ``(W_cap, N)`` row buffer on the weights' device."""
+    ``(W_cap, N)`` row buffer on the weights' device.
+
+    With ``mesh`` both are ``Sharded`` along N over the 1-D server mesh
+    (rows ``(W_cap, N/D)`` and mirror ``(N/D,)`` a device) and every merge
+    runs per shard: per-device bytes of the substrate shrink linearly with
+    the mesh.  The weights' device must be the mesh's home device."""
 
     def __init__(self, template, mesh=None):
-        _no_mesh(mesh)
-        self.bundle = bundle_for(template)
+        self.bundle = bundle_for(template, mesh)
+        self.mesh = mesh
         self.device = next(iter(template.values())).device
+        if mesh is not None and mesh.home != self.device:
+            raise ValueError(f"the weights live on {self.device}, the "
+                             f"mesh's home device is {mesh.home}")
         self._rows: Optional[torch.Tensor] = None
         self._server_flat: Optional[torch.Tensor] = None
         self._server_tree = None          # strong ref: the mirror's key
@@ -262,18 +363,32 @@ class FlatServerState:
     def _ensure_capacity(self, w: int):
         if self.capacity >= w:
             return
-        new = torch.zeros((w, self.bundle.padded_size), dtype=torch.float32,
-                          device=self.device)
-        if self._rows is not None:
-            new[:self.capacity] = self._rows
-        self._rows = new
+        if self.mesh is not None:
+            # allocated a shard a device: the whole (W, N) buffer never
+            # exists on one device
+            old = (None,) * self.bundle.n_shards if self._rows is None \
+                else self._rows.shards
+            self._rows = psh.Sharded(
+                [_grown(o, w, self.bundle.shard_size, dev)
+                 for o, dev in zip(old, self.mesh.devices)], self.mesh)
+            return
+        self._rows = _grown(self._rows, w, self.bundle.padded_size,
+                            self.device)
+
+    def pack(self, tree):
+        """``tree`` packed as the merge reads it: whole, or ``Sharded``
+        over the mesh."""
+        vec = self.bundle.pack(tree)
+        if self.mesh is None:
+            return vec
+        return psh.split(vec, self.mesh)
 
     def _server_buffer(self, server_tree) -> torch.Tensor:
         """The packed server model, handed over to an in-place merge: the
         mirror is forgotten, so nothing else holds the buffer it writes."""
         if (self._server_flat is None
                 or self._server_tree is not server_tree):
-            self._server_flat = self.bundle.pack(server_tree)
+            self._server_flat = self.pack(server_tree)
         buf = self._server_flat
         self._server_flat = None
         if self.server_opt is not None:
@@ -328,11 +443,11 @@ class FlatServerState:
             self, server_tree, server if self.bundle.f32 else None)
         if ops is not None:
             merged = fused_merge_opt(self._rows, wv, server, *ops,
-                                     adam=opt.adam)
+                                     adam=opt.adam, mesh=self.mesh)
         elif server is None:
-            merged = fused_weighted_sum(self._rows, wv)
+            merged = fused_weighted_sum(self._rows, wv, mesh=self.mesh)
         else:
-            merged = fused_merge(server, self._rows, wv)
+            merged = fused_merge(server, self._rows, wv, mesh=self.mesh)
         return self._finish(server_tree, merged)
 
     def _finish(self, server_tree, merged: torch.Tensor):
@@ -357,9 +472,15 @@ class FlatServerState:
             self._ensure_capacity(max(row + 1, 2 * self.capacity, 8))
         return row
 
-    def win_write(self, row: int, vec: torch.Tensor) -> None:
+    def win_write(self, row: int, vec) -> None:
         """Land one already-packed update vector in its claimed row."""
-        self._rows[row] = vec
+        if self.mesh is None:
+            self._rows[row] = vec
+        else:
+            for d, (piece, dev) in enumerate(zip(self._rows.shards,
+                                                 self.mesh.devices)):
+                piece[row] = shard_piece(vec, d,
+                                         *self.bundle.shard_bounds(d), dev)
         self._dirty.discard(row)
 
     def win_release(self, row: int) -> None:
@@ -370,7 +491,10 @@ class FlatServerState:
     def _flush_dirty(self) -> None:
         if not self._dirty:
             return
-        self._rows[sorted(self._dirty)] = 0.0
+        idx = sorted(self._dirty)
+        for piece in (self._rows.shards if self.mesh is not None
+                      else (self._rows,)):
+            piece[idx] = 0.0
         self._dirty.clear()
 
     def merge_window(self, server_tree, rows: Sequence[int],
@@ -381,8 +505,9 @@ class FlatServerState:
         return self._merge(server_tree, np.asarray(tuple(rows), np.intp),
                            weights, alpha)
 
-    def row_vec(self, row: int) -> torch.Tensor:
-        """A copy of one claimed row as a packed flat vector."""
+    def row_vec(self, row: int):
+        """A copy of one claimed row as a packed flat vector (``Sharded``
+        with a mesh)."""
         return self._rows[row].clone()
 
     def _delta_weights(self) -> torch.Tensor:
@@ -394,13 +519,24 @@ class FlatServerState:
         """``cur + (new - base)`` as one fused pass over packed buffers;
         returns a weight dict."""
         rows = self.bundle.pack_many((new_tree, base_tree))
-        cur = self.bundle.pack(cur_tree)
+        cur = self.pack(cur_tree)
         return self.bundle.unpack(
-            fused_merge(cur, rows, self._delta_weights()))
+            fused_merge(cur, rows, self._delta_weights(), mesh=self.mesh))
 
-    def delta_vec(self, cur_tree, new_vec, base_vec) -> torch.Tensor:
-        """``cur + (new - base)`` on packed vectors; returns the packed
-        result, written into the server mirror (which is consumed)."""
+    def delta_vec(self, cur_tree, new_vec, base_vec):
+        """``cur + (new - base)`` on whole packed vectors; returns the
+        packed result (``Sharded`` with a mesh), written into the server
+        mirror (which is consumed)."""
         rows = torch.stack([new_vec, base_vec])
         return fused_merge(self._server_buffer(cur_tree), rows,
-                           self._delta_weights())
+                           self._delta_weights(), mesh=self.mesh)
+
+
+def _grown(old: Optional[torch.Tensor], w: int, n: int,
+           device: torch.device) -> torch.Tensor:
+    """A zero ``(w, n)`` f32 buffer on ``device`` holding ``old``'s rows
+    first."""
+    new = torch.zeros((w, n), dtype=torch.float32, device=device)
+    if old is not None:
+        new[:old.shape[0]] = old
+    return new

@@ -31,7 +31,11 @@ event handles (``_timeout_ev``, ``_noop_ev``), so a checkpoint can
 serialize them and ``resume_round_timeout``/``resume_noop_dispatch``
 re-create them.
 
-Not ported yet: the sharded substrate (ROADMAP A7).
+Sharded substrate (``mesh=``, a 1-D ``parallel.sharding.agg_mesh``): the
+packed merge state shards along the parameter axis over the mesh and
+every merge runs one kernel launch per shard; the transport resolves the
+same mesh-aware bundle, and its link vectors stay whole on the home
+device.
 """
 from __future__ import annotations
 
@@ -114,6 +118,9 @@ class AggregationServer:
         self.async_latest_table = async_latest_table
         self._dispatch_base: Dict[str, object] = {}
         self._latest: Dict[str, tuple] = {}   # async: worker -> latest response
+        # 1-D aggregation-server mesh: the packed merge substrate shards
+        # along N over it
+        self.mesh = mesh
         self._flat = flatbuf.flat_state_for(weights, mesh=mesh)
         if self._flat is None:
             raise ValueError("weights must be a non-empty dict of tensors")

@@ -15,7 +15,10 @@ merge_operands`), so ``merged`` never goes to memory; :meth:`ServerOpt.
 step_vec` is the same step as a pass of its own
 (``kernels.server_opt.server_opt_step_flat``), the oracle the tests hold
 the fused merge against.  State lives as packed ``(N,)`` vectors over the
-same :class:`~repro_torch.core.flatbuf.ParamBundle` and updates in place.
+same :class:`~repro_torch.core.flatbuf.ParamBundle` and updates in place;
+on a sharded flat state (``mesh=``) ``prev``, ``m`` and ``v`` are
+``Sharded`` like the server mirror, and a merge is one ``merge_opt_flat``
+launch per shard.
 
 ================  =============================================  ==========================
 name              update rule (d = merged - prev)                degenerate == plain FedAvg
@@ -51,7 +54,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import fedavg_agg
 from repro_torch.kernels import server_opt as opt_kernel
+from repro_torch.parallel import sharding as psh
 
 
 class ServerOpt:
@@ -88,13 +93,13 @@ class ServerOpt:
         if self._prev_tree is not server_tree or self._prev_vec is None:
             # first step, external model replacement, or the cached anchor
             # was handed to an in-place merge (release)
-            self._prev_vec = (flat.bundle.pack(server_tree) if server is None
+            self._prev_vec = (flat.pack(server_tree) if server is None
                               else server)
         prev = self._prev_vec
         if self._m is None:
-            self._m = torch.zeros_like(prev)
+            self._m = _zeros_like(prev)
         if self.adam and self._v is None:
-            self._v = torch.zeros_like(prev)
+            self._v = _zeros_like(prev)
         return prev
 
     def merge_operands(self, flat, server_tree, server=None):
@@ -119,6 +124,12 @@ class ServerOpt:
         if self._degenerate():
             return merged
         prev = self._anchor(flat, server_tree)
+        if flat.mesh is not None:
+            new, _, _ = fedavg_agg.server_opt_step_flat_sharded(
+                prev, merged, self._m, self._v, self._scalars(),
+                adam=self.adam, mesh=flat.mesh, m_out=self._m,
+                v_out=self._v)
+            return new
         new, _, _ = opt_kernel.server_opt_step_flat(
             prev, merged, self._m, self._v, self._scalars(), adam=self.adam,
             m_out=self._m, v_out=self._v)
@@ -186,13 +197,24 @@ class ServerOpt:
 
     def restore(self, img: dict) -> None:
         # copies again: the restored vectors update in place from here on
-        self._m, self._v = _copy(img["m"]), _copy(img["v"])
+        # (sharded ones each piece back on its device)
+        self._m, self._v = (_on_mesh(_copy(img[k])) for k in ("m", "v"))
         self._m_tree, self._v_tree = _copy(img["m_tree"]), _copy(img["v_tree"])
         self.rebase()
 
 
+def _zeros_like(x):
+    return x.zeros_like() if isinstance(x, psh.Sharded) else \
+        torch.zeros_like(x)
+
+
+def _on_mesh(x):
+    return x.to_mesh() if isinstance(x, psh.Sharded) else x
+
+
 def _copy(x):
-    """A copy of a state vector, a dict of them, or None."""
+    """A copy of a state vector (whole or ``Sharded``), a dict of them,
+    or None."""
     if x is None:
         return None
     if isinstance(x, dict):

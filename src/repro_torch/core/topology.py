@@ -37,7 +37,9 @@ serialize the leg and ``resume_push``/``resume_fan``/
 ``resume_done_settled`` re-create it; ``run_fl_topology`` takes the
 checkpoint arguments of ``run_fl``.
 
-Not ported yet: ``server_mesh`` (ROADMAP A7).
+``server_mesh`` shards the root's and every leaf's merge substrate over
+one 1-D ``agg`` mesh, as in ``run_fl``; a failed-over root rebuilds its
+transport over the same mesh.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from . import server_opt as server_opt_mod
 from . import transport as transport_mod
 from .estimator import TimeEstimator
 from .events import EventLoop
-from .experiment import _not_ported, bind_nominal_bandwidth
+from .experiment import bind_nominal_bandwidth, resolve_mesh
 from .selection import make_pool_selectors
 from .server import AggregationServer, HistoryPoint
 from .worker import FLWorker
@@ -162,9 +164,10 @@ class Topology:
                  model_bytes: int, config: TopologyConfig, mesh=None,
                  target_accuracy: Optional[float] = None,
                  server_opt=None):
-        if mesh is not None:
-            _not_ported("a sharded root (mesh=)", "A7")
         self.cfg = config
+        # 1-D aggregation-server mesh of the root's merge substrate (and of
+        # its transport, rebuilt over it on failover)
+        self.mesh = mesh
         self.loop = loop
         self.eval_fn = eval_fn
         self.weights = weights
@@ -197,7 +200,7 @@ class Topology:
             # failover
             self._server_acks = transport_mod.WorkerAckRegistry()
             self.transport = self._new_transport(weights)
-            self._flat = flatbuf.flat_state_for(weights)
+            self._flat = flatbuf.flat_state_for(weights, mesh=mesh)
             if self._flat is None:
                 raise ValueError("weights must be a non-empty dict of "
                                  "tensors")
@@ -212,7 +215,7 @@ class Topology:
         tr = transport_mod.Transport(
             weights, codec=cfg.server_codec, down_codec=cfg.server_codec_down,
             frac=cfg.server_frac, raw_bytes=self.model_bytes,
-            ack_registry=self._server_acks)
+            mesh=self.mesh, ack_registry=self._server_acks)
         if tr.tuner is not None:
             # an auto backbone prices the configured per-leaf link rates
             def _leaf_bw(lid):
@@ -641,15 +644,14 @@ def build_topology(setup, *, topology, mode: str = "sync",
     workers, on the setup's device.  ``max_rounds`` counts each leaf's
     LOCAL rounds; ``target_accuracy`` is checked on the root's global
     model (on the leaf in passthrough)."""
-    if server_mesh is not None:
-        _not_ported("server_mesh", "A7")
     cfg = parse_topology(topology)
+    mesh = resolve_mesh(server_mesh, setup.device)
     loop = EventLoop()
     # leaf merges stay plain FedAvg and the ROOT carries the optimizer; in
     # passthrough the lone leaf gets it, keeping 1x1 == single server
     opt = server_opt_mod.make_server_opt(server_opt, **(server_opt_kw or {}))
     topo = Topology(weights=setup.weights0, loop=loop, eval_fn=setup.eval_fn,
-                    model_bytes=setup.model_bytes, config=cfg,
+                    model_bytes=setup.model_bytes, config=cfg, mesh=mesh,
                     target_accuracy=None if cfg.passthrough
                     else target_accuracy,
                     server_opt=None if cfg.passthrough else opt)
@@ -659,6 +661,7 @@ def build_topology(setup, *, topology, mode: str = "sync",
                                           down_codec=transport_down,
                                           frac=transport_frac,
                                           raw_bytes=setup.model_bytes,
+                                          mesh=mesh,
                                           ack_registry=ack_registry)
                   for _ in pools]
     ests = [TimeEstimator(server_freq=server_freq,
@@ -684,7 +687,7 @@ def build_topology(setup, *, topology, mode: str = "sync",
             async_alpha=async_alpha, async_stale_pow=async_stale_pow,
             async_min_updates=async_min_updates, async_delta=async_delta,
             async_latest_table=async_latest_table, transport=transports[j],
-            name=f"leaf{j}", population=pop, cohort=cohort,
+            mesh=mesh, name=f"leaf{j}", population=pop, cohort=cohort,
             cohort_seed=cohort_seed + j,
             server_opt=opt if cfg.passthrough else None)
         for i in pool:

@@ -65,7 +65,15 @@ reliability model :func:`transmit` is one scheduled delivery.
 Links materialise on first contact, and ``Transport.lru_evict`` drops the
 least recently used quiescent links above a bound (cohort runs).
 
-Not ported yet: the ``mesh=`` sharded substrate (ROADMAP A7).
+Sharded substrate.  ``Transport(mesh=...)`` resolves the SAME mesh-aware
+bundle the server uses (N padded to ``BLOCK * n_shards``), so decoded
+vectors match the sharded row buffer's width.  Unlike the JAX package,
+whose links hold shard-local slices, every link vector (``tx_base``,
+``acked_base``, residuals, payloads) stays whole on the home device: the
+top-k threshold is global, and a threshold over per-device pieces would
+need a cross-device histogram reduction inside ``ef_encode``.  The codec
+therefore sees the same values whatever the sharding, and only the
+merge's decode lands each shard's slice in that shard's rows.
 """
 from __future__ import annotations
 
@@ -738,6 +746,9 @@ class Transport:
         self.spec_up = AUTO_SPEC if self.auto_up else CODECS[codec]
         self.spec_down = AUTO_SPEC if self.auto_down else CODECS[down_codec]
         self.frac = float(frac)
+        # the server's (mesh-aware) bundle: link vectors are whole, of its
+        # padded width, on the home device
+        self.mesh = mesh
         self.bundle = flatbuf.bundle_for(template, mesh)
         self.raw_bytes = (int(raw_bytes) if raw_bytes is not None
                           else self.bundle.raw_bytes)

@@ -2,12 +2,25 @@
 
 ``fedavg_agg_flat`` (``w @ rows``) and ``fedavg_mix_flat``
 (``s * server + w @ rows``) replace the TPU kernels of
-``repro/kernels/fedavg_agg.py``; ``fedavg_delta_flat`` is the mix with
-``s = 1``.  ``merge_opt_flat`` is either merge with the server
-optimizer's step (``server_opt_step_flat``) in the same launch.  On a
-CUDA tensor they launch ``csrc/fedavg_agg.cu``; on a CPU tensor they run
-the plain versions in ``ref.py``.  See the CUDA source for the design and
-its bound.
+``repro/kernels/fedavg_agg.py``; ``fedavg_mix_wvec`` is the mix with the
+server's scale as ``wvec[0]`` (the form the merge paths call, with an
+in-place ``out``) and ``fedavg_delta_flat`` the mix with ``s = 1``.
+``merge_opt_flat`` is either merge with the server optimizer's step
+(``server_opt_step_flat``, re-exported here as in the JAX package) in the
+same launch.  On a CUDA tensor they launch ``csrc/fedavg_agg.cu``; on a
+CPU tensor they run the plain versions in ``ref.py``.  See the CUDA source
+for the design and its bound.
+
+Sharded variants (``*_sharded``, the JAX package's ``shard_map``
+wrappers): the same kernels over a 1-D aggregation mesh
+(``parallel.sharding.agg_mesh``), every buffer split along N.  Each
+wrapper launches its kernel once per shard, on that shard's device and
+under its device guard; the packed layout keeps every worker's lane of a
+parameter on one device, so no shard reads another's data.  ``gather=True``
+returns the whole ``(N,)`` result on the home device (the reference's one
+``all_gather``); by default the result stays sharded.  Each per-shard
+launch counts in its kernel's own counter (``LAUNCHES`` here, B5's in
+``server_opt.LAUNCHES``), so a merge over D shards counts D launches.
 """
 from __future__ import annotations
 
@@ -16,8 +29,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel import sharding as psh
+
 from . import (check_cuda_tensor, check_status, output_tensor, ref,
                use_kernel)
+from .server_opt import server_opt_step_flat
 
 # kernel launches by wrapper (merge_opt_flat by optimizer form): a run
 # shows it went through the kernels
@@ -50,7 +66,28 @@ def fedavg_agg_flat(stacked: torch.Tensor, weights: torch.Tensor
     return out
 
 
-def fedavg_mix_flat(stacked: torch.Tensor, wvec: torch.Tensor,
+def fedavg_mix_flat(stacked: torch.Tensor, weights: torch.Tensor,
+                    server: torch.Tensor, server_scale) -> torch.Tensor:
+    """The JAX package's form: ``server_scale * server + weights @
+    stacked`` into a new vector.  stacked: (W, N) f32; weights: (W,);
+    server: (N,) f32; ``server_scale`` a float or a 0-d tensor."""
+    return fedavg_mix_wvec(stacked, _wvec(weights, server_scale,
+                                          stacked.device), server)
+
+
+def _wvec(weights, server_scale, device: torch.device) -> torch.Tensor:
+    """``[server_scale, *weights]`` as one f32 vector on ``device``; a
+    float scale is filled in on the device (no host copy)."""
+    w = torch.as_tensor(weights, dtype=torch.float32).reshape(-1).to(device)
+    if isinstance(server_scale, torch.Tensor):
+        s = server_scale.to(device=device, dtype=torch.float32).reshape(1)
+    else:
+        s = torch.full((1,), float(server_scale), dtype=torch.float32,
+                       device=device)
+    return torch.cat([s, w])
+
+
+def fedavg_mix_wvec(stacked: torch.Tensor, wvec: torch.Tensor,
                     server: torch.Tensor,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``wvec[0] * server + wvec[1:] @ stacked`` in one pass.
@@ -75,7 +112,7 @@ def fedavg_mix_flat(stacked: torch.Tensor, wvec: torch.Tensor,
         stacked.data_ptr(), wvec.data_ptr(), server.data_ptr(),
         out.data_ptr(), W, N,
         torch.cuda.current_stream(stacked.device).cuda_stream)
-    check_status(status, "fedavg_mix_flat")
+    check_status(status, "fedavg_mix_wvec")
     LAUNCHES["mix"] += 1
     return out
 
@@ -86,7 +123,7 @@ def fedavg_delta_flat(server: torch.Tensor, deltas: torch.Tensor,
     """Delta-accumulate: ``server + weights @ deltas`` (the mix, s = 1)."""
     wvec = torch.cat([torch.ones(1, dtype=torch.float32,
                                  device=weights.device), weights.float()])
-    return fedavg_mix_flat(deltas, wvec, server, out=out)
+    return fedavg_mix_wvec(deltas, wvec, server, out=out)
 
 
 def merge_opt_flat(stacked: torch.Tensor, wvec: torch.Tensor,
@@ -146,3 +183,133 @@ def merge_opt_flat(stacked: torch.Tensor, wvec: torch.Tensor,
     check_status(status, f"merge_opt_flat({form})")
     LAUNCHES[f"merge_{form}"] += 1
     return out, mo, vo
+
+
+# ---------------------------------------------------------------------------
+# Sharded variants (B7): one launch per shard over a 1-D server mesh
+# ---------------------------------------------------------------------------
+
+def _check_shardable(N: int, mesh, axis: str) -> int:
+    D = mesh.shape[axis]
+    if N % D:
+        raise ValueError(f"flat buffer width {N} not divisible by the "
+                         f"{D}-device '{axis}' mesh axis — pack with a "
+                         f"mesh-aware ParamBundle (pads N to divisibility)")
+    return D
+
+
+def _per_shard(launch, mesh, split=(), copy=(), outs=(), gather=False):
+    """``launch(*split_pieces, *copies, *out_pieces)`` once per shard of
+    ``mesh``, under that shard's device guard.  ``split`` are (.., N)
+    operands: a ``Sharded``'s own pieces, or a whole tensor split onto the
+    mesh (None stays None); ``copy`` are small operands (the weights)
+    copied to each device; ``outs`` are None or ``Sharded`` outputs
+    written in place.  An operand passed twice (an in-place output) is the
+    same pieces.  Returns each output of ``launch`` as a ``Sharded``
+    (None stays None), a single one gathered on the home device with
+    ``gather``."""
+    if any(o is not None and not isinstance(o, psh.Sharded) for o in outs):
+        raise ValueError("a sharded wrapper writes in place only into a "
+                         "Sharded output")
+    done = {}
+
+    def pieces(x):
+        if x is None:
+            return (None,) * len(mesh.devices)
+        if id(x) not in done:
+            if isinstance(x, psh.Sharded):
+                if x.mesh != mesh:
+                    raise ValueError("operand sharded over another mesh")
+                done[id(x)] = tuple(s.to(d) for s, d in
+                                    zip(x.shards, mesh.devices))
+            else:
+                done[id(x)] = psh.split(x, mesh).shards
+        return done[id(x)]
+
+    split, outs = [pieces(x) for x in split], [pieces(x) for x in outs]
+    copies = [{d: c.to(d) for d in set(mesh.devices)} for c in copy]
+    results = []
+    for i, dev in enumerate(mesh.devices):
+        with psh.device_guard(dev):
+            r = launch(*(p[i] for p in split), *(c[dev] for c in copies),
+                       *(p[i] for p in outs))
+        results.append(r if isinstance(r, tuple) else (r,))
+    res = tuple(None if col[0] is None else psh.Sharded(col, mesh)
+                for col in zip(*results))
+    if len(res) > 1:
+        return res
+    return res[0].gather() if gather else res[0]
+
+
+def fedavg_mix_wvec_sharded(stacked, wvec: torch.Tensor, server, *, mesh,
+                            axis: str = psh.AGG_AXIS, gather: bool = False,
+                            out=None):
+    """``fedavg_mix_wvec`` per shard: ``stacked`` (W, N) and ``server``
+    (N,) are ``Sharded`` (or whole, then split); ``wvec`` (W + 1,) is
+    copied to each device.  ``out`` may be ``server`` (a ``Sharded``: the
+    in-place merge) or None.  Returns the ``Sharded`` result, or the whole
+    one on the home device with ``gather``."""
+    _check_shardable(stacked.shape[-1], mesh, axis)
+    return _per_shard(lambda r, s, w, o: fedavg_mix_wvec(r, w, s, out=o),
+                      mesh, split=(stacked, server), copy=(wvec,),
+                      outs=(out,), gather=gather)
+
+
+def fedavg_mix_flat_sharded(stacked, weights, server, server_scale, *,
+                            mesh, axis: str = psh.AGG_AXIS,
+                            gather: bool = False):
+    """``server_scale * server + weights @ stacked`` over a 1-D server
+    mesh: each device runs B1 on its (W, N/D) rows and (N/D,) server
+    slice (the JAX package's form and its ``shard_map`` wrapper)."""
+    return fedavg_mix_wvec_sharded(
+        stacked, _wvec(weights, server_scale, mesh.home), server, mesh=mesh,
+        axis=axis, gather=gather)
+
+
+def fedavg_agg_flat_sharded(stacked, weights, *, mesh,
+                            axis: str = psh.AGG_AXIS, gather: bool = False):
+    """Sharded ``weights @ stacked`` (no server term: the alpha >= 1
+    replace path must not read the server buffer; see
+    ``flatbuf.fused_weighted_sum``), one B2 launch per shard."""
+    _check_shardable(stacked.shape[-1], mesh, axis)
+    w = torch.as_tensor(weights, dtype=torch.float32).reshape(-1)
+    return _per_shard(fedavg_agg_flat, mesh, split=(stacked,), copy=(w,),
+                      gather=gather)
+
+
+def merge_opt_flat_sharded(stacked, wvec: torch.Tensor, server, prev, m, v,
+                           scalars, *, adam: bool, mesh,
+                           axis: str = psh.AGG_AXIS, out=None, m_out=None,
+                           v_out=None):
+    """``merge_opt_flat`` per shard: the merge and the server optimizer's
+    step in one launch on each device's slices; the aliasing rules of
+    ``merge_opt_flat`` hold per shard (``out`` may be ``server`` and
+    ``prev``, ``m_out`` ``m``, ``v_out`` ``v``).  Returns ``(new, m',
+    v')`` as ``Sharded`` vectors, ``v'`` None when ``adam`` is False."""
+    _check_shardable(stacked.shape[-1], mesh, axis)
+
+    def launch(r, s, p, m_, v_, w, o, mo, vo):
+        return merge_opt_flat(r, w, s, p, m_, v_, scalars, adam=adam, out=o,
+                              m_out=mo, v_out=vo)
+    return _per_shard(launch, mesh,
+                      split=(stacked, server, prev, m, v if adam else None),
+                      copy=(wvec,),
+                      outs=(out, m_out, v_out if adam else None))
+
+
+def server_opt_step_flat_sharded(prev, merged, m, v, scalars, *,
+                                 adam: bool, mesh, axis: str = psh.AGG_AXIS,
+                                 m_out=None, v_out=None):
+    """Sharded optimizer step: every buffer is split along N and the
+    update is elementwise, so each device runs B5 on its own (N/D,)
+    slices, with no collective.  ``m_out``/``v_out`` may be ``m``/``v``
+    (the state updates in place).  Returns ``(new, m', v')`` as
+    ``Sharded`` vectors, ``v'`` None when ``adam`` is False."""
+    _check_shardable(prev.shape[-1], mesh, axis)
+
+    def launch(p, g, m_, v_, mo, vo):
+        return server_opt_step_flat(p, g, m_, v_, scalars, adam=adam,
+                                    m_out=mo, v_out=vo)
+    return _per_shard(launch, mesh, split=(prev, merged, m,
+                                           v if adam else None),
+                      outs=(m_out, v_out if adam else None))

@@ -47,6 +47,23 @@ def reference_fedavg_mix(stacked: torch.Tensor, weights: torch.Tensor,
     return server_scale * server.float() + acc
 
 
+def reference_fedavg_sharded(stacked: torch.Tensor, weights: torch.Tensor,
+                             server: torch.Tensor, server_scale,
+                             n_shards: int) -> torch.Tensor:
+    """The sharded mix's plain version: N sliced into ``n_shards`` equal
+    ranges, ``reference_fedavg_mix`` on each, concatenated.  The packed
+    (W, N) layout keeps the W-reduce shard-local, so this equals the whole
+    ``server_scale * server + weights @ stacked`` bit for bit."""
+    W, N = stacked.shape
+    if N % n_shards:
+        raise ValueError(f"N = {N} not divisible by {n_shards} shards")
+    S = N // n_shards
+    return torch.cat([
+        reference_fedavg_mix(stacked[:, d * S:(d + 1) * S], weights,
+                             server[d * S:(d + 1) * S], server_scale)
+        for d in range(n_shards)])
+
+
 def reference_topk_quant_encode(x: torch.Tensor, thresh, scale):
     """Mask ``|x| < thresh``, quantise the rest to int8 (round half to
     even, clipped to +-127), and return ``(q, x - q * scale)``."""
@@ -182,6 +199,46 @@ def reference_merge_opt(stacked: torch.Tensor, wvec: torch.Tensor,
     else:
         merged = reference_fedavg_mix(stacked, wvec[1:], server, wvec[0])
     return reference_server_opt(prev, merged, m, v, scalars, adam=adam)
+
+
+def _slices(n: int, n_shards: int):
+    if n % n_shards:
+        raise ValueError(f"N = {n} not divisible by {n_shards} shards")
+    s = n // n_shards
+    return [slice(d * s, (d + 1) * s) for d in range(n_shards)]
+
+
+def _cat_steps(steps):
+    news, mos, vos = zip(*steps)
+    return (torch.cat(news), torch.cat(mos),
+            None if vos[0] is None else torch.cat(vos))
+
+
+def reference_server_opt_sharded(prev: torch.Tensor, merged: torch.Tensor,
+                                 m: torch.Tensor, v, scalars, *,
+                                 adam: bool, n_shards: int):
+    """The sharded optimizer step's plain version: ``reference_server_opt``
+    on each of ``n_shards`` equal ranges of N, concatenated (the update is
+    elementwise, so this is the whole step bit for bit)."""
+    return _cat_steps(
+        reference_server_opt(prev[sl], merged[sl], m[sl],
+                             None if v is None else v[sl], scalars,
+                             adam=adam)
+        for sl in _slices(prev.shape[-1], n_shards))
+
+
+def reference_merge_opt_sharded(stacked: torch.Tensor, wvec: torch.Tensor,
+                                server: Optional[torch.Tensor],
+                                prev: torch.Tensor, m: torch.Tensor, v,
+                                scalars, *, adam: bool, n_shards: int):
+    """``reference_merge_opt`` on each of ``n_shards`` equal ranges of N,
+    concatenated: the sharded fused merge's plain version."""
+    return _cat_steps(
+        reference_merge_opt(stacked[:, sl], wvec,
+                            None if server is None else server[sl],
+                            prev[sl], m[sl], None if v is None else v[sl],
+                            scalars, adam=adam)
+        for sl in _slices(stacked.shape[1], n_shards))
 
 
 def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,

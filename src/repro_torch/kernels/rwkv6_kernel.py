@@ -113,6 +113,14 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return _launch(r, k, v, w, u, None, chunk, False)[0]
 
 
+def wkv_pallas(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16
+               ) -> torch.Tensor:
+    """The JAX package's name of ``wkv``: y from a zero state, chunk 16
+    (its ``interpret`` knob has no twin: the device picks the path)."""
+    return wkv(r, k, v, w, u, chunk=chunk)
+
+
 def wkv_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               s0: Optional[torch.Tensor] = None, *, chunk: int = 64

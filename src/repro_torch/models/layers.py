@@ -17,6 +17,7 @@ import torch
 from repro_torch import resolve_device
 
 COMPUTE_DTYPE = torch.bfloat16
+PARAM_DTYPE = torch.float32   # master params; cast to bf16 for compute
 
 
 def dense_init(generator: torch.Generator, shape, fan_in: int,

@@ -87,8 +87,8 @@ def test_cuda_fedavg_kernels_match_plain(h100, W, N):
     server = torch.randn(N, device=h100)
     wvec = torch.cat([torch.tensor([0.1], device=h100), w_d])
     plain = ref.reference_fedavg_mix(rows_d, w_d, server, wvec[0])
-    fresh = fedavg_agg.fedavg_mix_flat(rows_d, wvec, server)
-    inplace = fedavg_agg.fedavg_mix_flat(rows_d, wvec, server, out=server)
+    fresh = fedavg_agg.fedavg_mix_wvec(rows_d, wvec, server)
+    inplace = fedavg_agg.fedavg_mix_wvec(rows_d, wvec, server, out=server)
     torch.cuda.synchronize()
     assert torch.equal(fresh, plain)
     assert torch.equal(inplace, fresh)
@@ -907,3 +907,49 @@ def test_cuda_snapshot_round_trip_resumes_bit_for_bit(h100, case, tmp_path):
         assert fedavg_agg.LAUNCHES["agg"] > 0
         assert topk_quant.LAUNCHES["ef_encode"] > 0
         assert topk_quant.LAUNCHES["decode_rows"] > 0
+
+
+# ---------------- B7: the sharded wrappers on a repeated-card mesh --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N", [(30, 102_400), (1, 4096), (5, 2048)])
+def test_cuda_b7_matches_unsharded_and_plain(h100, W, N):
+    """chip_smoke's ``check_b7`` at small sizes: every B7 form bit for bit
+    against the unsharded kernel and the plain sharded version at D = 1,
+    2 and 4 (meshes repeating the card), one launch per shard."""
+    from repro_torch.parallel import sharding as psh
+    dev = torch.device("cuda", 0)
+    rec = chip_smoke.check_b7(dev, [(W, N)], meshes=(1, 2, 4))
+    torch.cuda.synchronize()
+    assert rec["ok"] and rec["cases"] == 3 * len(chip_smoke.B7_FORMS)
+    # each form's B7 call launches its kernel once per shard
+    counters = chip_smoke.launch_counters()
+    o = chip_smoke.b7_inputs(dev, W, N, seed=0)
+    for D in (1, 2, 4):
+        o_sh = chip_smoke.b7_sharded(o, psh.agg_mesh(devices=(dev,) * D))
+        mesh = o_sh["rows"].mesh
+        for form, ctr, _ in chip_smoke.B7_RECORDS.values():
+            n0 = counters[ctr][ctr]
+            chip_smoke.b7_call(form, o_sh, mesh)
+            assert counters[ctr][ctr] - n0 == D, (form, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", chip_smoke.B7_FAULTS)
+def test_cuda_b7_check_catches_faults(h100, fault):
+    with pytest.raises(AssertionError, match="B7"):
+        chip_smoke.check_b7(torch.device("cuda", 0), [(3, 4096)],
+                            meshes=(2,), fault=fault)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["raw/sync", "uplink_only/sync",
+                                 "hetero/sync/fedadam"])
+def test_cuda_sharded_run_equals_unsharded(h100, key):
+    """chip_smoke's ``shard_run`` at a short cut: D = 1, 2 and 4 equal to
+    the unsharded card run in every field, D launches a merge."""
+    from repro_torch.core import TABLE_4_1, make_setup
+    setup = make_setup(TABLE_4_1["mnist_even"], seed=0, noise=0.25,
+                       batch_size=32, het="strong", device=h100)
+    rec = chip_smoke.shard_run(key, setup, rounds=2, epochs=1)
+    assert rec["equal"] == {"1": True, "2": True, "4": True}

@@ -153,6 +153,12 @@ def test_merge_does_not_alias_trees_or_vectors_handed_out(alpha):
 
 
 def test_mesh_is_not_ported():
+    """A mesh that is not the port's own (``parallel.sharding.agg_mesh``)
+    is refused; the port's own runs (tests/test_torch_sharded.py)."""
+    from repro_torch.parallel import sharding as psh
     _, tserver = _both(0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="agg_mesh"):
         flatbuf.FlatServerState(tserver, mesh=object())
+    st = flatbuf.FlatServerState(tserver, mesh=psh.agg_mesh(1,
+                                                            platform="cpu"))
+    assert st.bundle.n_shards == 1

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, no
-``tools/torch_*.py`` script and not ``chip_smoke.py`` imports ``jax`` or
-the JAX package ``repro``; the port imports with both blocked; and its
-entry points do not fall back to the CPU when no device was asked for."""
+``tools/torch_*.py`` or ``benchmarks/torch_*.py`` script and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; the port
+imports with both blocked; and its entry points do not fall back to the
+CPU when no device was asked for."""
 import ast
 import subprocess
 import sys
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    sorted((ROOT / "tools").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "tools").glob("torch_*.py")) + \
+    sorted((ROOT / "benchmarks").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -46,7 +48,8 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.analytics, repro_torch.kernels.ops, "
             "repro_torch.kernels.rwkv6_kernel, repro_torch.models.rwkv6, "
             "repro_torch.core.autotune, repro_torch.core.topology, "
-            "repro_torch.runtime.faults, repro_torch.checkpoint\n"
+            "repro_torch.runtime.faults, repro_torch.checkpoint, "
+            "repro_torch.parallel.sharding\n"
             "assert 'repro_torch.core.experiment' in sys.modules\n"
             "assert 'repro_torch.models.transformer' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -66,17 +69,39 @@ def test_make_setup_without_device_needs_the_card():
             make_setup(TABLE_4_1["mnist_even"])
 
 
-# topology, cohorts and checkpoints are ported; each still raises where
-# it meets an option that is not (a sharded server: ROADMAP A7), and the
-# checkpoint options raise as the JAX package's do without a directory
+def test_agg_shard_bench_without_device_needs_the_card():
+    """The sharded-aggregation bench measures on the card: without one it
+    exits unless the CPU is asked for, and never times the CPU in the
+    card's place."""
+    import importlib.util
+    path = ROOT / "benchmarks" / "torch_agg_shard_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_agg_shard_bench",
+                                                  path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert bench.parse_args([]).device == "cuda"
+    assert bench.parse_args(["--smoke"]).device == "cpu"
+    assert bench.parse_args(["--smoke", "--device", "cuda"]).device == "cuda"
+    assert bench._device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert bench._device("cuda").type == "cuda"
+    else:
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            bench._device(bench.parse_args([]).device)
+
+
+# topology, cohorts, checkpoints and the sharded server are ported; the
+# checkpoint options raise as the JAX package's do without a directory,
+# and a server mesh larger than the devices there are as agg_mesh does
 UNPORTED = [
     (dict(topology="1x2", checkpoint_every=2), ValueError,
      "checkpointing needs checkpoint_dir"),
     (dict(checkpoint_every=2), ValueError,
      "checkpointing needs checkpoint_dir"),
     (dict(resume=True), ValueError, "checkpointing needs checkpoint_dir"),
-    (dict(server_mesh=1), NotImplementedError, "ROADMAP A7"),
-    (dict(cohort=4, server_mesh=1), NotImplementedError, "ROADMAP A7"),
+    (dict(server_mesh=64), ValueError, "server mesh of 64 devices"),
+    (dict(cohort=4, server_mesh=64), ValueError,
+     "server mesh of 64 devices"),
     # the three server optimizers are ported; any other name raises
     (dict(server_opt="fedyogi"), ValueError, "unknown server_opt")]
 

@@ -97,7 +97,7 @@ def test_fedavg_mix_matches_pallas(W, N, s):
     rows, w = _rows(W, N)
     server = np.random.RandomState(9).randn(N).astype(np.float32)
     wvec = np.concatenate([[np.float32(s)], w]).astype(np.float32)
-    got = fedavg_agg.fedavg_mix_flat(_t(rows), _t(wvec), _t(server)).numpy()
+    got = fedavg_agg.fedavg_mix_wvec(_t(rows), _t(wvec), _t(server)).numpy()
     pallas = np.asarray(jfedavg.fedavg_mix_flat(
         jnp.asarray(rows), jnp.asarray(w), jnp.asarray(server),
         np.float32(s), interpret=True))
@@ -113,8 +113,8 @@ def test_fedavg_mix_in_place_equals_out_of_place():
     wvec = _t(np.concatenate([[0.1], w]).astype(np.float32))
     server = torch.from_numpy(np.random.RandomState(2).randn(1000)
                               .astype(np.float32))
-    fresh = fedavg_agg.fedavg_mix_flat(_t(rows), wvec, server)
-    out = fedavg_agg.fedavg_mix_flat(_t(rows), wvec, server, out=server)
+    fresh = fedavg_agg.fedavg_mix_wvec(_t(rows), wvec, server)
+    out = fedavg_agg.fedavg_mix_wvec(_t(rows), wvec, server, out=server)
     assert out is server
     assert torch.equal(server, fresh)
 

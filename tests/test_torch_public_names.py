@@ -4,9 +4,14 @@
 ``layers.rmsnorm_init`` / ``glu_mlp_init`` / ``embed_init``, the MLP
 entry points' default device (the card, as every entry point's), the
 public names of the auto tuner, lossy links, topology and fault tools,
-and of the checkpoint slice (A4), whose entry points and resume seams
-now run under the JAX package's signatures, and each raise that remains
-naming its current ROADMAP step (the sharded substrate A7).
+and of the checkpoint slice (A4) and the sharded substrate (A7), whose
+entry points now run under the JAX package's signatures, and each raise
+that remains naming its current ROADMAP step.  The kernels' reference
+forms (ROADMAP C3): ``fedavg_agg.fedavg_mix_flat(stacked, weights,
+server, server_scale)``, ``fedavg_agg.server_opt_step_flat``,
+``rwkv6_kernel.wkv_pallas`` and ``layers.PARAM_DTYPE``, each against
+JAX's signature (the Pallas knobs ``block_n``/``interpret`` have no twin)
+and result.
 
 Tolerances: the FedProx wrapper's parameters within 1e-5 of JAX's after
 three epochs (tests/test_torch_mlp.py's bound); byte counts and shapes
@@ -126,15 +131,15 @@ def _same_signature(fn, jfn) -> bool:
 
 def _entry_points(tmp_path):
     """Each entry point that raised until its ROADMAP step was ported, with
-    the step: the checkpoints and their resume seams (A4) now run, each
-    under the JAX package's signature; the sharded substrate (A7) still
-    raises."""
+    the step: the checkpoints and their resume seams (A4) and the sharded
+    substrate (A7) now run, each under the JAX package's signature."""
     from repro.core import experiment as jexperiment
     from repro.core import topology as jtopology
     from repro.core import worker as jworker
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import flatbuf, topology
     from repro_torch.core.worker import FLWorker
+    from repro_torch.parallel import sharding as psh
     setup = make_setup(TABLE_4_1["mnist_even"], device="cpu")
     kw = dict(max_rounds=2, epochs_per_round=1)
 
@@ -208,6 +213,35 @@ def _entry_points(tmp_path):
         assert _same_signature(FLWorker.resume_conversation,
                                jworker.FLWorker.resume_conversation)
 
+    # two shards on the one CPU device: agg_mesh's repeated-device form
+    mesh2 = psh.agg_mesh(devices=["cpu"] * 2)
+
+    def sharded_run():
+        h = run_fl(setup, **kw, server_mesh=1)
+        assert records(h) == records(run_fl(setup, **kw))
+        assert records(run_fl(setup, **kw, server_mesh=mesh2)) == records(h)
+        assert _same_signature(run_fl, jexperiment.run_fl)
+
+    def sharded_topology():
+        run = topology.run_fl_topology
+        res = run(setup, topology="1x2", **kw, server_mesh=mesh2)
+        full = run(setup, topology="1x2", **kw)
+        assert records(res.root_history) == records(full.root_history)
+        assert res.topology._flat.mesh is mesh2
+        assert _same_signature(topology.build_topology,
+                               jtopology.build_topology)
+
+    def sharded_bundle():
+        b = flatbuf.ParamBundle(setup.weights0, mesh=mesh2)
+        assert b.padded_size % (2 * flatbuf.BLOCK) == 0
+        assert b.shard_size * 2 == b.padded_size
+        assert flatbuf.bundle_for(setup.weights0, mesh2) is \
+            flatbuf.bundle_for(setup.weights0, mesh2)
+
+    def sharded_transport():
+        tr = transport.Transport(setup.weights0, mesh=mesh2)
+        assert tr.bundle is flatbuf.bundle_for(setup.weights0, mesh2)
+
     return {
         "run_fl checkpoint_every": ("A4", checkpointed),
         "run_fl resume": ("A4", resumed),
@@ -218,15 +252,10 @@ def _entry_points(tmp_path):
         "Topology.resume_done_settled": (
             "A4", lambda: seam("resume_done_settled")),
         "FLWorker.resume_conversation": ("A4", conversation),
-        "run_fl server_mesh": ("A7", lambda: run_fl(setup, max_rounds=1,
-                                                    server_mesh=1)),
-        "run_fl_topology server_mesh": (
-            "A7", lambda: topology.run_fl_topology(setup, topology="1x2",
-                                                   server_mesh=2)),
-        "ParamBundle mesh": ("A7", lambda: flatbuf.ParamBundle(
-            setup.weights0, mesh=object())),
-        "Transport mesh": ("A7", lambda: transport.Transport(
-            setup.weights0, mesh=object())),
+        "run_fl server_mesh": ("A7", sharded_run),
+        "run_fl_topology server_mesh": ("A7", sharded_topology),
+        "ParamBundle mesh": ("A7", sharded_bundle),
+        "Transport mesh": ("A7", sharded_transport),
     }
 
 
@@ -236,7 +265,7 @@ UNPORTED_RAISES = sorted((
     "Topology.resume_done_settled", "FLWorker.resume_conversation",
     "run_fl server_mesh", "run_fl_topology server_mesh", "ParamBundle mesh",
     "Transport mesh"))
-PORTED_STEPS = ("A4",)
+PORTED_STEPS = ("A4", "A7")
 
 
 @pytest.mark.parametrize("name", UNPORTED_RAISES)
@@ -327,3 +356,95 @@ def test_ported_slice_keeps_the_references_public_names():
         assert hasattr(transport.Transport, meth)
     for meth in ("hold", "release", "install_global"):
         assert hasattr(server.AggregationServer, meth)
+
+
+# Pallas-only knobs: the port dispatches by device, so they have no twin
+PALLAS_KNOBS = ("block_n", "interpret")
+
+
+def _params_but_knobs(fn):
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()
+            if p.name not in PALLAS_KNOBS]
+
+
+def test_fedavg_mix_flat_takes_the_references_form():
+    """ROADMAP C3: ``fedavg_mix_flat(stacked, weights, server,
+    server_scale)`` as in the JAX package, its result within 1e-6 of
+    JAX's Pallas kernel (interpret) and equal bit for bit to the wvec
+    form the merge paths launch (``fedavg_mix_wvec``)."""
+    from repro.kernels import fedavg_agg as jfedavg
+    from repro_torch.kernels import fedavg_agg
+    assert _params_but_knobs(fedavg_agg.fedavg_mix_flat) == \
+        _params_but_knobs(jfedavg.fedavg_mix_flat)
+    rng = np.random.RandomState(0)
+    rows = rng.randn(3, 1000).astype(np.float32)
+    w = np.asarray([0.2, 0.3, 0.1], np.float32)
+    server = rng.randn(1000).astype(np.float32)
+    got = fedavg_agg.fedavg_mix_flat(torch.from_numpy(rows),
+                                     torch.from_numpy(w),
+                                     torch.from_numpy(server), 0.4)
+    want = np.asarray(jfedavg.fedavg_mix_flat(
+        jnp.asarray(rows), jnp.asarray(w), jnp.asarray(server), 0.4,
+        interpret=True))
+    assert float(np.abs(got.numpy() - want).max()) < 1e-6
+    wvec = torch.from_numpy(np.concatenate([[0.4], w]).astype(np.float32))
+    assert torch.equal(got, fedavg_agg.fedavg_mix_wvec(
+        torch.from_numpy(rows), wvec, torch.from_numpy(server)))
+
+
+@pytest.mark.parametrize("adam", [False, True])
+def test_server_opt_step_flat_lives_in_fedavg_agg(adam):
+    """ROADMAP C3: ``fedavg_agg.server_opt_step_flat`` is the step of
+    ``kernels/server_opt.py`` under the JAX package's signature, within
+    1e-6 of JAX's Pallas kernel (interpret)."""
+    from repro.kernels import fedavg_agg as jfedavg
+    from repro_torch.kernels import fedavg_agg
+    from repro_torch.kernels import server_opt as opt_kernel
+    assert fedavg_agg.server_opt_step_flat is opt_kernel.server_opt_step_flat
+    theirs = _params_but_knobs(jfedavg.server_opt_step_flat)
+    assert _params_but_knobs(fedavg_agg.server_opt_step_flat)[:len(theirs)] \
+        == theirs
+    rng = np.random.RandomState(1)
+    prev, merged, m = (rng.randn(1000).astype(np.float32) for _ in range(3))
+    v = np.abs(rng.randn(1000)).astype(np.float32)
+    sc = np.asarray([0.9, 0.99, 0.05, 1e-3, 0, 0] if adam
+                    else [0.9, 1.0, 0.0, 1.0], np.float32)
+    got = fedavg_agg.server_opt_step_flat(
+        *(torch.from_numpy(a) for a in (prev, merged, m, v)), sc, adam=adam)
+    want = jfedavg.server_opt_step_flat(
+        *(jnp.asarray(a) for a in (prev, merged, m, v)), jnp.asarray(sc),
+        adam=adam, interpret=True)
+    for g, j in zip(got, want):
+        assert (g is None) == (j is None)
+        if g is not None:
+            assert float(np.abs(g.numpy() - np.asarray(j)).max()) < 1e-6
+
+
+def test_wkv_pallas_is_wkv():
+    """ROADMAP C3: ``rwkv6_kernel.wkv_pallas`` is ``wkv`` (y from a zero
+    state, chunk 16) under the JAX package's name and signature, within
+    1e-4 of JAX's Pallas kernel (interpret; tests/test_kernels.py's wkv
+    bound)."""
+    from repro.kernels import rwkv6_kernel as jwkv
+    from repro_torch.kernels import rwkv6_kernel
+    assert _params_but_knobs(rwkv6_kernel.wkv_pallas) == \
+        _params_but_knobs(jwkv.wkv_pallas)
+    rng = np.random.RandomState(2)
+    r, k, v = (rng.randn(1, 32, 2, 8).astype(np.float32) * 0.5
+               for _ in range(3))
+    w = rng.uniform(0.8, 0.99, (1, 32, 2, 8)).astype(np.float32)
+    u = rng.randn(2, 8).astype(np.float32) * 0.5
+    t = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+    got = rwkv6_kernel.wkv_pallas(*t)
+    assert torch.equal(got, rwkv6_kernel.wkv(*t))
+    want = np.asarray(jwkv.wkv_pallas(*(jnp.asarray(a)
+                                        for a in (r, k, v, w, u)),
+                                      interpret=True))
+    assert float(np.abs(got.numpy() - want).max()) < 1e-4
+
+
+def test_layers_param_dtype_matches_jax():
+    """ROADMAP C3: the master parameters' dtype, f32 on both sides."""
+    assert layers.PARAM_DTYPE == torch.float32
+    assert np.dtype(jlayers.PARAM_DTYPE) == np.float32

@@ -1,7 +1,8 @@
 """Where a round of the port's runs spends its time on the card.
 
     PYTHONPATH=src python tools/torch_profile_round.py [--rounds 2]
-        [--runs raw/sync,uplink_only/sync] [--prefill [ARCH]]
+        [--runs raw/sync,uplink_only/sync] [--server-mesh D]
+        [--prefill [ARCH]]
 
 For each named run of ``chip_smoke.py`` (default: the main path's raw
 sync and top-k+int8 uplink sync; e.g. ``hetero/sync/fedadam`` or
@@ -9,7 +10,9 @@ sync and top-k+int8 uplink sync; e.g. ``hetero/sync/fedadam`` or
 ``lossy/sync``, ``cohort/scale``, ``chaos_raw/1x2``, any key of
 ``chip_smoke.FLEET``, driven by ``chip_smoke.fleet_call``; a round of a
 chaos run is a root round, and cohort/scale's window includes building
-its 10,000 workers) builds its setup on the CUDA card, runs one warm-up
+its 10,000 workers; with ``--server-mesh D`` a run of phases 4-6 shards
+its server over a mesh of D that repeats the card, as ``chip_smoke.py``'s
+phase 9 does) builds its setup on the CUDA card, runs one warm-up
 round, then profiles ``--rounds`` rounds with ``torch.profiler`` (CPU and
 CUDA activities) and prints, per run: wall seconds per round (inflated
 by the profiler itself), the device's busy time (the sum of kernel
@@ -133,7 +136,7 @@ def profile_prefill(arch: str):
               f"{e.key[:70]}")
 
 
-def _runner(key):
+def _runner(key, server_mesh=None):
     """``(run, setup)`` of a ``chip_smoke.py`` run on the card:
     ``run(setup, rounds)`` drives it and returns its retransmits (over
     every transport of a topology, as ``audit_chaos_run`` counts them)."""
@@ -151,6 +154,10 @@ def _runner(key):
                             cfg=MNIST_CNN, model=spec["model"], seed=0,
                             **kw, **spec["setup_kw"], device="cuda")
     rkw = dict(epochs_per_round=chip_smoke.EPOCHS, **spec["run_kw"])
+    if server_mesh is not None:
+        from repro_torch.parallel.sharding import agg_mesh
+        rkw["server_mesh"] = agg_mesh(devices=[setup.weights0[
+            next(iter(setup.weights0))].device] * server_mesh)
     return (lambda s, r: core.run_fl(s, max_rounds=r, **rkw)[-1]
             .retransmits), setup
 
@@ -164,6 +171,9 @@ def main():
                                              chip_smoke.RWKV_ARCH),
                     help="profile one LM prefill of ARCH (default "
                          f"{chip_smoke.LM_ARCH}) instead of FL rounds")
+    ap.add_argument("--server-mesh", type=int, default=None, metavar="D",
+                    help="shard the server over a mesh of D repeating the "
+                         "card (runs of phases 4-6)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_round: needs a CUDA card")
@@ -175,7 +185,7 @@ def main():
         profile_prefill(args.prefill)
         return
     for key in args.runs.split(","):
-        run, setup = _runner(key)
+        run, setup = _runner(key, args.server_mesh)
         run(setup, 1)                                         # warm-up
         retx = []
         prof, wall = _profile(lambda: retx.append(run(setup, args.rounds)))
