@@ -32,12 +32,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch import card_name, device_or_exit  # noqa: E402
 
 RESULTS = Path(__file__).resolve().parent / "results" / "torch"
 
@@ -55,16 +56,6 @@ MODELS = {
 }
 W_GRID = (8, 64, 256)
 MESH_GRID = (1, 2, 4)
-
-
-def _device(name: str):
-    """The device asked for; a missing card ends the run (no CPU
-    fallback)."""
-    import torch
-    if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: run on the card, or ask for the "
-                         "CPU with --device cpu")
-    return torch.device("cuda", 0) if name == "cuda" else torch.device(name)
 
 
 def _model(spec: dict, seed: int, device):
@@ -138,16 +129,6 @@ def _bench_cell(name: str, spec: dict, W: int, d: int, rounds: int,
     return cell
 
 
-def _card() -> str:
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], check=True,
-                             capture_output=True, text=True, timeout=60)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError):
-        return "no card"
-
-
 def run(device, smoke: bool = False) -> dict:
     import numpy as np
     import torch
@@ -171,7 +152,7 @@ def run(device, smoke: bool = False) -> dict:
                 cells.append(_bench_cell(name, spec, W, d, rounds, device))
     rec = {
         "config": {"alpha": ALPHA, "rounds": rounds, "smoke": smoke,
-                   "device": str(device), "card": _card(),
+                   "device": str(device), "card": card_name(),
                    "mem_cap": MEM_CAP, "torch": torch.__version__},
         "cells": cells,
         "skipped": skipped,
@@ -196,7 +177,7 @@ def parse_args(argv=None):
 def main() -> None:
     args = parse_args()
     smoke = args.smoke
-    rec = run(_device(args.device), smoke=smoke)
+    rec = run(device_or_exit(args.device), smoke=smoke)
     print("== Sharded aggregation (port): merge ms / per-shard live bytes "
           "vs mesh size ==")
     print(f"device={rec['config']['device']} card={rec['config']['card']} "

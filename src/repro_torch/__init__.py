@@ -14,6 +14,7 @@ This package imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -37,3 +38,28 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def device_or_exit(name: Optional[str] = "cuda") -> torch.device:
+    """A script's ``--device``: ``"cuda"`` (or None) is the first card,
+    and a missing card ends the script (SystemExit) rather than run the
+    CPU in its place; any other name is taken as given."""
+    if name in (None, "cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: run on the card, or ask for "
+                             "the CPU with --device cpu")
+        name = torch.device("cuda", 0)
+    return resolve_device(name)
+
+
+def card_name() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them; "no card" where
+    nvidia-smi is missing or fails."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], check=True,
+                             capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "no card"

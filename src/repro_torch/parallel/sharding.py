@@ -31,6 +31,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import resolve_device
+
 AGG_AXIS = "agg"
 
 
@@ -63,9 +65,10 @@ def agg_mesh(n_devices: Optional[int] = None, *,
              devices: Optional[Sequence] = None,
              platform: Optional[str] = None) -> AggMesh:
     """1-D aggregation-server mesh over ``AGG_AXIS``: the first
-    ``n_devices`` devices of ``platform`` (all of them when None; the
-    platform is CUDA when a card is present, else the CPU), or
-    ``devices`` as given."""
+    ``n_devices`` devices of ``platform`` (all of them when None), or
+    ``devices`` as given.  With no platform the mesh is on the CUDA card,
+    as every entry point's default device is (``resolve_device``), and
+    raises when there is none."""
     if devices is not None:
         devs = tuple(torch.device(d) for d in devices)
         if not devs or (n_devices is not None and n_devices != len(devs)):
@@ -73,7 +76,7 @@ def agg_mesh(n_devices: Optional[int] = None, *,
                              f"{len(devs)} given")
         return AggMesh(devs)
     if platform is None:
-        platform = "cuda" if torch.cuda.is_available() else "cpu"
+        platform = resolve_device().type
     devs = _available(platform)
     n = len(devs) if n_devices is None else int(n_devices)
     if not 1 <= n <= len(devs):

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, no
-``tools/torch_*.py`` or ``benchmarks/torch_*.py`` script and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; the port
-imports with both blocked; and its entry points do not fall back to the
+``tools/torch_*.py``, ``benchmarks/torch_*.py`` or ``examples/torch_*.py``
+script and not ``chip_smoke.py`` imports ``jax`` or the JAX package
+``repro``; the port imports with both blocked; and its entry points
+(``make_setup``, ``agg_mesh``, the bench twins) do not fall back to the
 CPU when no device was asked for."""
 import ast
 import subprocess
@@ -14,7 +15,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     sorted((ROOT / "tools").glob("torch_*.py")) + \
-    sorted((ROOT / "benchmarks").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "benchmarks").glob("torch_*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -69,6 +71,80 @@ def test_make_setup_without_device_needs_the_card():
             make_setup(TABLE_4_1["mnist_even"])
 
 
+def test_agg_mesh_without_platform_needs_the_card():
+    """``agg_mesh`` with no platform is on the card, as ``make_setup``
+    is, and raises without one rather than build a CPU mesh."""
+    from repro_torch.parallel import sharding as psh
+    if torch.cuda.is_available():
+        assert psh.agg_mesh(1).devices[0].type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            psh.agg_mesh()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            psh.agg_mesh(1)
+    assert psh.agg_mesh(1, platform="cpu").devices == (torch.device("cpu"),)
+
+
+def _bench(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "benchmarks" / f"{name}.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench
+
+
+@pytest.mark.parametrize("name", ["torch_fl_figures", "torch_agg_bench",
+                                  "torch_scale_bench"])
+def test_bench_twin_without_device_needs_the_card(name, monkeypatch):
+    """The experiment and bench twins run on the card: without one they
+    exit unless the CPU is asked for, and never run the CPU in the card's
+    place."""
+    bench = _bench(name)
+    assert bench.device_or_exit("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert bench.device_or_exit("cuda").type == "cuda"
+        return
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.device_or_exit("cuda")
+    if name == "torch_fl_figures":
+        assert bench.parse_args([]).device == "cuda"
+        ran = []
+        monkeypatch.setitem(bench.ALL, "table5_1_time_to_accuracy",
+                            lambda **kw: ran.append(kw))
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            bench.main(["--only", "table5_1_time_to_accuracy"])
+        assert not ran
+    elif name == "torch_agg_bench":
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            bench.main([])
+    else:
+        # main() as torch_fl_figures --smoke-scale calls it: the card
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.main(smoke=True)
+
+
+def test_device_or_exit_is_the_card_or_the_cpu_asked_for():
+    """The scripts' one device policy (``repro_torch.device_or_exit``):
+    the first card for "cuda" or None, the CPU only by name, TF32 off."""
+    from repro_torch import device_or_exit
+    assert device_or_exit("cpu") == torch.device("cpu")
+    for name in ("cuda", None):
+        if torch.cuda.is_available():
+            assert device_or_exit(name) == torch.device("cuda", 0)
+            assert not torch.backends.cuda.matmul.allow_tf32
+        else:
+            with pytest.raises(SystemExit, match="no CUDA device"):
+                device_or_exit(name)
+
+
+def test_card_name_without_nvidia_smi(monkeypatch):
+    """``card_name`` says "no card" where nvidia-smi cannot be run."""
+    import repro_torch
+    monkeypatch.setenv("PATH", "/nonexistent")
+    assert repro_torch.card_name() == "no card"
+
+
 def test_agg_shard_bench_without_device_needs_the_card():
     """The sharded-aggregation bench measures on the card: without one it
     exits unless the CPU is asked for, and never times the CPU in the
@@ -82,12 +158,12 @@ def test_agg_shard_bench_without_device_needs_the_card():
     assert bench.parse_args([]).device == "cuda"
     assert bench.parse_args(["--smoke"]).device == "cpu"
     assert bench.parse_args(["--smoke", "--device", "cuda"]).device == "cuda"
-    assert bench._device("cpu").type == "cpu"
+    assert bench.device_or_exit("cpu").type == "cpu"
     if torch.cuda.is_available():
-        assert bench._device("cuda").type == "cuda"
+        assert bench.device_or_exit("cuda").type == "cuda"
     else:
         with pytest.raises(SystemExit, match="no CUDA device"):
-            bench._device(bench.parse_args([]).device)
+            bench.device_or_exit(bench.parse_args([]).device)
 
 
 # topology, cohorts, checkpoints and the sharded server are ported; the
