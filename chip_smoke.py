@@ -219,7 +219,38 @@ follow the numerics).
    off) must fail sync + Alg 2's t80 check. Reports each run's t80,
    points, s/round and seconds to the target, and table 5.1's two
    percentages beside the thesis' and the CPU's (``PAPER_CPU_T80``).
-13. Result: the ``kernels`` JSON line, the card line, and last the
+13. Zoo (``ZOO``, ``run_zoo``): the LM zoo's last families serving
+   through B8 at full width (seeded random bf16 weights on the card), cut
+   from ``SHAPES["prefill_32k"]`` as phases 10-11 are: prefill of 2
+   prompts of 8192 tokens, then 32 greedy decode steps, every counter at 0
+   before and read after.  zamba2-7b at full depth (81 layers: 13 groups
+   of 5 mamba2 blocks around the shared attention block, 3 trailing):
+   B8 at head dim 112 (its SIMT body) exactly 13 times in the prefill;
+   mixtral-8x22b cut to 8 of 56 layers (window 4096, so its cache is a
+   ring): B8's windowed tensor-core body 8 times; never in decode, and no
+   other kernel.  Checks: the last 4 decode steps against a full forward
+   (mixtral at capacity 4.0, where nothing drops, its forward padded to
+   whole 2048-token groups); at a cut depth and a 128-token prompt the
+   card against a CPU run in this process; each within ``ZOO_LIMITS``,
+   each control of ``ZOO_FAULTS`` beyond it (an SSM state zeroed after the
+   prefill, group 0's shared cache in every group's place, B8 faults).
+   Reports prefill s, tokens/s, decode s/step, peak memory, MFU of the
+   bf16 peak, and mixtral's choices dropped at capacity 1.25.
+14. Pods (``TRAIN``, ``run_pods``): ``train_step`` with AdamW at full
+   width, zamba2-7b cut to 13 layers and phi3.5-moe to 2, 3 steps on one
+   repeated batch of 2 x 2048 tokens (the third over 2 microbatches):
+   loss and gradient norm finite, the loss falling, B8 and B9 never
+   launched (training runs at attn_impl "xla", as JAX's); the REDUCED
+   first step against a CPU step (loss, gradient norm, Adam's first
+   moment; the MoE control: aux_weight 0 on the CPU).  Then pod FL at
+   yi-9b's width cut to 2 layers, 2 pods: two ``fl_local_step``s and
+   ``fl_round`` (B2 once, every pod equal after it), one more local step
+   and ``fl_round_delta_compressed`` with ``ErrorFeedbackCompressor(frac=
+   0.1)`` (``ef_encode``'s grid form once over 1,216,389,120 elements,
+   B6 once); B2, ``ef_encode`` and B6 each replayed through its plain
+   version on the card, bit for bit.  Reports s/step, s/round and peak
+   memory.
+15. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
@@ -386,6 +417,11 @@ EF_CASES = {
     "sampled 2^20": (1_048_576, 1_048_476, 104_847, True, "parts"),
     "sampled 2^20 topk": (1_048_576, 1_048_476, 104_847, False, "parts"),
     "sampled 2^20 int8": (1_048_576, 1_048_476, None, True, "parts"),
+    # phase 14's compressed pod round: the packed (2, 608,194,560) deltas
+    # of yi-9b's width at 2 layers (a multiple of 512: no padding), the
+    # grid form, 2 N < 2^31 for the int32 kept
+    "pods 2 x yi-9b/2 layers": (1_216_389_120, 1_216_389_120, 121_638_912,
+                                True, "parts"),
     "ties": (101_888, 101_770, 10_177, True, "ties"),
     "zeros": (101_888, 101_770, 10_177, True, "zeros"),
     "nonfinite": (101_888, 101_770, 10_177, True, "nonfinite"),
@@ -403,13 +439,15 @@ ROWS_W = (1, 30, 65)
 # the plain versions on the card
 REPLAY_RUN = "uplink_only/sync"
 # B8 (flash attention) is checked at these shapes, (B, S, H, Kv, D, dtype,
-# window, softcap); the first three are timed.  gemma2-2b's global and
-# local layers and yi-9b's at the LM phase's prompt lengths, then two f32
-# shapes of tests/test_kernels.py.
+# window, softcap); the bf16 ones are timed.  gemma2-2b's global and
+# local layers, yi-9b's and zamba2-7b's shared block (head dim 112, the
+# SIMT body) at the LM phases' prompt lengths, then two f32 shapes of
+# tests/test_kernels.py.
 FLASH_SHAPES = {
     "gemma2-2b global": (2, 8192, 8, 4, 256, torch.bfloat16, 0, 50.0),
     "gemma2-2b local": (2, 8192, 8, 4, 256, torch.bfloat16, 4096, 50.0),
     "yi-9b": (2, 4096, 32, 4, 128, torch.bfloat16, 0, 0.0),
+    "zamba2-7b": (2, 8192, 32, 32, 112, torch.bfloat16, 0, 0.0),
     "f32 (2,256,2,1,64)": (2, 256, 2, 1, 64, torch.float32, 0, 0.0),
     "f32 window 64 softcap 50": (1, 128, 4, 2, 32, torch.float32, 64, 50.0),
 }
@@ -426,7 +464,8 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
 FLASH_Q_SCALE = 8.0
 FLASH_FAULTS = {"gemma2-2b global": "no softcap",
                 "gemma2-2b local": "window + 32 keys",
-                "yi-9b": "head map h % Kv"}
+                "yi-9b": "head map h % Kv",
+                "zamba2-7b": "kv shifted one position"}
 N_TIMED_FLASH = 10
 # The LM phase: gemma2-2b at full width and depth, cut from
 # SHAPES["prefill_32k"] (32 prompts of 32,768 tokens) to 2 of 8192, then
@@ -1390,6 +1429,8 @@ def fault_args(fault, k, v, window, cap, n_heads):
     elif fault == "head map h % Kv":
         rep = n_heads // k.shape[2]
         k, v = k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1)
+    elif fault == "kv shifted one position":
+        k, v = k.roll(1, 1), v.roll(1, 1)
     elif fault is not None:
         raise ValueError(fault)
     return k, v, window, cap
@@ -1426,8 +1467,9 @@ def flash_ratio(got, want) -> float:
 def check_flash(dev, timer):
     """B8 against its plain version at every FLASH_SHAPES shape, and the
     plain version given FLASH_FAULTS' fault against the kernel (it must
-    fail); kernel, plain and (at yi-9b's shape, which has no softcap)
-    PyTorch's scaled_dot_product_attention timed at the first three.
+    fail); kernel and plain timed at the bf16 shapes, with PyTorch's
+    scaled_dot_product_attention where there is no softcap and no window
+    (yi-9b's and zamba2-7b's shapes).
     Returns the record of the gemma2-2b global shape, the others under
     "shapes"."""
     from repro_torch.kernels import flash_attention as fa
@@ -1436,8 +1478,7 @@ def check_flash(dev, timer):
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(1)
     shapes = []
-    for i, (label, (B, S, H, Kv, D, dt, window, cap)) in enumerate(
-            FLASH_SHAPES.items()):
+    for label, (B, S, H, Kv, D, dt, window, cap) in FLASH_SHAPES.items():
         q, k, v = (torch.randn(B, S, n, D, device=dev, generator=g)
                    for n in (H, Kv, Kv))
         q, k, v = (q * FLASH_Q_SCALE).to(dt), k.to(dt), v.to(dt)
@@ -1480,7 +1521,7 @@ def check_flash(dev, timer):
                                      f"does not catch {fault}")
             del bad, fk, fv
         del got, want
-        if i < 3:
+        if dt == torch.bfloat16:
             # q and o, k and v, each moved once
             n_bytes = 2 * B * S * (H + Kv) * D * q.element_size()
             flops = 4 * B * H * D * attention_pairs(S, window)
@@ -3254,11 +3295,6 @@ def run_shard(dev, setups, report):
     return records
 
 
-def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
-
-
 def _rel_gap(got, want) -> float:
     """max |got - want| / max |want| over logits, in f32."""
     got, want = got.float(), want.float().to(got.device)
@@ -3315,10 +3351,11 @@ def run_lm(dev, rec):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import analytics
     from repro_torch.models import transformer
+    from repro_torch.tree import leaves, tree_map
     cfg = configs.get_config(LM_ARCH).replace(attn_impl="pallas")
     params = models.init_params(torch.Generator(device=dev).manual_seed(0),
                                 cfg, device=dev)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     batch = next(lm.synthetic_token_batches(
         vocab=cfg.vocab_size, batch=LM_BATCH, seq_len=LM_PROMPT + LM_DECODE,
         seed=0))
@@ -3412,7 +3449,7 @@ def run_lm(dev, rec):
     cut = cfg.replace(n_layers=LM_CUT["n_layers"])
     card = models.init_params(torch.Generator(device=dev).manual_seed(1),
                               cut, device=dev)
-    cpu = _tree_to(card, "cpu")
+    cpu = tree_map(lambda t: t.cpu(), card)
     p_len, n_dec = LM_CUT["prompt"], LM_CUT["decode"]
     toks = tokens[:, :p_len + n_dec]
 
@@ -3444,11 +3481,6 @@ def run_lm(dev, rec):
     return after
 
 
-def _tree_clone(tree):
-    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
-            for k, v in tree.items()}
-
-
 def run_rwkv(dev, rec):
     """Phase 9: rwkv6-3b serving at full width and depth (the prefill's
     blocks run B9's state form, decode the plain ``wkv_step``), then B9 on
@@ -3460,10 +3492,11 @@ def run_rwkv(dev, rec):
     from repro_torch.kernels import ops, rwkv6_kernel
     from repro_torch.launch import analytics
     from repro_torch.models import layers, rwkv6, transformer
+    from repro_torch.tree import leaves, tree_map
     cfg = configs.get_config(RWKV_ARCH)
     params = models.init_params(torch.Generator(device=dev).manual_seed(0),
                                 cfg, device=dev)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     if n_params != RWKV_N_PARAMS:
         raise AssertionError(f"{RWKV_ARCH}: {n_params:,} parameters, the "
                              f"JAX init tree has {RWKV_N_PARAMS:,}")
@@ -3484,7 +3517,7 @@ def run_rwkv(dev, rec):
     zero_counters()
     logits, state, t_prefill = _prefill(models, params, cfg, prompt, max_len)
     after_prefill = {k: c[k] for k, c in launch_counters().items()}
-    zeroed = _tree_clone(state)
+    zeroed = tree_map(torch.clone, state)
     zeroed["tm"]["wkv"].zero_()
     steps, fed, t_decode = _decode(models, params, cfg, logits, state,
                                    RWKV_PROMPT, RWKV_DECODE)
@@ -3595,7 +3628,7 @@ def run_rwkv(dev, rec):
     cut = cfg.replace(n_layers=RWKV_CUT["n_layers"])
     card = models.init_params(torch.Generator(device=dev).manual_seed(1),
                               cut, device=dev)
-    cpu = _tree_to(card, "cpu")
+    cpu = tree_map(lambda t: t.cpu(), card)
     p_len, n_dec = RWKV_CUT["prompt"], RWKV_CUT["decode"]
     toks = tokens[:, :p_len + n_dec]
 
@@ -3985,12 +4018,656 @@ def run_paper(dev, report, cpu="cpu", weights0=None):
             for ctr in PAPER_MERGE_CTR.values()}
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
+# Phase 13, "zoo": the LM zoo's last families serving through B8, at full
+# width (seeded random bf16 weights drawn on the card), cut from
+# SHAPES["prefill_32k"] as phases 10-11 are: 2 prompts of 8192 tokens, then
+# ZOO_DECODE greedy decode steps.  zamba2-7b at full depth (B8 at head dim
+# 112 once a group: 13 launches, the SIMT body); mixtral-8x22b cut to 8 of
+# its 56 layers (its bf16 weights are 281 GB at full depth), B8's windowed
+# tensor-core body once a layer.  The card-vs-CPU repeat keeps the width
+# and cuts depth (zamba2: one group and one trailing block; mixtral: one
+# layer) and the prompt.
+ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 8192, 32
+# every decode step is held against a full forward: with random weights
+# the mamba2 state forgets in a few tokens, so a state zeroed after the
+# prefill shows only in the first steps
+ZOO_CHECKED = ZOO_DECODE
+ZOO = {
+    "zamba2-7b": dict(n_layers=81, flash=13, wgmma=0, n_params=5_622_728_000,
+                      cut=dict(n_layers=7, prompt=128, decode=4)),
+    "mixtral-8x22b": dict(n_layers=8, flash=8, wgmma=8,
+                          n_params=20_233_820_160,
+                          cut=dict(n_layers=1, prompt=128, decode=4)),
+}
+# the decode-vs-forward check runs mixtral at capacity 4.0, where no token
+# is dropped (tests/test_decode_consistency.py's setting: a forward over
+# 2048-token groups drops what single-token decode does not); its forward
+# is padded to whole groups (causal attention, and no capacity competition
+# at 4.0, so the padding moves no earlier logit)
+ZOO_CHECK_CF = 4.0
+# Each check's limit on max |a - b| / max |b| over the logits, between the
+# sound readings (decode vs forward at most 0.021, card vs CPU 0.018) and
+# the controls' (at least 0.078) of an H100 run (PERF.md, PR 23), and the
+# controls each must exceed it: state faults applied after the prefill
+# ("ssm zeroed": every mamba2 SSM state; "group 0's shared cache": the
+# shared block's group-0 KV cache in every group's place), B8 faults
+# (LM_FAULTS' spelling) and an MoE fault ("expert slots shifted": the
+# combine gathers the slot before each token's own), the last two in the
+# prefill only.  With random weights the mamba2 state forgets in a few
+# tokens, so "ssm zeroed" moves only the first decode steps (0.078).
+ZOO_LIMITS = {"decode_vs_forward": 0.05, "card_vs_cpu": 0.05}
+ZOO_FAULTS = {
+    "zamba2-7b": {"decode_vs_forward": ("ssm zeroed",
+                                        "group 0's shared cache"),
+                  "card_vs_cpu": ("ssm zeroed",)},
+    "mixtral-8x22b": {"decode_vs_forward": ("no window", "head map h % Kv"),
+                      "card_vs_cpu": ("head map h % Kv",
+                                      "expert slots shifted")},
+}
+STATE_FAULTS = ("ssm zeroed", "group 0's shared cache")
+
+
+@contextlib.contextmanager
+def moe_fault():
+    """The MoE combine gathers the wrong slot: every expert's outputs
+    moved one slot on, so each token takes the output of the token in
+    the slot before its own (a control)."""
+    from repro_torch.models import moe
+    real = moe._experts
+
+    def shifted(*args):
+        return torch.roll(real(*args), 1, dims=1)
+    moe._experts = shifted
+    try:
+        yield
+    finally:
+        moe._experts = real
+
+
+def state_fault(fault, state):
+    """Corrupt a decode state after its prefill (a control)."""
+    if fault == "ssm zeroed":
+        for part in ("groups", "tail"):
+            if part in state:
+                state[part]["ssm"].zero_()
+    elif fault == "group 0's shared cache":
+        for name in ("k", "v", "slot_pos"):
+            t = state["shared_kv"][name]
+            t[1:] = t[0]
+    elif fault is not None:
+        raise ValueError(fault)
+
+
+@contextlib.contextmanager
+def any_fault(fault):
+    """B8 faults through ``attention_fault``, "expert slots shifted"
+    through ``moe_fault``; state faults are applied by ``zoo_run`` after
+    the prefill."""
+    if fault in STATE_FAULTS or fault is None:
+        yield
+    elif fault == "expert slots shifted":
+        with moe_fault():
+            yield
+    else:
+        with attention_fault(fault):
+            yield
+
+
+def zoo_run(models, params, cfg, prompt, n_steps, next_tokens=None,
+            fault=None):
+    """Prefill ``prompt``, then ``n_steps`` decode steps (greedy, or fed
+    ``next_tokens``), ``fault`` applied.  Returns (prefill logits, per-step
+    logits, fed tokens, prefill s, decode s)."""
+    S = prompt.shape[1]
+    with any_fault(fault):
+        logits, state, t_pre = _prefill(models, params, cfg, prompt,
+                                        S + n_steps)
+    if fault in STATE_FAULTS:
+        state_fault(fault, state)
+    steps, fed, t_dec = _decode(models, params, cfg, logits, state, S,
+                                n_steps, next_tokens)
+    return logits[:, 0], steps, fed, t_pre, t_dec
+
+
+def lm_flops(cfg, kind, B, S):
+    """Model FLOPs of a (cut) config, by launch.analytics' conventions."""
+    from repro_torch.launch import analytics
+    n_attn = (cfg.n_layers if cfg.block_type == "attn"
+              else cfg.n_shared_attn_applications())
+    mult = 6 if kind == "train" else 2
+    return (mult * cfg.n_active_params() * B * S + n_attn
+            * analytics._attn_flops_per_layer(cfg, B, S, kind == "train"))
+
+
+def drop_counter():
+    """Records every MoE routing's (dropped, routed) (token, choice) pairs,
+    0-d tensors (no host sync), in ``.calls``."""
+    from repro_torch.models import moe
+    return CallRecorder(moe, "route", keep=lambda args, kw, r: (
+        (~r["keep"]).sum(), r["keep"].numel()))
+
+
+def _padded_forward_tail(models, transformer, params, cfg, seq, n):
+    """Logits of the last ``n`` positions of ``seq`` from a full forward;
+    for MoE configs ``seq`` is padded (with its own tokens) to whole
+    2048-token groups, and no token may be dropped."""
+    S = seq.shape[1]
+    if cfg.is_moe:
+        per = 2048 // seq.shape[0]
+        pad = -S % per
+        seq = torch.cat([seq, seq[:, :pad]], dim=1)
+    with drop_counter() as drops:
+        h, _, _ = models.forward(params, cfg, tokens=seq)
+    out = transformer.logits_from_hidden(params, cfg, h[:, S - n:S])
+    dropped = int(sum(d for d, _ in drops.calls))
+    if dropped:
+        raise AssertionError(f"{cfg.name}: the padded forward at capacity "
+                             f"{cfg.capacity_factor} dropped {dropped} "
+                             f"choices")
+    return out
+
+
+def run_zoo_arch(dev, arch, rec):
+    """One arch of phase 13: the main path (counters at 0 before, read
+    after), the decode-vs-forward and card-vs-CPU checks with their
+    controls.  Returns B8's launches on the main path."""
+    from repro_torch import configs, models
+    from repro_torch.data import lm
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves, tree_map
+    spec = ZOO[arch]
+    cfg = configs.get_config(arch).replace(attn_impl="pallas",
+                                           n_layers=spec["n_layers"])
+    params = models.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != spec["n_params"]:
+        raise AssertionError(f"{arch}: {n_params} parameters, expected "
+                             f"{spec['n_params']}")
+    batch = next(lm.synthetic_token_batches(
+        vocab=cfg.vocab_size, batch=ZOO_BATCH,
+        seq_len=ZOO_PROMPT + ZOO_DECODE, seed=0))
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    prompt = tokens[:, :ZOO_PROMPT]
+    # warm-up (cuBLAS handles, the allocator's pools): one prefill
+    models.prefill_step(params, {"tokens": prompt}, cfg=cfg,
+                        max_len=ZOO_PROMPT + ZOO_DECODE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path
+    zero_counters()
+    with drop_counter() as drops:
+        first, steps, fed, t_pre, t_dec = zoo_run(models, params, cfg,
+                                                  prompt, ZOO_DECODE)
+    launches = {k: c[k] for k, c in launch_counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    mf = lm_flops(cfg, "prefill", ZOO_BATCH, ZOO_PROMPT)
+    rec.update({
+        "arch": arch, "n_layers": cfg.n_layers,
+        "n_layers_full": configs.get_config(arch).n_layers,
+        "n_params": n_params, "batch": ZOO_BATCH, "prompt": ZOO_PROMPT,
+        "decode_steps": ZOO_DECODE, "head_dim": cfg.hd,
+        "cut_from": "SHAPES['prefill_32k']: batch 32 -> 2, seq_len 32768 "
+                    "-> 8192" + ("" if cfg.n_layers == 81 else
+                                 f"; depth 56 -> {cfg.n_layers} layers"),
+        "launches": launches, "prefill_s": t_pre,
+        "prefill_tokens_per_s": ZOO_BATCH * ZOO_PROMPT / t_pre,
+        "decode_s_per_step": t_dec / ZOO_DECODE,
+        "max_memory_allocated": peak, "prefill_model_flops": mf,
+        "prefill_mfu": mf / t_pre / BF16_FLOPS})
+    if cfg.is_moe:
+        # the prefill's groups are where tokens compete for capacity
+        rec["dropped_choices_cf1.25"] = int(sum(d for d, _ in drops.calls))
+        rec["routed_choices"] = int(sum(n for _, n in drops.calls))
+    print(f"zoo {arch}: {n_params:,} parameters, {cfg.n_layers} layers; "
+          f"prefill {ZOO_BATCH} x {ZOO_PROMPT} in {t_pre:.4f} s "
+          f"({rec['prefill_tokens_per_s']:.1f} tokens/s, MFU "
+          f"{rec['prefill_mfu']:.4f} of {BF16_FLOPS:.3g}); decode "
+          f"{rec['decode_s_per_step']:.4f} s per step; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; B8 launches {launches['flash']} "
+          f"({launches['flash_wgmma']} tensor-core body)"
+          + (f"; choices dropped at capacity {cfg.capacity_factor}: "
+             f"{rec['dropped_choices_cf1.25']} of {rec['routed_choices']}"
+             if cfg.is_moe else ""))
+    if launches["flash"] != spec["flash"] or \
+            launches["flash_wgmma"] != spec["wgmma"]:
+        raise AssertionError(f"{arch}: B8 launched {launches['flash']} "
+                             f"times ({launches['flash_wgmma']} tensor-core)"
+                             f" in one prefill and {ZOO_DECODE} decode "
+                             f"steps, expected {spec['flash']} "
+                             f"({spec['wgmma']}) and none in decode")
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("flash", "flash_wgmma")}
+    if others:
+        raise AssertionError(f"{arch}: other kernels launched: {others}")
+    if not all(torch.isfinite(x).all() for x in [first] + steps):
+        raise AssertionError(f"{arch}: non-finite logits")
+
+    # check 1: the last decode steps against a full forward
+    ccfg = cfg.replace(capacity_factor=ZOO_CHECK_CF) if cfg.is_moe else cfg
+    seq = torch.cat([prompt, fed], dim=1)
+
+    def dvf(fault):
+        if cfg.is_moe or fault is not None:
+            _, st, _, _, _ = zoo_run(models, params, ccfg, prompt,
+                                     ZOO_DECODE, next_tokens=fed,
+                                     fault=fault)
         else:
-            yield v
+            st = steps
+        with any_fault(fault if fault not in STATE_FAULTS else None):
+            full = _padded_forward_tail(models, transformer, params, ccfg,
+                                        seq, ZOO_CHECKED)
+        return [_rel_gap(st[-ZOO_CHECKED + i], full[:, i])
+                for i in range(ZOO_CHECKED)]
+    sound = {"decode_vs_forward": dvf(None)}
+    faults = ZOO_FAULTS[arch]
+    controls = {f: {"decode_vs_forward": dvf(f)}
+                for f in faults["decode_vs_forward"]}
+    del params
+
+    # check 2: full width at a cut depth, card against CPU
+    cut = spec["cut"]
+    ccut = cfg.replace(n_layers=cut["n_layers"])
+    card = models.init_params(torch.Generator(device=dev).manual_seed(1),
+                              ccut, device=dev)
+    cpu = tree_map(lambda t: t.cpu(), card)
+    p_len, n_dec = cut["prompt"], cut["decode"]
+    toks = tokens[:, :p_len + n_dec]
+
+    def cut_run(prm, d, fault=None):
+        t = toks.to(d)
+        f0, st, _, _, _ = zoo_run(models, prm, ccut, t[:, :p_len], n_dec,
+                                  next_tokens=t[:, p_len:], fault=fault)
+        return [f0] + st
+    t0 = time.perf_counter()
+    want = cut_run(cpu, "cpu")
+    rec["cpu_cut_s"] = time.perf_counter() - t0
+    sound["card_vs_cpu"] = [_rel_gap(a.cpu(), b)
+                            for a, b in zip(cut_run(card, dev), want)]
+    for f in faults["card_vs_cpu"]:
+        controls.setdefault(f, {})["card_vs_cpu"] = [
+            _rel_gap(a.cpu(), b) for a, b in zip(cut_run(card, dev, f),
+                                                 want)]
+    del card, cpu
+    rec.update(gaps=sound, controls=controls, limits=ZOO_LIMITS,
+               cut=dict(cut, capacity_factor_check=ZOO_CHECK_CF))
+    for check, limit in ZOO_LIMITS.items():
+        print(f"zoo {arch} check {check}: gap {max(sound[check]):.5f} "
+              f"(limit {limit}); controls " + ", ".join(
+                  f"{f} {max(c[check]):.5f}" for f, c in controls.items()
+                  if check in c))
+        if not max(sound[check]) <= limit:
+            raise AssertionError(f"zoo {arch} {check}: gaps {sound[check]} "
+                                 f"> {limit}")
+        for f in faults[check]:
+            if not max(controls[f][check]) > limit:
+                raise AssertionError(f"zoo {arch} {check}: the check does "
+                                     f"not catch {f} "
+                                     f"({controls[f][check]})")
+    return launches["flash"]
+
+
+def run_zoo(dev, rec):
+    """Phase 13: zamba2-7b and mixtral-8x22b serving through B8.  Returns
+    B8's launches on the main paths."""
+    n = 0
+    for arch in ZOO:
+        t0 = time.perf_counter()
+        rec[arch] = {}
+        n += run_zoo_arch(dev, arch, rec[arch])
+        rec[arch]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return n
+
+
+# Phase 14, "pods": LM training and pod-level FL at full width.
+# train_step with AdamW on one repeated batch of 2 x 2048 tokens, 3 steps
+# (the third over 2 microbatches): zamba2-7b cut to 13 layers (2 groups and
+# 1 trailing block), phi3.5-moe cut to 2 of 32 layers (its experts alone
+# are 80.5 GB at full depth).  Then pod FL at yi-9b's width cut to 2
+# layers, 2 pods: two local steps, fl_round (B2), one local step,
+# fl_round_delta_compressed with ErrorFeedbackCompressor(frac=0.1)
+# (ef_encode's grid form over the packed 2 x 608,194,560 deltas, then B6).
+TRAIN = {"zamba2-7b": dict(n_layers=13, n_params=1_177_978_352),
+         "phi3.5-moe-42b-a6.6b": dict(n_layers=2, n_params=2_731_954_176)}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+TRAIN_LR = 1e-4
+PODS_ARCH, PODS_LAYERS, PODS_N = "yi-9b", 2, 2
+PODS_BATCH, PODS_SEQ = 2, 1024          # per pod
+PODS_N_PARAMS = 608_194_560             # per pod
+# the REDUCED first step, card against the CPU: the loss and the gradient
+# norm within 1e-3 relative, Adam's first moment (0.1 x the clipped
+# gradient, linear in it) leaf by leaf within TRAIN_M_LIMIT of the leaf's
+# largest |value| (bf16 gradients: the JAX comparison's 0.06); the MoE
+# run's control, the CPU step at aux_weight 0, must exceed a limit
+TRAIN_LOSS_LIMIT = 1e-3
+TRAIN_M_LIMIT = 0.06
+# n_microbatch 2 on the card, at REDUCED width: the gradients train_step
+# hands its optimizer within MB_LIMIT (four bf16 ulps at each leaf's
+# largest |value|) of the whole batch's, as tests/test_torch_train.py
+# holds them on the CPU; the first microbatch alone and the sum not
+# divided must exceed it.  MoE configs run at capacity 4.0 with no aux
+# loss, so that neither the drops nor the per-group aux loss depend on
+# how the batch is split.
+MB_LIMIT = 2.0 ** -6
+MB_CONTROLS = ("control first microbatch only", "control sum not divided")
+
+
+def _train_batch(cfg, dev, B, S, seed=0):
+    from repro_torch.data import lm
+    b = next(lm.synthetic_token_batches(vocab=cfg.vocab_size, batch=B,
+                                        seq_len=S + 1, seed=seed))
+    t = torch.from_numpy(b["tokens"]).to(dev)
+    return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+
+
+def reduced_step_gaps(arch, dev, cpu="cpu"):
+    """The first AdamW ``train_step`` of ``arch``'s REDUCED config on
+    ``dev`` against the same step on ``cpu``; the MoE control (the CPU at
+    aux_weight 0).  Returns {name: gap}, the control's under
+    "control aux_weight 0"."""
+    from repro_torch import configs, models, optim
+    from repro_torch.tree import leaves, tree_map
+    cfg = configs.get_config(arch, reduced=True)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    batch = _train_batch(cfg, "cpu", 4, 64, seed=1)
+
+    def step(d, aux_weight=0.01):
+        # a copy: the optimizer updates in place
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        opt = optim.adamw(1e-3)
+        st = opt.init(p)
+        b = tree_map(lambda t: t.to(d), batch)
+        _, st, met = models.train_step(p, st, b, cfg=cfg, optimizer=opt,
+                                       aux_weight=aux_weight)
+        return met, st["m"]
+
+    def gaps(a, b):
+        (ma, mom_a), (mb, mom_b) = a, b
+        out = {k: abs(float(ma[k]) - float(mb[k])) / abs(float(mb[k]))
+               for k in ("loss", "grad_norm")}
+        out["adam m"] = max(
+            float((x.cpu() - y.cpu()).abs().max())
+            / max(float(y.abs().max()), 1e-12)
+            for x, y in zip(leaves(mom_a), leaves(mom_b)))
+        return out
+    card, ref_cpu = step(dev), step(cpu)
+    out = gaps(card, ref_cpu)
+    if cfg.is_moe:
+        ctl = gaps(card, step(cpu, aux_weight=0.0))
+        out["control aux_weight 0"] = ctl
+    return out
+
+
+def microbatch_gaps(arch, dev):
+    """max over leaves of max |a - b| / max |b| between the gradients that
+    ``train_step`` with n_microbatch 2 hands its optimizer and those of the
+    whole batch, and the two controls' gaps (MB_CONTROLS)."""
+    from repro_torch import configs, models, optim
+    from repro_torch.tree import leaves, tree_map
+    cfg = configs.get_config(arch, reduced=True)
+    if cfg.is_moe:
+        cfg = cfg.replace(capacity_factor=4.0)
+    aux_weight = 0.0 if cfg.is_moe else 0.01
+    params = models.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    batch = _train_batch(cfg, dev, 4, 64, seed=1)
+    # an optimizer that returns the gradients in the parameters' place
+    seen = optim.Optimizer(init=lambda p: {}, update=lambda p, g, s: (g, s))
+
+    def grads(b, n=1):
+        g, _, _ = models.train_step(params, {}, b, cfg=cfg, optimizer=seen,
+                                    aux_weight=aux_weight, n_microbatch=n)
+        return [t.float() for t in leaves(g)]
+
+    def gap(got, want):
+        return max(float((a - b).abs().max()
+                         / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(got, want))
+    whole, two = grads(batch), grads(batch, 2)
+    first = grads(tree_map(lambda t: t[:2], batch))
+    return {"n_microbatch 2 vs 1": gap(two, whole),
+            MB_CONTROLS[0]: gap(first, whole),
+            MB_CONTROLS[1]: gap([2 * t for t in two], whole)}
+
+
+def train_check(gaps, arch):
+    bad = [k for k in ("loss", "grad_norm") if not gaps[k] <= TRAIN_LOSS_LIMIT]
+    if not gaps["adam m"] <= TRAIN_M_LIMIT:
+        bad.append("adam m")
+    if bad:
+        raise AssertionError(f"pods {arch} REDUCED step, card vs CPU: {bad} "
+                             f"beyond the limits ({gaps})")
+    ctl = gaps.get("control aux_weight 0")
+    if ctl is not None and ctl["loss"] <= TRAIN_LOSS_LIMIT and \
+            ctl["adam m"] <= TRAIN_M_LIMIT:
+        raise AssertionError(f"pods {arch}: the step check does not catch "
+                             f"aux_weight 0 ({ctl})")
+
+
+def run_train_arch(dev, arch, rec):
+    """Full-width training of one arch (cut depth), counters at 0 before
+    and read after: B8 and B9 never launch (the configs' attn_impl "xla";
+    no kernel has a backward)."""
+    from repro_torch import configs, models, optim
+    from repro_torch.tree import leaves
+    spec = TRAIN[arch]
+    cfg = configs.get_config(arch).replace(n_layers=spec["n_layers"])
+    if cfg.attn_impl != "xla":
+        raise AssertionError(f"{arch}: training runs at attn_impl 'xla'")
+    params = models.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != spec["n_params"]:
+        raise AssertionError(f"{arch}: {n_params} parameters, expected "
+                             f"{spec['n_params']}")
+    opt = optim.adamw(TRAIN_LR)
+    st = opt.init(params)
+    batch = _train_batch(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    losses, norms, secs = [], [], []
+    for i in range(TRAIN_STEPS):
+        nmb = 2 if i == TRAIN_STEPS - 1 else 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, met = models.train_step(params, st, batch, cfg=cfg,
+                                            optimizer=opt, n_microbatch=nmb)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    launches = {k: c[k] for k, c in launch_counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    mf = lm_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    rec.update({"arch": arch, "n_layers": cfg.n_layers, "n_params": n_params,
+                "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+                "microbatches": [1] * (TRAIN_STEPS - 1) + [2],
+                "losses": losses, "grad_norms": norms, "s_per_step": secs,
+                "launches": launches, "max_memory_allocated": peak,
+                "model_flops_per_step": mf,
+                "mfu_step2": mf / secs[1] / BF16_FLOPS})
+    print(f"pods train {arch}: {n_params:,} parameters, {cfg.n_layers} "
+          f"layers; losses {losses}, grad norms {norms}; s/step {secs}; "
+          f"MFU (step 2) {rec['mfu_step2']:.4f}; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{arch}: non-finite loss or gradient norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    used = {k: v for k, v in launches.items() if v}
+    if used:
+        raise AssertionError(f"{arch}: kernels launched in training: {used}")
+    del params, st
+    torch.cuda.empty_cache()
+
+
+class CallRecorder:
+    """Wraps ``module.name`` so every call is kept: its (args, kwargs,
+    result), for a replay through the plain version, or what ``keep`` makes
+    of them."""
+
+    def __init__(self, module, name, keep=None):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.keep = keep or (lambda args, kw, out: (args, kw, out))
+        self.calls = []
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            out = self.real(*args, **kw)
+            self.calls.append(self.keep(args, kw, out))
+            return out
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def run_pods_fl(dev, rec):
+    """Pod FL at yi-9b's width: launch counts, every pod equal after
+    fl_round, and B2, ef_encode and B6 replayed through their plain
+    versions on the card, bit for bit.  Returns the launches."""
+    from repro_torch import configs, models, optim
+    from repro_torch.core import compression, federated
+    from repro_torch.kernels import fedavg_agg, ref, topk_quant
+    from repro_torch.tree import leaves, tree_map
+    cfg = configs.get_config(PODS_ARCH).replace(n_layers=PODS_LAYERS)
+    params = models.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != PODS_N_PARAMS:
+        raise AssertionError(f"pods: {n_params} parameters a pod, expected "
+                             f"{PODS_N_PARAMS}")
+    opt = optim.adamw(TRAIN_LR)
+    sp = federated.stack_for_pods(params, PODS_N)
+    so = federated.stack_for_pods(opt.init(params), PODS_N)
+    del params
+    batch = _train_batch(cfg, dev, PODS_N * PODS_BATCH, PODS_SEQ, seed=2)
+    w = torch.ones(PODS_N, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp, so, met = federated.fl_local_step(sp, so, batch, cfg=cfg,
+                                              optimizer=opt, n_pods=PODS_N)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    losses = [float(x) for x in met["loss"]]
+    t0 = time.perf_counter()
+    with CallRecorder(fedavg_agg, "fedavg_agg_flat") as b2:
+        sp = federated.fl_round(sp, w)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    after_round = {k: c[k] for k, c in launch_counters().items()}
+    same = all(torch.equal(t[0], t[i]) for t in leaves(sp)
+               for i in range(1, PODS_N))
+    anchor = tree_map(torch.clone, federated.unstack_pod(sp, 0))   # the merge
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, so, met = federated.fl_local_step(sp, so, batch, cfg=cfg,
+                                          optimizer=opt, n_pods=PODS_N)
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    comp = compression.ErrorFeedbackCompressor(frac=0.1)
+    zero_counters()
+    t0 = time.perf_counter()
+    with CallRecorder(topk_quant, "ef_encode") as enc, \
+            CallRecorder(fedavg_agg, "fedavg_mix_wvec") as b6:
+        sp = federated.fl_round_delta_compressed(
+            sp, anchor, w, compressor=lambda d: comp.compress(d)[0])
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    after_comp = {k: c[k] for k, c in launch_counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    del so, anchor
+    torch.cuda.empty_cache()
+
+    # replays, each through its plain version on the card
+    (a_b2, _, out_b2), = b2.calls
+    b2_same = same_bits(out_b2, ref.reference_fedavg(*a_b2))
+    del b2
+    (a_enc, kw_enc, out_enc), = enc.calls
+    n_enc = a_enc[0].numel()
+    enc_bad = ef_mismatch(out_enc, ref.reference_ef_encode(*a_enc, **kw_enc))
+    kept = int(out_enc[4])
+    del enc
+    (a_b6, _, out_b6), = b6.calls
+    stacked, wvec, server = a_b6[:3]
+    b6_same = same_bits(out_b6, ref.reference_fedavg_mix(
+        stacked, wvec[1:], server, wvec[0]))
+    del b6
+    rec.update({
+        "arch": PODS_ARCH, "n_layers": PODS_LAYERS, "n_pods": PODS_N,
+        "n_params_per_pod": n_params, "batch_per_pod": PODS_BATCH,
+        "seq": PODS_SEQ, "local_step_s": secs, "fl_round_s": t_round,
+        "fl_round_delta_compressed_s": t_comp, "losses": losses,
+        "launches_round": after_round, "launches_compressed": after_comp,
+        "pods_equal_after_round": same, "b2_replay_equal": b2_same,
+        "ef_encode_N": n_enc, "ef_encode_kept": kept,
+        "ef_encode_replay_mismatch": enc_bad, "b6_replay_equal": b6_same,
+        "max_memory_allocated": peak})
+    print(f"pods fl {PODS_ARCH} x {PODS_N} pods ({n_params:,} parameters a "
+          f"pod, {PODS_LAYERS} layers): local step s {secs}, fl_round "
+          f"{t_round:.4f} s, fl_round_delta_compressed {t_comp:.4f} s; "
+          f"pods equal after fl_round {same}; B2 replay equal {b2_same}; "
+          f"ef_encode over {n_enc:,} elements (kept {kept:,}) replay "
+          f"mismatches {enc_bad or 'none'}; B6 replay equal {b6_same}; "
+          f"launches {after_round['agg']} B2, {after_comp['ef_encode']} "
+          f"ef_encode, {after_comp['mix']} B6; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    want_round = {"agg": 1}
+    want_comp = {"ef_encode": 3, "mix": 1}
+    for got, want, what in ((after_round, want_round, "two local steps and "
+                             "fl_round"),
+                            (after_comp, want_comp, "fl_round_delta_"
+                             "compressed")):
+        used = {k: v for k, v in got.items() if v}
+        if used != want:
+            raise AssertionError(f"pods: {what} launched {used}, expected "
+                                 f"{want}")
+    if not (same and b2_same and b6_same) or enc_bad:
+        raise AssertionError("pods: a pod differs after fl_round, or a "
+                             "replay differs from its plain version")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pods: non-finite losses {losses}")
+    return {"agg": after_round["agg"], "mix": after_comp["mix"],
+            "ef_encode": after_comp["ef_encode"]}
+
+
+def run_pods(dev, rec):
+    """Phase 14.  Returns the pod FL's kernel launches."""
+    for arch in TRAIN:
+        t0 = time.perf_counter()
+        rec[arch] = {}
+        run_train_arch(dev, arch, rec[arch])
+        gaps = reduced_step_gaps(arch, dev)
+        rec[arch]["reduced_step_vs_cpu"] = gaps
+        print(f"pods train {arch} REDUCED first step, card vs CPU: {gaps} "
+              f"(limits {TRAIN_LOSS_LIMIT}, adam m {TRAIN_M_LIMIT})")
+        train_check(gaps, arch)
+        mb = microbatch_gaps(arch, dev)
+        rec[arch]["microbatch_vs_whole"] = mb
+        print(f"pods train {arch} REDUCED n_microbatch 2 vs 1 on the card: "
+              f"{mb} (limit {MB_LIMIT})")
+        if not mb["n_microbatch 2 vs 1"] <= MB_LIMIT or \
+                not all(mb[c] > MB_LIMIT for c in MB_CONTROLS):
+            raise AssertionError(f"pods {arch}: n_microbatch 2 vs 1 beyond "
+                                 f"{MB_LIMIT}, or a control within it "
+                                 f"({mb})")
+        rec[arch]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["fl"] = {}
+    out = run_pods_fl(dev, rec["fl"])
+    rec["fl"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -4031,7 +4708,7 @@ def main() -> int:
             raise AssertionError(f"{kern} spills registers: {info}")
 
     records = check_kernels(dev)
-    runs, lm_rec, rwkv_rec = {}, {}, {}
+    runs, lm_rec, rwkv_rec, zoo_rec, pods_rec = {}, {}, {}, {}, {}
     try:
         setups = Setups(dev)
         for phase in PHASES:
@@ -4084,6 +4761,18 @@ def main() -> int:
                 raise AssertionError(f"{name} never launched in phase 12")
             records[name]["launches"] += paper[ctr]
         print(f"phase paper: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        records["flash_attention"]["launches"] += run_zoo(dev, zoo_rec)
+        print(f"phase zoo: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pods = run_pods(dev, pods_rec)
+        for name, ctr in (("fedavg_agg_flat", "agg"),
+                          ("fedavg_mix_flat", "mix"),
+                          ("ef_encode", "ef_encode")):
+            if pods[ctr] < 1:
+                raise AssertionError(f"{name} never launched in phase 14")
+            records[name]["launches"] += pods[ctr]
+        print(f"phase pods: {time.perf_counter() - t0:.1f} s")
     finally:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -4091,7 +4780,8 @@ def main() -> int:
         (out / "chip_smoke_report.json").write_text(json.dumps(
             {"card": card, "seconds": seconds,
              "kernels": list(records.values()), "runs": runs,
-             "lm": lm_rec, "rwkv": rwkv_rec}, indent=1))
+             "lm": lm_rec, "rwkv": rwkv_rec, "zoo": zoo_rec,
+             "pods": pods_rec}, indent=1))
     print(f"script: {seconds:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -63,6 +63,27 @@ def output_tensor(t: Optional[torch.Tensor], like: torch.Tensor, name: str,
     return t
 
 
+def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd is recording and one of ``tensors`` (None
+    entries skipped) requires grad: a call would be part of a backward."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_grad_inputs(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when ``records_grad(*tensors)``.  The kernels are forward
+    only (the JAX package has no backward for its Pallas kernels either),
+    and an output written by a kernel carries no gradient path: a
+    ``backward()`` through it would silently drop the inputs' gradients.
+    Run under ``torch.no_grad()``, or take the model's plain training
+    route."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"{what} is forward only: an input requires grad while autograd "
+            f"records, and the kernel has no backward; call it under "
+            f"torch.no_grad() (the training paths take the plain routes)")
+
+
 def check_status(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if status != 0:

@@ -13,7 +13,9 @@
 // Two bodies.  flash_attention_launch picks one by dtype and head_dim alone
 // (wgmma_body), never on a failure:
 //   bf16 with D in {64, 128, 256}  ->  flash_wgmma, on the tensor cores;
-//   f32, and bf16 with D in {16, 32}  ->  flash_fwd, SIMT f32.
+//   f32, and bf16 with D in {16, 32, 112}  ->  flash_fwd, SIMT f32.
+// D = 112 is zamba2-7b's head (3584 / 32): 7 x 16, not a multiple of the
+// 64-column chunks of the wgmma body, so it runs the SIMT body.
 //
 // Bound on the card: operations.  A prefill at gemma2-2b's width (B=2,
 // S=8192, H=8, D=256) does 4*D flops per (query, visible key) pair, 5.5e11
@@ -74,8 +76,9 @@
 // operand that is not).
 //
 // flash_fwd.  Keeps every score, P and accumulator in f32 on the f32 FMA
-// units: f32 q/k/v are not exact in bf16, and D < 64 is narrower than the
-// swizzled 128-byte rows of the wgmma body.  Bound by f32 FMA throughput
+// units: f32 q/k/v are not exact in bf16, D < 64 is narrower than the
+// swizzled 128-byte rows of the wgmma body, and D = 112 is no multiple of
+// them.  Bound by f32 FMA throughput
 // and shared-memory bandwidth, far from the bf16 bound.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, head, batch).
@@ -142,8 +145,11 @@ template <int D>
 struct Tile {
   static constexpr int BK = D >= 256 ? 32 : 64;
   static constexpr int QS = D + 4;              // padded row of Qs and Ks
-  static constexpr int VEC = D >= 64 ? 4 : 1;   // output columns per load
+  // output columns per load: float4 where D is a multiple of 64; D = 112
+  // (16 lanes x 7 columns) and D < 64 load one float at a time
+  static constexpr int VEC = D % 64 == 0 ? 4 : 1;
   static constexpr int NC = D / (16 * VEC);     // column groups per thread
+  static_assert(D % (16 * VEC) == 0 && D % 4 == 0, "D: 16 lanes x NC x VEC");
   // registers: the accumulator is D/4 floats a thread; D = 256 needs ~128
   static constexpr int kMinBlocks = D >= 256 ? 1 : 2;
   static constexpr size_t kSmem =
@@ -331,6 +337,7 @@ int dispatch(const Args& a, int B, int H, int D, cudaStream_t stream) {
     case 16: return launch<16, T>(a, B, H, stream);
     case 32: return launch<32, T>(a, B, H, stream);
     case 64: return launch<64, T>(a, B, H, stream);
+    case 112: return launch<112, T>(a, B, H, stream);
     case 128: return launch<128, T>(a, B, H, stream);
     case 256: return launch<256, T>(a, B, H, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -797,7 +804,8 @@ bool wgmma_body(long long dtype, long long D) {
 
 // q, o: (B,S,H,D); k, v: (B,T,Kv,D) with T == S; each addressed through its
 // (batch, sequence, head) strides in elements, unit stride along D.
-// dtype: 0 = f32, 1 = bf16 (o has q's dtype).  D in {16, 32, 64, 128, 256}.
+// dtype: 0 = f32, 1 = bf16 (o has q's dtype).  D in {16, 32, 64, 112, 128,
+// 256}.
 // bf16 at D in {64, 128, 256} runs flash_wgmma (its strides and base
 // addresses in multiples of 16 bytes), everything else flash_fwd.
 extern "C" int flash_attention_launch(
@@ -838,6 +846,8 @@ extern "C" int flash_attention_launch(
     return launch<16, __nv_bfloat16>(a, (int)B, (int)H, stream);
   if (dtype == 1 && D == 32)
     return launch<32, __nv_bfloat16>(a, (int)B, (int)H, stream);
+  if (dtype == 1 && D == 112)
+    return launch<112, __nv_bfloat16>(a, (int)B, (int)H, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,6 +8,10 @@ head dims 64, 128 and 256, its SIMT f32 body otherwise (the source picks
 by dtype and head_dim).  On a CPU tensor it runs the plain version
 ``ref.reference_flash_attention``.  See the CUDA source for the design and
 its bound.
+
+Forward only, as in the JAX package (which has no backward for its Pallas
+kernel): on an input that requires grad while autograd records, the
+wrapper raises rather than return an output with no gradient path.
 """
 from __future__ import annotations
 
@@ -15,14 +19,15 @@ import math
 
 import torch
 
-from . import check_status, ref, use_kernel
+from . import check_status, no_grad_inputs, ref, use_kernel
 
 # kernel launches: a run shows it went through the kernel; "flash" counts
 # every launch, "flash_wgmma" those of the tensor-core body (bf16 at head
 # dims 64, 128 and 256), so a run also shows which body ran
 LAUNCHES = {"flash": 0, "flash_wgmma": 0}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# the kernel's head dims: 112 is zamba2-7b's (3584 / 32), on the SIMT body
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,8 +58,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B,S,H,D) in q's dtype.  Query head h reads KV head
     ``h // (H // Kv)``; positions run from 0.  Unlike the TPU kernel, S
     need not be a multiple of a tile.  The kernel takes head_dim in
-    ``HEAD_DIMS`` (every full-size config's); the plain version any."""
+    ``HEAD_DIMS``, which holds every full-size config's head_dim (zamba2-7b's
+    112 included); the plain version takes any.  Raises on an input that
+    requires grad while autograd records (see the module's docstring)."""
     _check(q, k, v, window, softcap)
+    no_grad_inputs("flash_attention", q, k, v)
     if not use_kernel(q, k, v):
         return ref.reference_flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap)

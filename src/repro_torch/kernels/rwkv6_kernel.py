@@ -7,6 +7,10 @@
 CUDA tensor both launch ``csrc/wkv.cu``; on a CPU tensor they run the
 plain version ``ref.reference_wkv_chunked``.  See the CUDA source for the
 design and its bound.
+
+Forward only, as in the JAX package: both raise on an input that requires
+grad while autograd records (``kernels.no_grad_inputs``); the model trains
+through the plain ``wkv_chunked``, as JAX's does.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import check_status, ref, use_kernel
+from . import check_status, no_grad_inputs, ref, use_kernel
 
 # kernel launches, one a call: a run shows it went through the kernel
 LAUNCHES = {"wkv": 0}
@@ -106,6 +110,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``rows_aligned`` allows (it copies them otherwise); the plain version
     takes any."""
     _check(r, k, v, w, u, None)
+    no_grad_inputs("wkv", r, k, v, w, u)
     chunk = _chunk(r.shape[1], chunk)
     w = w.to(torch.float32)
     if not use_kernel(r, k, v, w, u):
@@ -130,6 +135,7 @@ def wkv_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state (B,H,K,K) f32), as ``models.rwkv6.wkv_chunked`` does; the state
     is a new tensor and ``s0`` is only read."""
     _check(r, k, v, w, u, s0)
+    no_grad_inputs("wkv_state", r, k, v, w, u, s0)
     chunk = _chunk(r.shape[1], chunk)
     w = w.to(torch.float32)
     tensors = (r, k, v, w, u) if s0 is None else (r, k, v, w, u, s0)

@@ -1,5 +1,6 @@
 """Models of the port: the MLP and CNN classifiers of the FL experiments,
-and the LM serving path (attention family and rwkv6) of
-``transformer.py``."""
-from .transformer import (forward, init_decode_state, init_params,
-                          params_from_numpy, prefill_step, serve_step)
+and the LM zoo of ``transformer.py`` (attention with or without experts,
+rwkv6, zamba2's mamba2 hybrid): serving and training steps."""
+from .transformer import (forward, init_decode_state, init_params, loss_fn,
+                          params_from_numpy, prefill_step, serve_step,
+                          train_step)

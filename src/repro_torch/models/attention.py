@@ -5,7 +5,8 @@ Three execution paths, selected as in the JAX package:
   * ``mha_chunked`` — blockwise attention with an online softmax in plain
     PyTorch, the counterpart of ``attn_impl="xla"``.  Block bounds are
     static per query block, so causal and window structure skips KV
-    blocks.  No checkpointing: nothing here takes a gradient.
+    blocks.  The training path: plain ops, so autograd differentiates it
+    (with ``cfg.remat`` the model recomputes each block in backward).
   * ``decode_attention`` — one token over a (ring-buffered) KV cache.
   * the flash-attention kernel B8 (``repro_torch.kernels.flash_attention``)
     for ``attn_impl="pallas"`` or ``"pallas_interpret"``: a CUDA tensor

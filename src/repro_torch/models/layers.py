@@ -4,15 +4,16 @@ MLPs and the token embedding.
 
 Plain functions over dicts of tensors, in the JAX package's layouts and
 dtypes: parameters live in bf16 (``COMPUTE_DTYPE``), norms and rotary
-angles are computed in f32 and cast back.  The chunked vocabulary loss is
-training and is not ported yet (ROADMAP A5).
+angles are computed in f32 and cast back.  ``chunked_ce_loss`` is the
+training loss over the tied LM head, in sequence chunks.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
@@ -132,3 +133,47 @@ def embed(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
         e = e * torch.tensor(math.sqrt(e.shape[-1]), dtype=e.dtype,
                              device=e.device)
     return e
+
+
+def _chunk_nll(hc, lc, mc, table, final_softcap: float):
+    """Masked NLL sum of one sequence chunk: (B,c,D) hidden, (B,c) labels
+    and mask."""
+    logits = hc @ table.T                                   # (B,c,V)
+    if final_softcap:
+        logits = softcap(logits, final_softcap)
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def chunked_ce_loss(emb_params: Mapping[str, torch.Tensor], h: torch.Tensor,
+                    labels: torch.Tensor, *, chunk: int,
+                    final_softcap: float = 0.0,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy with the LM head applied in sequence chunks, summed
+    chunk by chunk in f32 and divided by the mask's sum (at least 1).
+    h: (B,S,D), labels: (B,S), mask: (B,S) or None (all ones).  Under
+    autograd each chunk's logits are recomputed in backward
+    (``torch.utils.checkpoint``), so the (B,S,V) logits never live at
+    once, as in the JAX package's scan."""
+    B, S, D = h.shape
+    table = emb_params["embedding"].to(COMPUTE_DTYPE)           # (V, D)
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S ({S}) must be a multiple of the loss chunk "
+                         f"({chunk})")
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    mask = mask.to(torch.float32)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        args = (h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk], table, final_softcap)
+        if torch.is_grad_enabled() and (h.requires_grad
+                                        or table.requires_grad):
+            part = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            part = _chunk_nll(*args)
+        total = total + part
+    return total / torch.clamp(torch.sum(mask), min=1.0)

@@ -11,7 +11,11 @@ computes it (``sigmoid``), ``jax.nn.silu`` through ``layers.silu``.
 Prefill's recurrence is kernel B9 in its state form
 (``kernels.rwkv6_kernel.wkv_state``, the same chunk step as
 ``wkv_chunked``) on a CUDA tensor, and the plain ``wkv_chunked`` on a CPU
-tensor; decode runs ``wkv_step`` on both, as JAX's does.
+tensor; decode runs ``wkv_step`` on both, as JAX's does.  Training takes
+JAX's route: whenever autograd records (an input of the recurrence
+requires grad and grad mode is on, ``kernels.records_grad``) the
+recurrence is the plain ``wkv_chunked`` on every device, since B9 is
+forward only.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import rwkv6_kernel
+from ..kernels import records_grad, rwkv6_kernel
 from .layers import COMPUTE_DTYPE, silu
 
 LORA_MIX = 32
@@ -176,6 +180,14 @@ def _streams(tm, x, n_heads: int, head_dim: int, shift=None):
     return r, k, v, w, g
 
 
+def kernel_recurrence(*streams) -> bool:
+    """The prefill recurrence's route: B9 (``rwkv6_kernel.wkv_state``) for
+    tensors off the CPU, except when autograd records through them; then,
+    and on the CPU, the differentiable plain ``wkv_chunked`` (JAX's
+    training route: it has no backward for its Pallas kernel either)."""
+    return streams[0].device.type != "cpu" and not records_grad(*streams)
+
+
 def time_mix(tm, x, n_heads: int, head_dim: int, state=None,
              chunk: int = 64):
     """state: None (train / prefill from zeros) or dict(shift: (B,1,D),
@@ -192,8 +204,9 @@ def time_mix(tm, x, n_heads: int, head_dim: int, state=None,
         new_state = {"shift": x, "wkv": wkv}
     else:
         s0 = state["wkv"] if state is not None else None
-        recurrence = (wkv_chunked if r.device.type == "cpu"
-                      else rwkv6_kernel.wkv_state)
+        recurrence = (rwkv6_kernel.wkv_state
+                      if kernel_recurrence(r, k, v, w, tm["bonus"], s0)
+                      else wkv_chunked)
         y, wkv = recurrence(r, k, v, w, tm["bonus"], s0, chunk=chunk)
         new_state = {"shift": x[:, -1:], "wkv": wkv}
     # per-head group norm (population variance, as jnp.var)

@@ -340,6 +340,10 @@ FLASH_CASES = [
     (1, 450, 4, 4, 256, torch.bfloat16, 200, 50.0),
     (2, 190, 16, 2, 256, torch.bfloat16, 40, 0.0),
     (1, 96, 4, 2, 32, torch.bfloat16, 24, 30.0),
+    # zamba2-7b's head dim (3584 / 32): the SIMT body, 16 lanes x 7 columns
+    (2, 256, 4, 4, 112, torch.bfloat16, 0, 0.0),
+    (1, 330, 4, 2, 112, torch.bfloat16, 100, 30.0),
+    (2, 77, 2, 1, 112, torch.float32, 0, 50.0),
 ]
 
 
@@ -953,3 +957,112 @@ def test_cuda_sharded_run_equals_unsharded(h100, key):
                        batch_size=32, het="strong", device=h100)
     rec = chip_smoke.shard_run(key, setup, rounds=2, epochs=1)
     assert rec["equal"] == {"1": True, "2": True, "4": True}
+
+
+@pytest.mark.cuda
+def test_cuda_forward_only_kernels_raise_under_autograd(h100):
+    """B8 and B9 on CUDA tensors that require grad while autograd records
+    raise before launching; under torch.no_grad() they launch."""
+    from repro_torch.kernels import rwkv6_kernel
+    q, k, v = (torch.randn(1, 64, 2, 112, device=h100,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
+    n0 = dict(flash_attention.LAUNCHES)
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attention.flash_attention(q, k, v)
+    assert flash_attention.LAUNCHES == n0
+    with torch.no_grad():
+        flash_attention.flash_attention(q, k, v)
+    assert flash_attention.LAUNCHES["flash"] == n0["flash"] + 1
+    r, kk, vv = (torch.randn(1, 64, 2, 64, device=h100) for _ in range(3))
+    w = torch.full_like(r, 0.9)
+    u = torch.full((2, 64), 0.5, device=h100, requires_grad=True)
+    w0 = rwkv6_kernel.LAUNCHES["wkv"]
+    for fn in (rwkv6_kernel.wkv, rwkv6_kernel.wkv_state):
+        with pytest.raises(RuntimeError, match="forward only"):
+            fn(r, kk, vv, w, u, chunk=16)
+    assert rwkv6_kernel.LAUNCHES["wkv"] == w0
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_loss_trains_through_wkv_chunked(h100):
+    """On the card a REDUCED rwkv6-3b ``loss_fn`` under autograd launches
+    B9 zero times (the plain wkv_chunked, JAX's training route) and its
+    gradients match the CPU's within 0.06 of each leaf's largest |value|;
+    a prefill under torch.no_grad() still launches B9 once a layer."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import rwkv6_kernel
+    from repro_torch.models import transformer
+    cfg = configs.get_config("rwkv6-3b", reduced=True)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+
+    def to(tree, d):
+        return {n: to(t, d) if isinstance(t, dict) else t.to(d)
+                for n, t in tree.items()}
+    rng = np.random.RandomState(0)
+    batch = {"tokens": _t(rng.randint(0, cfg.vocab_size, (2, 64))),
+             "labels": _t(rng.randint(0, cfg.vocab_size, (2, 64)))}
+    n0 = rwkv6_kernel.LAUNCHES["wkv"]
+    _, _, g_card = transformer._value_and_grad(
+        to(params, h100), cfg, to(batch, h100), 0.01)
+    torch.cuda.synchronize()
+    assert rwkv6_kernel.LAUNCHES["wkv"] == n0
+    _, _, g_cpu = transformer._value_and_grad(params, cfg, batch, 0.01)
+    for a, b in zip(jax_free_leaves(g_card), jax_free_leaves(g_cpu)):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).abs().max()) <= 0.06 * float(
+            b.abs().max().clamp(min=1e-6))
+    with torch.no_grad():
+        models.prefill_step(to(params, h100),
+                            {"tokens": batch["tokens"].to(h100)}, cfg=cfg)
+    torch.cuda.synchronize()
+    assert rwkv6_kernel.LAUNCHES["wkv"] == n0 + cfg.n_layers
+
+
+def jax_free_leaves(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from jax_free_leaves(tree[k])
+        else:
+            yield tree[k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-7b"])
+def test_cuda_lm_zoo_prefill_matches_cpu(h100, arch):
+    """A REDUCED MoE / zamba2 prefill and 4 decode steps on the card,
+    through B8 (zamba2's head dim raised to 112 so the card's D = 112 body
+    runs; mixtral at 128: the tensor-core body, windowed), match the CPU
+    within 0.04 of max|logit|; B8 launches once per attention layer (once
+    a group for zamba2's shared block) and never in decode."""
+    from repro_torch import configs, models
+    cfg = configs.get_config(arch, reduced=True).replace(attn_impl="pallas")
+    if arch == "zamba2-7b":
+        cfg = cfg.replace(d_model=448, n_heads=4, n_kv_heads=4)
+    else:
+        cfg = cfg.replace(head_dim=128, capacity_factor=4.0)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(h100)
+                for k, v in tree.items()}
+    card = to(params)
+    toks = _t(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 68)))
+    n_attn = (cfg.n_shared_attn_applications() if cfg.block_type == "mamba2"
+              else cfg.n_layers)
+    n0 = flash_attention.LAUNCHES["flash"]
+    lg, st = models.prefill_step(card, {"tokens": toks[:, :64].to(h100)},
+                                 cfg=cfg, max_len=68)
+    for t in range(64, 68):
+        lg, st = models.serve_step(card, st, toks[:, t:t + 1].to(h100), t,
+                                   cfg=cfg)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash"] == n0 + n_attn
+    lc, sc = models.prefill_step(params, {"tokens": toks[:, :64]}, cfg=cfg,
+                                 max_len=68)
+    for t in range(64, 68):
+        lc, sc = models.serve_step(params, sc, toks[:, t:t + 1], t, cfg=cfg)
+    err = (lg.float().cpu() - lc.float()).abs().max() / lc.float().abs().max()
+    assert float(err) < 0.04

@@ -51,7 +51,9 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.rwkv6_kernel, repro_torch.models.rwkv6, "
             "repro_torch.core.autotune, repro_torch.core.topology, "
             "repro_torch.runtime.faults, repro_torch.checkpoint, "
-            "repro_torch.parallel.sharding\n"
+            "repro_torch.parallel.sharding, repro_torch.models.moe, "
+            "repro_torch.models.mamba2, repro_torch.optim, "
+            "repro_torch.core.compression, repro_torch.core.federated\n"
             "assert 'repro_torch.core.experiment' in sys.modules\n"
             "assert 'repro_torch.models.transformer' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],
@@ -198,3 +200,26 @@ def test_cnn_model_is_not_ported():
     with pytest.raises(ValueError, match="fedprox_mu"):
         make_setup(TABLE_4_1["mnist_even"], model="cnn", fedprox_mu=0.01,
                    device="cpu")
+
+
+def test_pod_and_wire_twins_without_device_need_the_card():
+    """``examples/torch_lm_federated_pods.py`` and
+    ``benchmarks/torch_wire_bench.py`` run on the card: without one they
+    exit unless the CPU is asked for (``--smoke`` asks for it)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_federated_pods",
+        ROOT / "examples" / "torch_lm_federated_pods.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    assert ex.parse_args([]).device == "cuda"
+    assert "benchmarks/results/torch" in ex.parse_args([]).ckpt_dir
+    bench = _bench("torch_wire_bench")
+    assert bench.parse_args([]).device == "cuda"
+    assert bench.parse_args(["--smoke"]).device == "cpu"
+    assert bench.RESULTS == ROOT / "benchmarks" / "results" / "torch"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ex.main(["--steps", "1"])
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            bench.main([])

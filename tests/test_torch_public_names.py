@@ -131,7 +131,8 @@ def _same_signature(fn, jfn) -> bool:
 
 def _entry_points(tmp_path):
     """Each entry point that raised until its ROADMAP step was ported, with
-    the step: the checkpoints and their resume seams (A4) and the sharded
+    the step: the checkpoints and their resume seams (A4), the LM zoo's
+    MoE and mamba2 families (A5), pod-level FL (A6) and the sharded
     substrate (A7) now run, each under the JAX package's signature."""
     from repro.core import experiment as jexperiment
     from repro.core import topology as jtopology
@@ -238,6 +239,20 @@ def _entry_points(tmp_path):
         assert flatbuf.bundle_for(setup.weights0, mesh2) is \
             flatbuf.bundle_for(setup.weights0, mesh2)
 
+    def lm_zoo(arch):
+        from repro_torch import configs, models
+        cfg = configs.get_config(arch, reduced=True)
+        params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+        models.init_decode_state(cfg, 1, 8, device="cpu")
+        models.forward(params, cfg, tokens=torch.zeros((1, 8),
+                                                       dtype=torch.int32))
+
+    def pod_round():
+        from repro_torch.core import federated
+        st = federated.stack_for_pods({"w": torch.ones(4)}, 2)
+        federated.fl_round(st, torch.ones(2))
+
     def sharded_transport():
         tr = transport.Transport(setup.weights0, mesh=mesh2)
         assert tr.bundle is flatbuf.bundle_for(setup.weights0, mesh2)
@@ -256,6 +271,9 @@ def _entry_points(tmp_path):
         "run_fl_topology server_mesh": ("A7", sharded_topology),
         "ParamBundle mesh": ("A7", sharded_bundle),
         "Transport mesh": ("A7", sharded_transport),
+        "init_params moe": ("A5", lambda: lm_zoo("mixtral-8x22b")),
+        "init_params mamba2": ("A5", lambda: lm_zoo("zamba2-7b")),
+        "federated fl_round": ("A6", pod_round),
     }
 
 
@@ -264,8 +282,9 @@ UNPORTED_RAISES = sorted((
     "run_fl_topology resume", "Topology.resume_push", "Topology.resume_fan",
     "Topology.resume_done_settled", "FLWorker.resume_conversation",
     "run_fl server_mesh", "run_fl_topology server_mesh", "ParamBundle mesh",
-    "Transport mesh"))
-PORTED_STEPS = ("A4", "A7")
+    "Transport mesh", "init_params moe", "init_params mamba2",
+    "federated fl_round"))
+PORTED_STEPS = ("A4", "A5", "A6", "A7")
 
 
 @pytest.mark.parametrize("name", UNPORTED_RAISES)
@@ -448,3 +467,73 @@ def test_layers_param_dtype_matches_jax():
     """ROADMAP C3: the master parameters' dtype, f32 on both sides."""
     assert layers.PARAM_DTYPE == torch.float32
     assert np.dtype(jlayers.PARAM_DTYPE) == np.float32
+
+
+def _public(module):
+    return sorted(n for n, v in vars(module).items()
+                  if not n.startswith("_") and callable(v)
+                  and getattr(v, "__module__", None) == module.__name__)
+
+
+def test_lm_zoo_and_pod_fl_keep_the_references_public_names():
+    """ROADMAP A5 and A6: ``models.moe``, ``models.mamba2``, the training
+    half of ``models.transformer`` and ``layers``, ``optim``,
+    ``core.compression`` and ``core.federated`` export the JAX package's
+    public functions and classes under its signatures (the port adds
+    ``moe.route`` and ``moe.capacity``, the routing ``moe_apply`` runs,
+    and ``optimizers`` has no ``Optimizer.global_norm`` of its own to
+    differ); ``init`` functions take the port's generator, stacking
+    ``lead`` and device."""
+    import repro.optim as joptim
+    from repro.core import compression as jcomp
+    from repro.core import federated as jfed
+    from repro.models import layers as jlayers
+    from repro.models import mamba2 as jmamba
+    from repro.models import moe as jmoe
+    from repro.models import transformer as jtr
+    from repro.optim import optimizers as jopt
+    import repro_torch.optim as optim
+    from repro_torch.core import compression, federated
+    from repro_torch.models import layers, mamba2, moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import optimizers
+    assert _public(moe) == sorted(_public(jmoe) + ["capacity", "route"])
+    assert _public(mamba2) == _public(jmamba)
+    assert _public(compression) == _public(jcomp)
+    assert set(_public(jfed)) <= set(_public(federated))
+    assert _public(optimizers) == _public(jopt)
+    assert sorted(optim.__all__ if hasattr(optim, "__all__") else
+                  [n for n in dir(optim) if not n.startswith("_")
+                   and n != "optimizers"]) == sorted(
+        [n for n in dir(joptim) if not n.startswith("_")
+         and n != "optimizers"])
+    for mod, jmod, names in (
+            (moe, jmoe, ["moe_apply"]),
+            (mamba2, jmamba, ["_causal_conv", "ssd_chunked", "ssd_step",
+                              "mamba2_apply"]),
+            (layers, jlayers, ["chunked_ce_loss"]),
+            (tr, jtr, ["loss_fn", "train_step", "forward", "prefill_step",
+                       "serve_step", "logits_from_hidden"]),
+            (compression, jcomp, ["topk_compress", "int8_quantize",
+                                  "int8_dequantize"]),
+            (federated, jfed, ["stack_for_pods", "unstack_pod",
+                               "fl_local_step", "fl_round",
+                               "fl_round_delta_compressed"]),
+            (optimizers, jopt, ["adamw", "sgd", "global_norm"])):
+        for name in names:
+            assert _same_signature(getattr(mod, name), getattr(jmod, name)), \
+                (mod.__name__, name)
+    for name in ("__init__", "compress", "_compress_tree",
+                 "uncompressed_bytes"):
+        assert _same_signature(
+            getattr(compression.ErrorFeedbackCompressor, name),
+            getattr(jcomp.ErrorFeedbackCompressor, name)), name
+    assert [f for f in optimizers.Optimizer.__dataclass_fields__] == \
+        [f for f in jopt.Optimizer.__dataclass_fields__]
+    assert _same_signature(tr.init_decode_state, jtr.init_decode_state) \
+        is False      # the port adds device=
+    import repro_torch.models as models
+    import repro.models as jmodels
+    for name in ("loss_fn", "train_step"):
+        assert getattr(models, name) is getattr(tr, name)
+        assert hasattr(jmodels, name)

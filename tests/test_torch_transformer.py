@@ -37,7 +37,8 @@ TOL = 0.04
 DECODE_REL = 0.08        # tests/test_decode_consistency.py's bound
 ATTN_ARCHS = ["gemma2-2b", "yi-9b", "deepseek-67b", "starcoder2-15b",
               "internvl2-26b", "musicgen-medium"]
-# rwkv6-3b is ported: tests/test_torch_rwkv6.py holds it against JAX
+# rwkv6-3b is ported: tests/test_torch_rwkv6.py holds it against JAX; the
+# archs that waited for ROADMAP A5 (MoE and zamba2) now run too
 UNPORTED_ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
 
 
@@ -191,13 +192,28 @@ def test_kv_from_full_matches_jax(cache_len):
 
 @pytest.mark.parametrize("arch", UNPORTED_ARCHS)
 def test_unported_families_raise(arch):
-    cfg = configs.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        models.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        models.init_decode_state(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        models.forward({}, cfg, tokens=np.zeros((1, 4), np.int32))
+    """The families that raised until ROADMAP A5 was ported (MoE and
+    zamba2's mamba2 hybrid) now build, hold a decode state and run a
+    forward: parameter and state trees shaped as JAX's, and the forward's
+    logits within ``TOL`` of JAX's (tests/test_torch_moe.py and
+    test_torch_mamba2.py hold them further)."""
+    jcfg, tcfg, jp, tp = _both(arch, "xla", "xla")
+    want = jax.tree.map(lambda s: tuple(s.shape), jax.eval_shape(
+        lambda: jinit(jax.random.PRNGKey(0), jcfg)))
+    got = jax.tree.map(lambda t: tuple(t.shape), models.init_params(
+        torch.Generator().manual_seed(0), tcfg, device="cpu"))
+    assert got == want
+    want = jax.tree.map(lambda s: tuple(s.shape), jax.eval_shape(
+        lambda: jtr.init_decode_state(jcfg, 1, 8)))
+    got = jax.tree.map(lambda t: tuple(t.shape), models.init_decode_state(
+        tcfg, 1, 8, device="cpu"))
+    assert got == want
+    toks = np.random.RandomState(5).randint(0, jcfg.vocab_size, (1, 16))
+    jh, jaux, _ = jtr.forward(jp, jcfg, tokens=jnp.asarray(toks, jnp.int32))
+    th, taux, _ = models.forward(tp, tcfg, tokens=toks.astype(np.int32))
+    assert _rel(ttr.logits_from_hidden(tp, tcfg, th),
+                jtr.logits_from_hidden(jp, jcfg, jh)) < TOL
+    assert (float(taux) > 0) == tcfg.is_moe
 
 
 @pytest.mark.parametrize("arch", sorted(jconfigs.list_archs()))
