@@ -10,7 +10,8 @@ and prints no result):
    (9, 0) is required.
 2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    and print nvcc's ``-Xptxas -v`` report; B8's tensor-core body
-   (``flash_wgmma``) must not spill registers.
+   (``flash_wgmma``) must be there at every head dim of ``WGMMA_DIMS``
+   and must not spill registers.
 3. Kernels: hold each kernel against its plain PyTorch version on the
    card at the paths' shapes (fedavg W = 30, 2 and 1, N = 101,888, the
    scalar path's 101,890, a ragged N = 1000 and the paper phase's
@@ -225,7 +226,8 @@ follow the numerics).
    prompts of 8192 tokens, then 32 greedy decode steps, every counter at 0
    before and read after.  zamba2-7b at full depth (81 layers: 13 groups
    of 5 mamba2 blocks around the shared attention block, 3 trailing):
-   B8 at head dim 112 (its SIMT body) exactly 13 times in the prefill;
+   B8 at head dim 112 (its tensor-core body) exactly 13 times in the
+   prefill;
    mixtral-8x22b cut to 8 of 56 layers (window 4096, so its cache is a
    ring): B8's windowed tensor-core body 8 times; never in decode, and no
    other kernel.  Checks: the last 4 decode steps against a full forward
@@ -441,8 +443,9 @@ REPLAY_RUN = "uplink_only/sync"
 # B8 (flash attention) is checked at these shapes, (B, S, H, Kv, D, dtype,
 # window, softcap); the bf16 ones are timed.  gemma2-2b's global and
 # local layers, yi-9b's and zamba2-7b's shared block (head dim 112, the
-# SIMT body) at the LM phases' prompt lengths, then two f32 shapes of
-# tests/test_kernels.py.
+# tensor-core body with its second 64-column chunk zero-padded) at the LM
+# phases' prompt lengths, then two f32 shapes of tests/test_kernels.py (the
+# SIMT body).
 FLASH_SHAPES = {
     "gemma2-2b global": (2, 8192, 8, 4, 256, torch.bfloat16, 0, 50.0),
     "gemma2-2b local": (2, 8192, 8, 4, 256, torch.bfloat16, 4096, 50.0),
@@ -460,12 +463,17 @@ FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
 # q is drawn at 8x the scale of k and v: scores of std 8 reach the softcap
 # and peak the softmax, so a wrong cap, window edge or head map moves
 # outputs by O(1).  Each timed shape must fail the limit against its plain
-# version with the fault named here (a control of the check).
+# version with each fault named here (controls of the check); at zamba2-7b's
+# D = 112 also what a body that loses its padded second chunk computes.
 FLASH_Q_SCALE = 8.0
-FLASH_FAULTS = {"gemma2-2b global": "no softcap",
-                "gemma2-2b local": "window + 32 keys",
-                "yi-9b": "head map h % Kv",
-                "zamba2-7b": "kv shifted one position"}
+FLASH_FAULTS = {"gemma2-2b global": ("no softcap",),
+                "gemma2-2b local": ("window + 32 keys",),
+                "yi-9b": ("head map h % Kv",),
+                "zamba2-7b": ("kv shifted one position",
+                              "v's columns 64..111 zeroed")}
+# the head dims at which bf16 runs B8's tensor-core body (flash_wgmma<D>),
+# each of which the build's -Xptxas -v report must hold without spills
+WGMMA_DIMS = (64, 112, 128, 256)
 N_TIMED_FLASH = 10
 # The LM phase: gemma2-2b at full width and depth, cut from
 # SHAPES["prefill_32k"] (32 prompts of 32,768 tokens) to 2 of 8192, then
@@ -1431,6 +1439,9 @@ def fault_args(fault, k, v, window, cap, n_heads):
         k, v = k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1)
     elif fault == "kv shifted one position":
         k, v = k.roll(1, 1), v.roll(1, 1)
+    elif fault == "v's columns 64..111 zeroed":
+        v = v.clone()
+        v[..., 64:112] = 0
     elif fault is not None:
         raise ValueError(fault)
     return k, v, window, cap
@@ -1466,8 +1477,8 @@ def flash_ratio(got, want) -> float:
 
 def check_flash(dev, timer):
     """B8 against its plain version at every FLASH_SHAPES shape, and the
-    plain version given FLASH_FAULTS' fault against the kernel (it must
-    fail); kernel and plain timed at the bf16 shapes, with PyTorch's
+    plain version given each of FLASH_FAULTS' faults against the kernel
+    (each must fail); kernel and plain timed at the bf16 shapes, with PyTorch's
     scaled_dot_product_attention where there is no softcap and no window
     (yi-9b's and zamba2-7b's shapes).
     Returns the record of the gemma2-2b global shape, the others under
@@ -1503,23 +1514,25 @@ def check_flash(dev, timer):
         if not ratio <= 1.0:
             raise AssertionError(f"flash_attention {label}: |kernel - "
                                  f"plain| reaches {ratio} x the limit")
-        fault = FLASH_FAULTS.get(label)
-        if fault:
-            fk, fv, fw, fc = fault_args(fault, k, v, window, cap, H)
-            bad = ref.reference_flash_attention(q, fk, fv, window=fw,
-                                                softcap=fc)
-            rec["control"] = {"fault": fault,
-                              "ratio": flash_ratio(got, bad)}
+        faults = FLASH_FAULTS.get(label, ())
+        if faults:
+            rec["controls"] = {}
+            for fault in faults:
+                fk, fv, fw, fc = fault_args(fault, k, v, window, cap, H)
+                bad = ref.reference_flash_attention(q, fk, fv, window=fw,
+                                                    softcap=fc)
+                rec["controls"][fault] = flash_ratio(got, bad)
+                print(f"check flash_attention {label}: control ({fault}) "
+                      f"ratio {rec['controls'][fault]:.4g}")
+                if not rec["controls"][fault] > 1.0:
+                    raise AssertionError(f"flash_attention {label}: the "
+                                         f"check does not catch {fault}")
+                del bad, fk, fv
             # mha_chunked rounds P to bf16: a reading, not a check
             rec["mha_chunked_ratio"] = flash_ratio(attention.mha_chunked(
                 q, k, v, window=window, softcap_val=cap), want)
-            print(f"check flash_attention {label}: control ({fault}) "
-                  f"ratio {rec['control']['ratio']:.4g}; mha_chunked "
-                  f"(bf16 P) ratio {rec['mha_chunked_ratio']:.4g}")
-            if not rec["control"]["ratio"] > 1.0:
-                raise AssertionError(f"flash_attention {label}: the check "
-                                     f"does not catch {fault}")
-            del bad, fk, fv
+            print(f"check flash_attention {label}: mha_chunked (bf16 P) "
+                  f"ratio {rec['mha_chunked_ratio']:.4g}")
         del got, want
         if dt == torch.bfloat16:
             # q and o, k and v, each moved once
@@ -4022,18 +4035,19 @@ def run_paper(dev, report, cpu="cpu", weights0=None):
 # width (seeded random bf16 weights drawn on the card), cut from
 # SHAPES["prefill_32k"] as phases 10-11 are: 2 prompts of 8192 tokens, then
 # ZOO_DECODE greedy decode steps.  zamba2-7b at full depth (B8 at head dim
-# 112 once a group: 13 launches, the SIMT body); mixtral-8x22b cut to 8 of
-# its 56 layers (its bf16 weights are 281 GB at full depth), B8's windowed
-# tensor-core body once a layer.  The card-vs-CPU repeat keeps the width
-# and cuts depth (zamba2: one group and one trailing block; mixtral: one
-# layer) and the prompt.
+# 112 once a group: 13 launches, the tensor-core body); mixtral-8x22b cut
+# to 8 of its 56 layers (its bf16 weights are 281 GB at full depth), B8's
+# windowed tensor-core body once a layer.  The card-vs-CPU repeat keeps
+# the width and cuts depth (zamba2: one group and one trailing block;
+# mixtral: one layer) and the prompt.
 ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 8192, 32
 # every decode step is held against a full forward: with random weights
 # the mamba2 state forgets in a few tokens, so a state zeroed after the
 # prefill shows only in the first steps
 ZOO_CHECKED = ZOO_DECODE
 ZOO = {
-    "zamba2-7b": dict(n_layers=81, flash=13, wgmma=0, n_params=5_622_728_000,
+    "zamba2-7b": dict(n_layers=81, flash=13, wgmma=13,
+                      n_params=5_622_728_000,
                       cut=dict(n_layers=7, prompt=128, decode=4)),
     "mixtral-8x22b": dict(n_layers=8, flash=8, wgmma=8,
                           n_params=20_233_820_160,
@@ -4699,9 +4713,12 @@ def main() -> int:
           f"({_build.library_path().relative_to(ROOT)})")
     print(_build.build_log.strip())
     ptxas = ptxas_report(_build.build_log, "flash_wgmma")
-    if not ptxas:
-        raise AssertionError("no -Xptxas -v report of flash_wgmma in "
-                             f"{_build.LOG_NAME} beside the library")
+    missing = [D for D in WGMMA_DIMS
+               if not any(f"flash_wgmmaILi{D}E" in k for k in ptxas)]
+    if missing:
+        raise AssertionError(f"no -Xptxas -v report of flash_wgmma at head "
+                             f"dims {missing} in {_build.LOG_NAME} beside "
+                             f"the library")
     for kern, info in ptxas.items():
         print(f"ptxas {kern}: {info}")
         if info.get("spill_stores") or info.get("spill_loads"):

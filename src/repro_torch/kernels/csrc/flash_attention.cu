@@ -12,10 +12,10 @@
 //
 // Two bodies.  flash_attention_launch picks one by dtype and head_dim alone
 // (wgmma_body), never on a failure:
-//   bf16 with D in {64, 128, 256}  ->  flash_wgmma, on the tensor cores;
-//   f32, and bf16 with D in {16, 32, 112}  ->  flash_fwd, SIMT f32.
-// D = 112 is zamba2-7b's head (3584 / 32): 7 x 16, not a multiple of the
-// 64-column chunks of the wgmma body, so it runs the SIMT body.
+//   bf16 with D in {64, 112, 128, 256}  ->  flash_wgmma, on the tensor cores;
+//   f32, and bf16 with D in {16, 32}  ->  flash_fwd, SIMT f32.
+// D = 112 is zamba2-7b's head (3584 / 32): 7 x 16, so its second 64-column
+// chunk of the wgmma body is filled to 48 columns, the rest zero (below).
 //
 // Bound on the card: operations.  A prefill at gemma2-2b's width (B=2,
 // S=8192, H=8, D=256) does 4*D flops per (query, visible key) pair, 5.5e11
@@ -59,8 +59,19 @@
 //            192 KB of shared memory;
 //   D = 128: 3 consumers of 160 (producer 32): O 64 + 32 + 32; Q 48 KB +
 //            4 stages of 32 KB = 176 KB;
+//   D = 112: as D = 128 (two chunks, the second padded);
 //   D =  64: 3 consumers of 160: O 32 + 32 + 32; Q 24 KB + 4 stages of
 //            16 KB = 88 KB.
+// D = 112 (7 x 16 columns) takes whole 128-byte chunks too: the TMA box
+// at column 64 reads columns 64..111 and zero-fills 112..127 (the map's
+// first dimension is D), and its full box still counts in the stage's
+// bytes, as the zero-filled rows >= S and keys >= T do.  S = Q K^T runs
+// D / 16 = 7 k-steps, none on the padding.  O += P V runs m64n64k16 on V's
+// first chunk and m64n48k16 on its second (an MN-major B of 48 columns
+// with the 128-byte swizzle: within one bf16 ulp of the plain version on
+// an H100, and 3% faster at zamba2-7b's shape than n64 on both chunks),
+// so no tensor work is spent on the padding either; the accumulator's
+// padded columns stay zero and are never stored.
 // A consumer runs QK^T, softmax and PV in series; the other consumers'
 // tensor work overlaps its softmax (a third consumer took yi-9b's shape
 // from 1.21 to 1.03 ms on an H100).
@@ -76,9 +87,8 @@
 // operand that is not).
 //
 // flash_fwd.  Keeps every score, P and accumulator in f32 on the f32 FMA
-// units: f32 q/k/v are not exact in bf16, D < 64 is narrower than the
-// swizzled 128-byte rows of the wgmma body, and D = 112 is no multiple of
-// them.  Bound by f32 FMA throughput
+// units: f32 q/k/v are not exact in bf16, and D < 64 is narrower than the
+// swizzled 128-byte rows of the wgmma body.  Bound by f32 FMA throughput
 // and shared-memory bandwidth, far from the bf16 bound.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, head, batch).
@@ -146,7 +156,7 @@ struct Tile {
   static constexpr int BK = D >= 256 ? 32 : 64;
   static constexpr int QS = D + 4;              // padded row of Qs and Ks
   // output columns per load: float4 where D is a multiple of 64; D = 112
-  // (16 lanes x 7 columns) and D < 64 load one float at a time
+  // (16 lanes x 7 columns, f32 only) and D < 64 load one float at a time
   static constexpr int VEC = D % 64 == 0 ? 4 : 1;
   static constexpr int NC = D / (16 * VEC);     // column groups per thread
   static_assert(D % (16 * VEC) == 0 && D % 4 == 0, "D: 16 lanes x NC x VEC");
@@ -345,7 +355,7 @@ int dispatch(const Args& a, int B, int H, int D, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_wgmma: the tensor-core body for bf16 at D in {64, 128, 256}.
+// flash_wgmma: the tensor-core body for bf16 at D in {64, 112, 128, 256}.
 namespace tc {
 
 constexpr int kRows = 64;                  // query rows per consumer
@@ -361,10 +371,13 @@ struct Cfg {
   static constexpr int PRODUCER_REGS = WGS == 2 ? 24 : 32;
   static constexpr int BQ = kRows * WGS;   // query rows per block
   static constexpr int THREADS = 128 * (WGS + 1);
-  static constexpr int NC = D / 64;        // 128-byte column chunks
+  // 128-byte column chunks, the last zero-filled past D (D = 112: 2)
+  static constexpr int NC = (D + 63) / 64;
+  static_assert(D % 64 == 0 || D % 64 == 48,
+                "a padded chunk holds 48 columns (mma_rs48)");
   static constexpr int STAGES = D >= 256 ? 2 : 4;
-  static constexpr int Q_BYTES = kRows * D * 2;   // one consumer's Q tile
-  static constexpr int KV_BYTES = kBK * D * 2;    // one K or V tile
+  static constexpr int Q_BYTES = NC * kChunk;     // one consumer's Q tile
+  static constexpr int KV_BYTES = NC * kChunk;    // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   // 1024 to align the tiles (the swizzle's period), then the mbarriers
   static constexpr size_t SMEM = 1024 + WGS * Q_BYTES +
@@ -499,8 +512,36 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// the same into the first 48 columns of d (a padded chunk: D = 112's
+// second); d's last 8 registers are untouched
+__device__ __forceinline__ void mma_rs48(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, "
+      "%28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// d += A B over a 64-column chunk of V, or its first 48 when it is padded
+__device__ __forceinline__ void pv(float (&d)[32], const uint32_t (&a)[4],
+                                   uint64_t db, bool padded) {
+  if (padded)
+    mma_rs48(d, a, db);
+  else
+    mma_rs(d, a, db);
 }
 
 // The KV tiles [lo, hi) that the query rows [r0, r0 + rows) can see.
@@ -601,7 +642,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
       const uint32_t ks = kv_s + s * C::STAGE_BYTES, vs = ks + C::KV_BYTES;
       const int k0 = t * kBK;
 
-      // S = Q K^T: D / 16 steps of k16 (32 bytes along a 128-byte row)
+      // S = Q K^T: D / 16 steps of k16 (32 bytes along a 128-byte row),
+      // so none reads a chunk's zero padding
       float sc[32];
 #pragma unroll
       for (int i2 = 0; i2 < 32; ++i2) sc[i2] = 0.0f;
@@ -682,20 +724,20 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
         }
 
       // O += p_hi V + p_lo V: V's 16 keys kk at 2048 kk bytes, its
-      // 64-column chunk c at c * kChunk
+      // 64-column chunk c at c * kChunk (D = 112's second chunk: n48)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          mma_rs(o[c], phi[kk],
-                 sw128_desc(vs + c * kChunk + kk * 2048, kChunk));
+          pv(o[c], phi[kk], sw128_desc(vs + c * kChunk + kk * 2048, kChunk),
+             64 * c + 64 > D);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          mma_rs(o[c], plo[kk],
-                 sw128_desc(vs + c * kChunk + kk * 2048, kChunk));
+          pv(o[c], plo[kk], sw128_desc(vs + c * kChunk + kk * 2048, kChunk),
+             64 * c + 64 > D);
       wg_commit();
       wg_wait_all();
 #pragma unroll
@@ -717,13 +759,15 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     if (qpos >= a.S) continue;
     const float den = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = og + qpos * a.o_ss + cq;
+    // the 8-column groups below D (D = 112: 6 of chunk 1's 8)
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * j) =
-            __floats2bfloat162_rn(o[c][4 * j + 2 * r] / den,
-                                  o[c][4 * j + 2 * r + 1] / den);
+        if (64 * c + 8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * j) =
+              __floats2bfloat162_rn(o[c][4 * j + 2 * r] / den,
+                                    o[c][4 * j + 2 * r + 1] / den);
   }
 }
 
@@ -755,7 +799,8 @@ EncodeTiled encode_tiled() {
 }
 
 // (B, S, heads, D) bf16 with unit stride along D as a 4-d map {D, heads,
-// S, B} whose box is 64 columns x 64 rows of one head, 128-byte swizzled
+// S, B} whose box is 64 columns x 64 rows of one head, 128-byte swizzled;
+// columns >= D, rows >= S are zero-filled
 int make_map(CUtensorMap* map, const void* ptr, long long D,
              long long heads, long long S, long long B, long long s_b,
              long long s_s, long long s_h) {
@@ -797,7 +842,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // The one rule that picks the body.
 bool wgmma_body(long long dtype, long long D) {
-  return dtype == 1 && (D == 64 || D == 128 || D == 256);
+  return dtype == 1 && (D == 64 || D == 112 || D == 128 || D == 256);
 }
 
 }  // namespace
@@ -806,7 +851,7 @@ bool wgmma_body(long long dtype, long long D) {
 // (batch, sequence, head) strides in elements, unit stride along D.
 // dtype: 0 = f32, 1 = bf16 (o has q's dtype).  D in {16, 32, 64, 112, 128,
 // 256}.
-// bf16 at D in {64, 128, 256} runs flash_wgmma (its strides and base
+// bf16 at D in {64, 112, 128, 256} runs flash_wgmma (its strides and base
 // addresses in multiples of 16 bytes), everything else flash_fwd.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, long long B,
@@ -832,6 +877,7 @@ extern "C" int flash_attention_launch(
                      softcap > 0.0f ? 1.0f / softcap : 0.0f};
     switch (D) {
       case 64: return tc::launch<64>(tq, tk, tv, a, stream);
+      case 112: return tc::launch<112>(tq, tk, tv, a, stream);
       case 128: return tc::launch<128>(tq, tk, tv, a, stream);
       default: return tc::launch<256>(tq, tk, tv, a, stream);
     }
@@ -841,13 +887,11 @@ extern "C" int flash_attention_launch(
                o_ss, o_sh, (int)S, (int)T, (int)(H / Kv), (int)causal,
                (int)window, scale, softcap};
   if (dtype == 0) return dispatch<float>(a, (int)B, (int)H, (int)D, stream);
-  // bf16 at D 64, 128 and 256 ran flash_wgmma above
+  // bf16 at D 64, 112, 128 and 256 ran flash_wgmma above
   if (dtype == 1 && D == 16)
     return launch<16, __nv_bfloat16>(a, (int)B, (int)H, stream);
   if (dtype == 1 && D == 32)
     return launch<32, __nv_bfloat16>(a, (int)B, (int)H, stream);
-  if (dtype == 1 && D == 112)
-    return launch<112, __nv_bfloat16>(a, (int)B, (int)H, stream);
   return (int)cudaErrorInvalidValue;
 }
 

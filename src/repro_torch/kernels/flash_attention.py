@@ -4,8 +4,8 @@ logit-softcap, GQA).
 ``flash_attention`` replaces the TPU kernel of
 ``repro/kernels/flash_attention.py::flash_attention``.  On a CUDA tensor it
 launches ``csrc/flash_attention.cu``: its tensor-core body for bf16 at
-head dims 64, 128 and 256, its SIMT f32 body otherwise (the source picks
-by dtype and head_dim).  On a CPU tensor it runs the plain version
+head dims 64, 112, 128 and 256, its SIMT f32 body otherwise (the source
+picks by dtype and head_dim).  On a CPU tensor it runs the plain version
 ``ref.reference_flash_attention``.  See the CUDA source for the design and
 its bound.
 
@@ -23,10 +23,11 @@ from . import check_status, no_grad_inputs, ref, use_kernel
 
 # kernel launches: a run shows it went through the kernel; "flash" counts
 # every launch, "flash_wgmma" those of the tensor-core body (bf16 at head
-# dims 64, 128 and 256), so a run also shows which body ran
+# dims 64, 112, 128 and 256), so a run also shows which body ran
 LAUNCHES = {"flash": 0, "flash_wgmma": 0}
 
-# the kernel's head dims: 112 is zamba2-7b's (3584 / 32), on the SIMT body
+# the kernel's head dims: 112 is zamba2-7b's (3584 / 32), on the
+# tensor-core body in bf16 (its second 64-column chunk zero-padded)
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

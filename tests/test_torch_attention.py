@@ -95,10 +95,12 @@ def test_flash_plain_window_softcap(window, cap):
     assert _gap(got, pallas) < F32_TOL
 
 
-@pytest.mark.parametrize("D,dt", [(256, "f32"), (256, "bf16"), (128, "f32")])
+@pytest.mark.parametrize("D,dt", [(256, "f32"), (256, "bf16"), (128, "f32"),
+                                  (112, "f32"), (112, "bf16")])
 def test_flash_plain_at_model_head_dims(D, dt):
-    """gemma2's head_dim (256, window + softcap) and yi's (128), where the
-    kernel's KV tile is 32 and 64 keys."""
+    """gemma2's head_dim (256, window + softcap), yi's (128) and zamba2's
+    (112 = 7 x 16, which the tensor-core body pads to two 64-column
+    chunks), where the kernel's KV tile is 32 and 64 keys."""
     jdt, tdt, tol = DTYPES[dt]
     window, cap = (48, 50.0) if D == 256 else (0, 0.0)
     arrs = _qkv(2, B=1, S=128, H=4, Kv=2, D=D)
@@ -193,8 +195,9 @@ def _wgmma_emulation(q, k, v, *, window=0, softcap=0.0, block_k=64,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
-# (B, S, H, Kv, D, window, softcap): D 64/128/256, GQA rep 1/2/8, windows
-# whose edge falls inside a 64-key tile, softcap on and off, ragged S
+# (B, S, H, Kv, D, window, softcap): D 64/112/128/256, GQA rep 1/2/8,
+# windows whose edge falls inside a 64-key tile, softcap on and off, ragged
+# S; at D = 112 the scale 1/sqrt(112) is applied late, as at 128
 WGMMA_CASES = [
     (1, 128, 2, 2, 64, 0, 0.0),
     (1, 130, 4, 2, 128, 40, 50.0),
@@ -202,6 +205,8 @@ WGMMA_CASES = [
     (2, 200, 8, 1, 64, 72, 0.0),
     (1, 160, 4, 2, 256, 100, 30.0),
     (1, 77, 2, 1, 128, 0, 0.0),
+    (1, 130, 4, 2, 112, 40, 50.0),
+    (2, 77, 2, 2, 112, 0, 0.0),
 ]
 
 
@@ -222,6 +227,27 @@ def test_flash_tensor_core_arithmetic_within_card_limit(B, S, H, Kv, D,
     single = _wgmma_emulation(q, k, v, window=window, softcap=cap,
                               split_p=False)
     assert chip_smoke.flash_ratio(single, want) > 1.0
+
+
+@pytest.mark.parametrize("fault", chip_smoke.FLASH_FAULTS["zamba2-7b"])
+def test_flash_controls_at_head_dim_112_exceed_card_limit(fault):
+    """chip_smoke's controls at zamba2-7b's head dim: the plain version
+    given each fault (kv shifted one position; v's columns 64..111 zeroed,
+    what a body that loses its padded second chunk computes) misses the
+    tensor-core arithmetic by more than the card's limit, which that
+    arithmetic itself meets."""
+    B, S, H, Kv, D = 1, 130, 4, 4, 112
+    rng = np.random.RandomState(24)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, D).astype(np.float32)
+                                * sc).to(torch.bfloat16)
+               for n, sc in ((H, chip_smoke.FLASH_Q_SCALE), (Kv, 1),
+                             (Kv, 1)))
+    got = _wgmma_emulation(q, k, v)
+    assert chip_smoke.flash_ratio(
+        got, ref.reference_flash_attention(q, k, v)) <= 1.0
+    fk, fv, fw, fc = chip_smoke.fault_args(fault, k, v, 0, 0.0, H)
+    bad = ref.reference_flash_attention(q, fk, fv, window=fw, softcap=fc)
+    assert chip_smoke.flash_ratio(got, bad) > 1.0
 
 
 @pytest.mark.parametrize("case", ["T!=S", "H%Kv", "f16", "mixed", "window<0",

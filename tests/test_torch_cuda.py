@@ -321,9 +321,9 @@ def test_cuda_sync_fedadam_run_launches_fused_merge(h100):
 # (B, S, H, Kv, D, dtype, window, softcap): the JAX tests' widths, gemma2's
 # head_dim 256 in f32 (the largest block), a window of 40 that leaves the
 # first KV tiles of later query tiles wholly masked, and a ragged S; then
-# for the tensor-core body (bf16 at D 64/128/256) S not a multiple of a
+# for the tensor-core body (bf16 at D 64/112/128/256) S not a multiple of a
 # block's query rows (128 or 192) or a tile's 64 keys, window edges inside
-# a tile and GQA rep 1, 2 and 8; and bf16 at D = 32 (the SIMT body)
+# a tile and GQA rep 1, 2, 4 and 8; and bf16 at D = 32 (the SIMT body)
 FLASH_CASES = [
     (2, 128, 4, 2, 32, torch.float32, 0, 0.0),
     (2, 256, 2, 1, 64, torch.bfloat16, 0, 0.0),
@@ -340,10 +340,14 @@ FLASH_CASES = [
     (1, 450, 4, 4, 256, torch.bfloat16, 200, 50.0),
     (2, 190, 16, 2, 256, torch.bfloat16, 40, 0.0),
     (1, 96, 4, 2, 32, torch.bfloat16, 24, 30.0),
-    # zamba2-7b's head dim (3584 / 32): the SIMT body, 16 lanes x 7 columns
+    # zamba2-7b's head dim (3584 / 32): bf16 on the tensor-core body (the
+    # TMA box at column 64 zero-fills columns 112..127), f32 on the SIMT
+    # body (16 lanes x 7 columns); a ragged S with window and softcap at
+    # GQA rep 4
     (2, 256, 4, 4, 112, torch.bfloat16, 0, 0.0),
     (1, 330, 4, 2, 112, torch.bfloat16, 100, 30.0),
     (2, 77, 2, 1, 112, torch.float32, 0, 50.0),
+    (2, 201, 8, 2, 112, torch.bfloat16, 72, 50.0),
 ]
 
 
@@ -372,7 +376,7 @@ def test_cuda_flash_attention_matches_plain(h100, B, S, H, Kv, D, dtype,
     torch.cuda.synchronize()
     # every launch counts under "flash"; the tensor-core body's also under
     # "flash_wgmma"
-    wgmma = int(dtype == torch.bfloat16 and D in (64, 128, 256))
+    wgmma = int(dtype == torch.bfloat16 and D in chip_smoke.WGMMA_DIMS)
     assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
                                         "flash_wgmma": n0["flash_wgmma"]
                                         + wgmma}
@@ -382,13 +386,15 @@ def test_cuda_flash_attention_matches_plain(h100, B, S, H, Kv, D, dtype,
 
 # B8 without the causal mask, (B, S, H, Kv, D, window, softcap), bf16 so
 # the tensor-core body runs: its query tiles are issued in order and keys
-# right of the query are seen; ragged S and window edges inside a tile
+# right of the query are seen; ragged S and window edges inside a tile;
+# D = 112's padded chunk too
 FLASH_NONCAUSAL_CASES = [
     (2, 200, 4, 2, 64, 0, 0.0),
     (1, 330, 8, 1, 128, 100, 0.0),
     (1, 77, 8, 8, 128, 40, 30.0),
     (2, 190, 8, 4, 256, 0, 50.0),
     (1, 256, 4, 2, 256, 72, 50.0),
+    (1, 200, 4, 2, 112, 40, 30.0),
 ]
 
 
@@ -429,19 +435,50 @@ def test_cuda_fedavg_agg_bit_exact(h100, W, N):
     assert torch.equal(got, ref.reference_fedavg(rows_d, w_d))
 
 
+def _strided_views_match_plain(dev, B, S, H, Kv, D):
+    qkv = torch.randn(B, S, H + 2 * Kv, D, device=dev)
+    qkv[:, :, :H] *= 8
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Kv], qkv[:, :, H + Kv:]
+    n0 = dict(flash_attention.LAUNCHES)
+    got = flash_attention.flash_attention(q, k, v, softcap=50.0)
+    plain = ref.reference_flash_attention(q, k, v, softcap=50.0)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
+                                        "flash_wgmma": n0["flash_wgmma"] + 1}
+    _assert_flash_close(got, plain)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_reads_strided_views(h100):
     """q, k, v as views of one fused (B, S, H + 2 Kv, D) projection: the
     kernel reads them through their strides, with no copy."""
-    B, S, H, Kv, D = 2, 192, 4, 2, 64
-    qkv = torch.randn(B, S, H + 2 * Kv, D, device=h100)
-    qkv[:, :, :H] *= 8
-    qkv = qkv.to(torch.bfloat16)
-    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Kv], qkv[:, :, H + Kv:]
-    got = flash_attention.flash_attention(q, k, v, softcap=50.0)
-    plain = ref.reference_flash_attention(q, k, v, softcap=50.0)
-    torch.cuda.synchronize()
-    _assert_flash_close(got, plain)
+    _strided_views_match_plain(h100, 2, 192, 4, 2, 64)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_views_at_112(h100):
+    """The same at zamba2's head dim: each view's rows are 224 bytes apart
+    and a head's columns 112..127 are the next head's first 16 in memory,
+    which the TMA box at column 64 must zero-fill, not read."""
+    _strided_views_match_plain(h100, 2, 200, 8, 2, 112)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_body_at_head_dim_112(h100):
+    """bf16 at D = 112 runs the tensor-core body, f32 the SIMT body: the
+    source's rule and the launch counters agree."""
+    from repro_torch.kernels._build import lib
+    assert lib().flash_attention_wgmma_body(1, 112) == 1
+    assert lib().flash_attention_wgmma_body(0, 112) == 0
+    for dtype, wgmma in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v = (torch.randn(1, 130, 2, 112, device=h100).to(dtype)
+                   for _ in range(3))
+        n0 = dict(flash_attention.LAUNCHES)
+        flash_attention.flash_attention(q, k, v)
+        assert flash_attention.LAUNCHES == {
+            "flash": n0["flash"] + 1,
+            "flash_wgmma": n0["flash_wgmma"] + wgmma}
 
 
 @pytest.mark.cuda
@@ -1032,10 +1069,11 @@ def jax_free_leaves(tree):
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-7b"])
 def test_cuda_lm_zoo_prefill_matches_cpu(h100, arch):
     """A REDUCED MoE / zamba2 prefill and 4 decode steps on the card,
-    through B8 (zamba2's head dim raised to 112 so the card's D = 112 body
-    runs; mixtral at 128: the tensor-core body, windowed), match the CPU
-    within 0.04 of max|logit|; B8 launches once per attention layer (once
-    a group for zamba2's shared block) and never in decode."""
+    through B8's tensor-core body (zamba2's head dim raised to its full
+    size's 112; mixtral at 128, windowed), match the CPU within 0.04 of
+    max|logit|; B8 launches once per attention layer (once a group for
+    zamba2's shared block), every launch on the tensor-core body, and
+    never in decode."""
     from repro_torch import configs, models
     cfg = configs.get_config(arch, reduced=True).replace(attn_impl="pallas")
     if arch == "zamba2-7b":
@@ -1053,6 +1091,7 @@ def test_cuda_lm_zoo_prefill_matches_cpu(h100, arch):
     n_attn = (cfg.n_shared_attn_applications() if cfg.block_type == "mamba2"
               else cfg.n_layers)
     n0 = flash_attention.LAUNCHES["flash"]
+    w0 = flash_attention.LAUNCHES["flash_wgmma"]
     lg, st = models.prefill_step(card, {"tokens": toks[:, :64].to(h100)},
                                  cfg=cfg, max_len=68)
     for t in range(64, 68):
@@ -1060,6 +1099,7 @@ def test_cuda_lm_zoo_prefill_matches_cpu(h100, arch):
                                    cfg=cfg)
     torch.cuda.synchronize()
     assert flash_attention.LAUNCHES["flash"] == n0 + n_attn
+    assert flash_attention.LAUNCHES["flash_wgmma"] == w0 + n_attn
     lc, sc = models.prefill_step(params, {"tokens": toks[:, :64]}, cfg=cfg,
                                  max_len=68)
     for t in range(64, 68):
