@@ -252,7 +252,27 @@ follow the numerics).
    B6 once); B2, ``ef_encode`` and B6 each replayed through its plain
    version on the card, bit for bit.  Reports s/step, s/round and peak
    memory.
-15. Result: the ``kernels`` JSON line, the card line, and last the
+15. Launch (``run_launch``): the production training script, ``python -m
+   repro_torch.launch.train``, in subprocesses at musicgen-medium's full
+   width.  Single mode at full depth (48 layers, 1,815,234,048
+   parameters, 30 steps of 8 x 128 tokens at ``LAUNCH_LR``): the loss
+   finite, its last ``LAUNCH_LAST`` values at least ``LAUNCH_FALL`` below
+   the first, no kernel launched.  Fl mode, 2 pods, at the deepest depth
+   whose estimated peak (``fl_peak_estimate``, with ``LAUNCH_RESERVE``)
+   leaves ``LAUNCH_FREE`` of the card free, 3 steps with a round after
+   the second: B2 exactly once, its output bit for bit its plain version's
+   at this shape (chunk by chunk along N, in the trainer's process,
+   ``b2_round_check``) and two controls that must fail, every pod equal
+   after it, the run's reserved peak leaving ``LAUNCH_FREE``.  A run cut
+   to 2 layers killed after its first checkpoint and resumed in a fresh
+   process: the state the resumed process moved to the card equal to the
+   file bit for bit (``tree_digest``), the resumed checkpoints equal to a
+   continuation in this process on the reference's batches (its iterator
+   starts again).  ``input_specs`` for all 40 cells on both
+   production meshes: per-device bytes, no device memory allocated.
+   Reports s/step, round s, peak memory and checkpoint bytes under
+   ``launch``.
+16. Result: the ``kernels`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
@@ -4684,6 +4704,435 @@ def run_pods(dev, rec):
     return out
 
 
+# Phase 15, "launch": the production training script, ``python -m
+# repro_torch.launch.train``, in subprocesses at musicgen-medium's full
+# width (d_model 1536, 24 heads, d_ff 6144, vocab 2048).  Single mode at
+# full depth (48 layers); fl mode with 2 pods at the deepest depth whose
+# estimated peak (``fl_peak_estimate``) leaves LAUNCH_FREE of the card
+# free, one round (B2) inside the run; a kill after the first checkpoint
+# and a resume in a fresh process at LAUNCH_RESUME_LAYERS layers (full
+# depth writes 25 GB a checkpoint; the check does not depend on depth).
+# Then input_specs for every cell on both production meshes.  The fl run
+# and the resumed run are the trainer's ``main`` under ``chip_smoke.py
+# --launch-train b2|restore``, which checks one call inside the process
+# (``launch_train_checked``); the others are ``python -m
+# repro_torch.launch.train``.
+LAUNCH_ARCH = "musicgen-medium"
+LAUNCH_SIZE = ("--full",)          # the tests' rehearsal: () for REDUCED
+LAUNCH_N_PARAMS = 1_815_234_048
+LAUNCH_LAYERS = 48
+# tools/torch_train_lr_scan.py on the card (30 steps on the same batches,
+# no warmup): at lr 0 the losses span 7.870-7.981 and the last five
+# average 0.051 above the first; the last five average 0.012 below the
+# first at 1e-4, 0.218 at 3e-4, 0.083 at 1e-3, and 0.250 above it at
+# 3e-3, the trainer's default (the reference's, for REDUCED configs),
+# which climbs from 7.895 to 8.591 in 3 steps.  So single mode runs 30
+# steps at LAUNCH_LR and "falls" means the last LAUNCH_LAST losses average
+# at least LAUNCH_FALL below the first.
+LAUNCH_LR = 3e-4
+LAUNCH_LAST, LAUNCH_FALL = 5, 0.1
+LAUNCH_SINGLE = ["--steps", "30", "--batch", "8", "--seq", "128", "--lr",
+                 LAUNCH_LR]
+LAUNCH_FL = ["--mode", "fl", "--pods", "2", "--steps", "3", "--fl-every",
+             "2", "--batch", "8", "--seq", "128", "--lr", LAUNCH_LR]
+LAUNCH_FREE = 10e9
+# the allocator's reserve beyond the allocated peak (1.21 GB at 48 layers:
+# 73.89 against 72.68 GB reserved on an H100 80GB HBM3 at 700 W)
+LAUNCH_RESERVE = 1.5e9
+LAUNCH_RESUME_LAYERS = 2
+# the kill lands after the first of six checkpoints: the writer would
+# need 20 more steps and 5 more writes to finish
+LAUNCH_RESUME = ["--steps", "24", "--ckpt-every", "4", "--batch", "8",
+                 "--seq", "128", "--lr", LAUNCH_LR]
+LAUNCH_TIMEOUT_S = 600.0
+# training runs at attn_impl "xla": fl mode's one round is the only launch
+LAUNCH_KERNELS_FL = {"fedavg_agg": {"agg": 1}}
+
+
+# B2's output is compared with its plain version in chunks of this many
+# columns, so the check needs ~0.2 GB beside the round's own buffers
+B2_CHUNK = 1 << 24
+
+
+def train_argv(dev, *args, check=None):
+    """The trainer's command line: ``python -m repro_torch.launch.train``,
+    or with ``check`` its ``main`` under ``launch_train_checked``."""
+    head = [sys.executable, "-m", "repro_torch.launch.train"] \
+        if check is None else \
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--launch-train", check]
+    return [*head, "--arch", LAUNCH_ARCH, *LAUNCH_SIZE, "--device", dev.type,
+            *map(str, args)]
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every leaf's dtype, shape and bytes, in leaf order."""
+    import hashlib
+    from repro_torch.tree import leaves
+    h = hashlib.sha256()
+    for t in leaves(tree):
+        t = t.detach().cpu().contiguous()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def b2_round_check(rows, w, out) -> dict:
+    """One fl round's B2 output held against its plain version on the same
+    device, chunk by chunk along N (the plain version is columnwise, so
+    the chunks give its whole output bit for bit), with two controls that
+    the same comparison must reject: the merge zeroed, and the last pod's
+    row dropped (the mean of the others)."""
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    W, N = rows.shape
+    w_drop = w[:-1] / w[:-1].sum()
+    equal, zero_passes, drop_passes, err, differ = True, True, True, 0.0, 0
+    for s in range(0, N, B2_CHUNK):
+        part = rows[:, s:s + B2_CHUNK]
+        got, want = out[s:s + B2_CHUNK], ref.reference_fedavg(part, w)
+        equal &= same_bits(got, want)
+        err = max(err, float((got - want).abs().max()))
+        zero_passes &= same_bits(torch.zeros_like(want), want)
+        drop_passes &= same_bits(ref.reference_fedavg(part[:-1], w_drop),
+                                 want)
+        differ += int((part[0] != part[-1]).sum())
+    return {"W": W, "N": N, "equal": bool(equal), "max_abs_err": err,
+            "columns_where_pods_differ": differ,
+            "check_s": time.perf_counter() - t0,
+            "controls_pass": {"merge zeroed": bool(zero_passes),
+                              "last pod's row dropped": bool(drop_passes)}}
+
+
+def launch_train_checked(check, argv) -> int:
+    """``chip_smoke.py --launch-train b2|restore <trainer arguments>``: the
+    trainer's ``main`` in this process with one call checked, then one
+    ``[check]`` JSON line of what each call gave.  ``b2``: every
+    ``fedavg_agg_flat`` call (``fl_round``'s B2) through
+    ``b2_round_check``.  ``restore``: the digest of every tree
+    ``to_device`` moved to the device (the resumed params and opt
+    state)."""
+    from repro_torch.kernels import fedavg_agg
+    from repro_torch.launch import train
+    rec = CallRecorder(fedavg_agg, "fedavg_agg_flat",
+                       keep=lambda a, kw, out: b2_round_check(*a, out)) \
+        if check == "b2" else \
+        CallRecorder(train, "to_device",
+                     keep=lambda a, kw, out: tree_digest(out))
+    with rec:
+        train.main(argv)
+    print("[check] " + json.dumps(rec.calls), flush=True)
+    return 0
+
+
+def _train_env():
+    import os
+    env = dict(os.environ)
+    src = str(ROOT / "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    return env
+
+
+def train_summary(log: str, tag="[train] summary "):
+    lines = [l for l in log.splitlines() if l.startswith(tag)]
+    if len(lines) != 1:
+        raise AssertionError(f"launch: {len(lines)} {tag.strip()!r} lines "
+                             f"in the trainer's output:\n{log[-3000:]}")
+    return json.loads(lines[0][len(tag):])
+
+
+def run_train(dev, work, name, *args, check=None):
+    """One trainer process to its end: its summary, and with ``check``
+    (see ``launch_train_checked``) the checked calls under "checked"."""
+    log = Path(work) / f"{name}.log"
+    with open(log, "wb") as f:
+        proc = subprocess.run(train_argv(dev, *args, check=check), stdout=f,
+                              stderr=subprocess.STDOUT, cwd=ROOT,
+                              env=_train_env(), timeout=LAUNCH_TIMEOUT_S)
+    text = log.read_text(errors="replace")
+    if proc.returncode != 0:
+        raise AssertionError(f"launch {name}: exit {proc.returncode}:\n"
+                             f"{text[-3000:]}")
+    out = train_summary(text)
+    if check is not None:
+        out["checked"] = train_summary(text, "[check] ")
+    return out
+
+
+def used_kernels(summary) -> dict:
+    return {mod: {k: v for k, v in c.items() if v}
+            for mod, c in summary["launches"].items()
+            if any(c.values())}
+
+
+def launch_cfg(n_layers):
+    from repro_torch import configs
+    return configs.get_config(LAUNCH_ARCH, reduced="--full" not in
+                              LAUNCH_SIZE).replace(n_layers=n_layers)
+
+
+def fl_peak_estimate(n_layers, n_pods=2) -> int:
+    """Device bytes fl mode peaks at, from the abstract parameters: while
+    ``opt_state`` is stacked (the single copy, 12 B a parameter, beside the
+    stacked 2 + 12 B) and in ``fl_round`` (the stacked state, the packed
+    (n_pods, N) f32 and the merged (N,) f32) the live bytes are (2 + 12) N
+    n_pods + 4 N n_pods + 4 N = 40 N at 2 pods; a step adds gradients (2 N)
+    and AdamW's f32 temporaries of its largest leaf (4 of them).
+    tools/torch_train_memory.py at 48 layers on the card: stacking 72.609
+    GB, a step 61.775 GB, B2 in the round 72.681 GB (the check in
+    ``b2_round_check`` adds its chunks)."""
+    from repro_torch.launch import specs
+    from repro_torch.tree import leaves
+    shapes = list(leaves(specs._param_shapes(launch_cfg(n_layers))))
+    n = sum(t.numel() for t in shapes)
+    biggest = max(t.numel() for t in shapes)
+    stack_or_round = 14 * n * n_pods + 4 * n * n_pods + 4 * n
+    step = 14 * n * n_pods + 2 * n + 4 * 4 * biggest
+    return max(stack_or_round, step)
+
+
+def fl_depth(free_bytes) -> int:
+    """The deepest cut of LAUNCH_ARCH whose fl estimate leaves LAUNCH_FREE
+    of ``free_bytes`` free."""
+    for n_layers in range(LAUNCH_LAYERS, 0, -1):
+        if fl_peak_estimate(n_layers) + LAUNCH_RESERVE + LAUNCH_FREE <= \
+                free_bytes:
+            return n_layers
+    raise AssertionError(f"launch: no depth of {LAUNCH_ARCH} fits "
+                         f"{free_bytes / 1e9:.1f} GB with "
+                         f"{LAUNCH_FREE / 1e9:.0f} GB left free")
+
+
+def launch_kill_resume(dev, work, rec):
+    """A trainer killed after its first checkpoint, resumed in a fresh
+    process; the state that process moved to the device equals the file
+    bit for bit (digests), and the resumed checkpoints equal a
+    continuation in this process from that state on the reference's
+    batches (the iterator starts again)."""
+    import signal
+    from repro_torch import optim
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import train
+    from repro_torch.models import train_step
+    from repro_torch.tree import leaves
+    ckpt = Path(work) / "ckpt"
+    args = ["--layers", LAUNCH_RESUME_LAYERS, *LAUNCH_RESUME,
+            "--ckpt-dir", ckpt]
+    log = open(Path(work) / "writer.log", "wb")
+    proc = subprocess.Popen(train_argv(dev, *args), stdout=log,
+                            stderr=subprocess.STDOUT, cwd=ROOT,
+                            env=_train_env())
+    try:
+        deadline = time.perf_counter() + LAUNCH_TIMEOUT_S
+        while not any(ckpt.glob("ckpt_*.pkl")):
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"launch writer: exit {proc.returncode} before its "
+                    f"first checkpoint:\n"
+                    f"{(Path(work) / 'writer.log').read_text()[-3000:]}")
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    mgr = CheckpointManager(ckpt)
+    saved = mgr.steps()
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"launch writer not killed mid-run (exit "
+                             f"{proc.returncode}, checkpoints {saved})")
+    nbytes = (ckpt / f"ckpt_{saved[-1]:012d}.pkl").stat().st_size
+    step0, host, _ = mgr.restore(saved[-1])   # the reader's GC may drop it
+    res = run_train(dev, work, "reader", *args, "--resume", check="restore")
+    if res["start_step"] != step0:
+        raise AssertionError(f"launch: resumed at {res['start_step']}, the "
+                             f"newest checkpoint is {step0}")
+    # what the reader moved to its device, against the file
+    restored_equal = res.pop("checked") == [tree_digest(host["params"]),
+                                            tree_digest(host["opt_state"])]
+    params = train.to_device(host["params"], dev)
+    opt_state = train.to_device(host["opt_state"], dev)
+    del host
+    # the continuation in this process: the reference's batches from the
+    # first, the step's embeds
+    cfg = launch_cfg(LAUNCH_RESUME_LAYERS)
+    a = train.parse_args([str(x) for x in LAUNCH_RESUME])
+    opt = optim.adamw(a.lr)
+    data = synthetic_token_batches(vocab=cfg.vocab_size, batch=a.batch,
+                                   seq_len=a.seq)
+    losses, ckpt_equal = [], {}
+    kept = set(mgr.steps())           # the manager keeps the newest three
+    for step in range(step0, a.steps):
+        b = next(data)
+        batch = {"embeds": train.step_embeds(step, (a.batch, a.seq,
+                                                    cfg.d_model), dev),
+                 "labels": torch.as_tensor(b["labels"], device=dev)}
+        params, opt_state, met = train_step(params, opt_state, batch,
+                                            cfg=cfg, optimizer=opt)
+        losses.append(float(met["loss"]))
+        if step + 1 in kept:
+            _, want, _ = mgr.restore(step + 1)
+            ckpt_equal[step + 1] = all(
+                torch.equal(x.cpu(), y) for x, y in zip(
+                    list(leaves(params)) + list(leaves(opt_state)),
+                    list(leaves(want["params"]))
+                    + list(leaves(want["opt_state"]))))
+            del want
+    rec.update({"layers": LAUNCH_RESUME_LAYERS, "killed_after": saved,
+                "checkpoint_bytes": nbytes, "resumed_at": res["start_step"],
+                "restored_equal": restored_equal,
+                "resumed_losses": res["losses"],
+                "continuation_losses": losses,
+                "resumed_checkpoints_equal": ckpt_equal,
+                "reader_s": res["step_s"]})
+    print(f"launch resume ({LAUNCH_RESUME_LAYERS} layers, "
+          f"{res['n_params']:,} parameters): killed with checkpoints "
+          f"{saved} ({nbytes:,} bytes each), resumed at {res['start_step']}; "
+          f"state on the resumed process's device equal to the file "
+          f"{restored_equal}; resumed "
+          f"checkpoints equal to this process's continuation {ckpt_equal}; "
+          f"losses {res['losses']} / {losses}")
+    if not restored_equal or not ckpt_equal or not all(ckpt_equal.values()) \
+            or losses != res["losses"]:
+        raise AssertionError("launch: the resumed run is not the "
+                             "continuation of its checkpoint")
+    if used_kernels(res):
+        raise AssertionError(f"launch: the resumed run launched "
+                             f"{used_kernels(res)}")
+
+
+def _device_bytes(dev):
+    """(allocated, peak allocated) bytes of ``dev``; 0, 0 off the card."""
+    if dev.type != "cuda":
+        return 0, 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev), \
+        torch.cuda.max_memory_allocated(dev)
+
+
+def launch_abstract(dev, rec):
+    """input_specs for every cell on both production meshes: per-device
+    bytes, and no device memory allocated."""
+    from repro_torch.configs import SHAPES, list_archs
+    from repro_torch.launch import mesh, specs
+    from repro_torch.tree import leaves
+    import gc
+    gc.collect()               # what earlier phases left to the collector
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before, _ = _device_bytes(dev)
+    t0 = time.perf_counter()
+    cells = {}
+    for multi in (False, True):
+        m = mesh.make_production_mesh(multi_pod=multi)
+        label = "x".join(map(str, m.devices.shape))
+        for arch in list_archs():
+            for shape in SHAPES:
+                kind, inputs = specs.input_specs(arch, shape, m)
+                if not all(a.tensor.is_meta for a in leaves(inputs)):
+                    raise AssertionError(f"launch: {arch} {shape} holds a "
+                                         f"tensor with storage")
+                cells[f"{label}/{arch}/{shape}"] = \
+                    specs.per_device_bytes(inputs)
+    seconds = time.perf_counter() - t0
+    after, peak = _device_bytes(dev)
+    rec.update({"cells": cells, "seconds": seconds,
+                "device_bytes_allocated": after - before,
+                "device_peak_over_before": peak - before})
+    for label in ("16x16", "2x16x16"):
+        print(f"launch input_specs on {label}: " + "; ".join(
+            f"{k.split('/', 1)[1]} {v / 2**30:.3f} GiB"
+            for k, v in cells.items() if k.startswith(label + "/")))
+    print(f"launch input_specs: {len(cells)} cells in {seconds:.2f} s, "
+          f"device memory {after - before} bytes more, peak "
+          f"{peak - before} over")
+    if len(cells) != 80 or after > before or peak > before:
+        raise AssertionError("launch: input_specs allocated device memory "
+                             "or missed a cell")
+
+
+def run_launch(dev, rec):
+    """Phase 15.  Returns the fl run's B2 launches."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        torch.cuda.empty_cache()
+        single = run_train(dev, work, "single", *LAUNCH_SINGLE)
+        rec["single"] = single
+        losses = single["losses"]
+        per = statistics.median(single["step_s"][1:])
+        print(f"launch single {LAUNCH_ARCH} full ({single['n_layers']} "
+              f"layers, {single['n_params']:,} parameters): s/step "
+              f"{single['step_s']} (median after the first {per:.4f}), "
+              f"losses {losses}, peak {single['peak_bytes'] / 2**30:.3f} GiB"
+              f" allocated, {single['peak_reserved_bytes'] / 2**30:.3f} GiB "
+              f"reserved")
+        if single["n_params"] != LAUNCH_N_PARAMS or \
+                single["n_layers"] != LAUNCH_LAYERS:
+            raise AssertionError(f"launch single: {single['n_params']} "
+                                 f"parameters, {single['n_layers']} layers")
+        fall = losses[0] - statistics.mean(losses[-LAUNCH_LAST:])
+        rec["single_fall"] = fall
+        print(f"launch single: the last {LAUNCH_LAST} losses average "
+              f"{fall:.4f} below the first (at least {LAUNCH_FALL})")
+        if not all(math.isfinite(x) for x in losses) or fall < LAUNCH_FALL:
+            raise AssertionError(f"launch single: losses {losses} not "
+                                 f"finite and falling")
+        if used_kernels(single):
+            raise AssertionError(f"launch single launched "
+                                 f"{used_kernels(single)}")
+
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        depth = fl_depth(free)
+        est = fl_peak_estimate(depth)
+        fl = run_train(dev, work, "fl", "--layers", depth, *LAUNCH_FL,
+                       check="b2")
+        b2s = fl.pop("checked")
+        rec["fl"] = dict(fl, free_before=free, total=total,
+                         estimate_bytes=est, b2_checks=b2s)
+        left = free - fl["peak_reserved_bytes"]
+        print(f"launch fl {LAUNCH_ARCH} x 2 pods, cut to {depth} of "
+              f"{LAUNCH_LAYERS} layers ({fl['n_params']:,} parameters a "
+              f"pod; estimate {est / 1e9:.2f} GB, free before "
+              f"{free / 1e9:.2f} of {total / 1e9:.2f} GB): s/step "
+              f"{fl['step_s']}, rounds {fl['rounds']}, losses "
+              f"{fl['losses']}, peak {fl['peak_bytes'] / 1e9:.2f} GB "
+              f"allocated, {fl['peak_reserved_bytes'] / 1e9:.2f} GB "
+              f"reserved, {left / 1e9:.2f} GB left free; launches "
+              f"{used_kernels(fl)}")
+        print(f"launch fl: B2 against its plain version in the round "
+              f"{b2s}")
+        if len(b2s) != 1 or not b2s[0]["equal"] or \
+                any(b2s[0]["controls_pass"].values()) or \
+                not b2s[0]["columns_where_pods_differ"]:
+            raise AssertionError(f"launch fl: B2's round output {b2s}")
+        if [r["step"] for r in fl["rounds"]] != [2] or \
+                not all(r["pods_equal"] for r in fl["rounds"]):
+            raise AssertionError(f"launch fl: rounds {fl['rounds']}")
+        if used_kernels(fl) != LAUNCH_KERNELS_FL:
+            raise AssertionError(f"launch fl launched {used_kernels(fl)}, "
+                                 f"expected {LAUNCH_KERNELS_FL}")
+        if not all(math.isfinite(x) for x in fl["losses"]):
+            raise AssertionError(f"launch fl: losses {fl['losses']}")
+        if left < LAUNCH_FREE:
+            raise AssertionError(f"launch fl: {left / 1e9:.2f} GB left "
+                                 f"free, under {LAUNCH_FREE / 1e9:.0f}")
+
+        rec["resume"] = {}
+        launch_kill_resume(dev, work, rec["resume"])
+        torch.cuda.empty_cache()
+        rec["abstract"] = {}
+        launch_abstract(dev, rec["abstract"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return fl["launches"]["fedavg_agg"]["agg"]
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--resume-writer"]:
@@ -4693,6 +5142,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--resume-reader"]:
         work, dev, rounds, epochs = sys.argv[2:6]
         return resume_reader(work, dev, int(rounds), int(epochs))
+    if sys.argv[1:2] == ["--launch-train"]:
+        return launch_train_checked(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
@@ -4726,6 +5177,7 @@ def main() -> int:
 
     records = check_kernels(dev)
     runs, lm_rec, rwkv_rec, zoo_rec, pods_rec = {}, {}, {}, {}, {}
+    launch_rec = {}
     try:
         setups = Setups(dev)
         for phase in PHASES:
@@ -4790,6 +5242,17 @@ def main() -> int:
                 raise AssertionError(f"{name} never launched in phase 14")
             records[name]["launches"] += pods[ctr]
         print(f"phase pods: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        agg = run_launch(dev, launch_rec)
+        if agg < 1:
+            raise AssertionError("fedavg_agg_flat never launched in "
+                                 "phase 15")
+        records["fedavg_agg_flat"]["launches"] += agg
+        rec_b2 = records["fedavg_agg_flat"]
+        rec_b2["max_abs_err"] = max(
+            rec_b2["max_abs_err"],
+            *(c["max_abs_err"] for c in launch_rec["fl"]["b2_checks"]))
+        print(f"phase launch: {time.perf_counter() - t0:.1f} s")
     finally:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -4798,7 +5261,7 @@ def main() -> int:
             {"card": card, "seconds": seconds,
              "kernels": list(records.values()), "runs": runs,
              "lm": lm_rec, "rwkv": rwkv_rec, "zoo": zoo_rec,
-             "pods": pods_rec}, indent=1))
+             "pods": pods_rec, "launch": launch_rec}, indent=1))
     print(f"script: {seconds:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -105,11 +105,11 @@ class CheckpointManager:
             "metadata": metadata or {},
             "wall_time": time.time(),
         }
-        data = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
         fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as f:
-                f.write(data)
+                # streamed into the file: no second copy of the state
+                pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, self._path(step))    # atomic publish

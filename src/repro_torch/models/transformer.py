@@ -29,9 +29,16 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+# torch imports torch._dynamo lazily inside the first checkpointed call,
+# and the import keeps its calling frames alive in a reference cycle: the
+# first train_step's gradients would outlive it until the cyclic garbage
+# collector runs (2 B a parameter at a pod round's peak).  Imported here,
+# outside any step.
+import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.parallel import sharding
 from repro_torch.tree import leaves, unflatten
 
 from . import attention as attn_mod
@@ -458,6 +465,24 @@ def _value_and_grad(params, cfg, batch, aux_weight):
             unflatten(params, out))
 
 
+def _check_spec_tree(params, specs, path=()) -> None:
+    """``specs`` has ``params``' dict structure, with a spec or a sharding
+    at every leaf."""
+    if isinstance(params, Mapping):
+        got = sorted(specs) if isinstance(specs, Mapping) else \
+            type(specs).__name__
+        if got != sorted(params):
+            raise ValueError(f"grad_specs at {list(path)}: {got} does not "
+                             f"match the parameters' keys {sorted(params)}")
+        for k in params:
+            _check_spec_tree(params[k], specs[k], path + (k,))
+    elif not isinstance(specs, (sharding.PartitionSpec,
+                                sharding.NamedSharding)):
+        raise ValueError(f"grad_specs at {list(path)}: expected a "
+                         f"PartitionSpec or NamedSharding, got "
+                         f"{type(specs).__name__}")
+
+
 def train_step(params, opt_state, batch, *, cfg, optimizer, aux_weight=0.01,
                n_microbatch: int = 1, grad_specs=None):
     """One optimizer step; with ``n_microbatch`` > 1 the batch is split
@@ -469,13 +494,13 @@ def train_step(params, opt_state, batch, *, cfg, optimizer, aux_weight=0.01,
     (the port's ``optim.adamw`` and ``optim.sgd`` do): the returned trees
     are then the ones passed in.
 
-    ``grad_specs`` (a sharding of the gradients on a device mesh) belongs
-    to the launch tools, which are not ported: anything but None raises."""
+    ``grad_specs``: optional PartitionSpec (or NamedSharding) tree matching
+    ``params``.  JAX pins each gradient to it, which moves no value; one
+    process has no mesh to pin to, so the tree is checked against
+    ``params`` leaf for leaf (a mismatch raises, as JAX's ``tree.map``
+    does) and the step is the one ``grad_specs=None`` computes."""
     if grad_specs is not None:
-        raise NotImplementedError(
-            "train_step(grad_specs=...): gradient shardings belong to the "
-            "device-mesh launch tools, not ported to repro_torch yet "
-            "(ROADMAP A8)")
+        _check_spec_tree(params, grad_specs)
     if n_microbatch <= 1:
         loss, metrics, grads = _value_and_grad(params, cfg, batch,
                                                aux_weight)

@@ -24,12 +24,25 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn, tree, path=()):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``, ``path`` the
+    tuple of dict keys from the root to the leaf (the keys of JAX's
+    ``tree_map_with_path`` paths)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def unflatten(tree, values):
     """``tree``'s structure holding ``values`` (in ``leaves`` order)."""
-    it = iter(values)
+    return _build(tree, iter(values))
 
-    def build(t):
-        if isinstance(t, Mapping):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
+
+def _build(tree, it):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would hold ``values`` (a step's gradients)
+    # until the cyclic garbage collector runs
+    if isinstance(tree, Mapping):
+        return {k: _build(tree[k], it) for k in sorted(tree)}
+    return next(it)

@@ -53,7 +53,9 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.runtime.faults, repro_torch.checkpoint, "
             "repro_torch.parallel.sharding, repro_torch.models.moe, "
             "repro_torch.models.mamba2, repro_torch.optim, "
-            "repro_torch.core.compression, repro_torch.core.federated\n"
+            "repro_torch.core.compression, repro_torch.core.federated, "
+            "repro_torch.parallel, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.train\n"
             "assert 'repro_torch.core.experiment' in sys.modules\n"
             "assert 'repro_torch.models.transformer' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code],

@@ -133,7 +133,8 @@ def _entry_points(tmp_path):
     """Each entry point that raised until its ROADMAP step was ported, with
     the step: the checkpoints and their resume seams (A4), the LM zoo's
     MoE and mamba2 families (A5), pod-level FL (A6) and the sharded
-    substrate (A7) now run, each under the JAX package's signature."""
+    substrate (A7) and ``train_step(grad_specs=...)`` (A8's launch path)
+    now run, each under the JAX package's signature."""
     from repro.core import experiment as jexperiment
     from repro.core import topology as jtopology
     from repro.core import worker as jworker
@@ -253,6 +254,20 @@ def _entry_points(tmp_path):
         st = federated.stack_for_pods({"w": torch.ones(4)}, 2)
         federated.fl_round(st, torch.ones(2))
 
+    def grad_specs():
+        from repro_torch import configs, models, optim
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.parallel import param_specs
+        cfg = configs.get_config("yi-9b", reduced=True)
+        params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+        opt = optim.adamw()
+        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+                 "labels": torch.zeros((2, 8), dtype=torch.int32)}
+        models.train_step(params, opt.init(params), batch, cfg=cfg,
+                          optimizer=opt, grad_specs=param_specs(
+                              cfg, params, make_production_mesh()))
+
     def sharded_transport():
         tr = transport.Transport(setup.weights0, mesh=mesh2)
         assert tr.bundle is flatbuf.bundle_for(setup.weights0, mesh2)
@@ -274,6 +289,7 @@ def _entry_points(tmp_path):
         "init_params moe": ("A5", lambda: lm_zoo("mixtral-8x22b")),
         "init_params mamba2": ("A5", lambda: lm_zoo("zamba2-7b")),
         "federated fl_round": ("A6", pod_round),
+        "train_step grad_specs": ("A8", grad_specs),
     }
 
 
@@ -283,8 +299,10 @@ UNPORTED_RAISES = sorted((
     "Topology.resume_done_settled", "FLWorker.resume_conversation",
     "run_fl server_mesh", "run_fl_topology server_mesh", "ParamBundle mesh",
     "Transport mesh", "init_params moe", "init_params mamba2",
-    "federated fl_round"))
-PORTED_STEPS = ("A4", "A5", "A6", "A7")
+    "federated fl_round", "train_step grad_specs"))
+# A8's first half (the launch path) raised only in train_step(grad_specs=);
+# its second half (the dry run) has no stub to raise
+PORTED_STEPS = ("A4", "A5", "A6", "A7", "A8")
 
 
 @pytest.mark.parametrize("name", UNPORTED_RAISES)
@@ -537,3 +555,47 @@ def test_lm_zoo_and_pod_fl_keep_the_references_public_names():
     for name in ("loss_fn", "train_step"):
         assert getattr(models, name) is getattr(tr, name)
         assert hasattr(jmodels, name)
+
+
+def test_launch_path_keeps_the_references_public_names():
+    """ROADMAP A8's first half: ``repro_torch.parallel`` exports what
+    ``repro.parallel`` does, and the LM half of ``parallel.sharding``,
+    ``launch.mesh``, ``launch.specs`` and ``launch.train`` keep the JAX
+    package's names and signatures (``make_host_mesh`` adds ``device=``,
+    the trainer's ``main`` adds ``argv=``); ``train_step`` keeps its
+    ``grad_specs`` and no longer raises."""
+    import repro.parallel as jparallel
+    from repro.launch import mesh as jmesh
+    from repro.launch import specs as jspecs
+    from repro.launch import train as jtrain
+    from repro.models import transformer as jtr
+    from repro.parallel import sharding as jsh
+    import repro_torch.parallel as parallel
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import specs, train
+    from repro_torch.models import transformer as tr
+    from repro_torch.parallel import sharding as psh
+    assert sorted(n for n in dir(parallel) if not n.startswith("_")
+                  and n != "sharding") == sorted(
+        n for n in dir(jparallel) if not n.startswith("_")
+        and n != "sharding")
+    for name in ("dp_axes", "_dp_total", "named", "to_named_tree",
+                 "pod_axis_is_vmapped", "current_mesh_axes", "constrain_qkv",
+                 "constrain_act", "_pspec", "param_specs", "batch_specs",
+                 "state_specs", "_sizes"):
+        assert _same_signature(getattr(psh, name), getattr(jsh, name)), name
+        if hasattr(parallel, name):
+            assert getattr(parallel, name) is getattr(psh, name)
+    for name in ("abstract_params", "abstract_opt_state", "abstract_batch",
+                 "abstract_decode_state", "input_specs", "_sds"):
+        assert _same_signature(getattr(specs, name),
+                               getattr(jspecs, name)), name
+    assert _same_signature(tmesh.make_production_mesh,
+                           jmesh.make_production_mesh)
+    assert [p.name for p in inspect.signature(
+        tmesh.make_host_mesh).parameters.values()] == ["device"]
+    assert list(inspect.signature(jmesh.make_host_mesh).parameters) == []
+    assert list(inspect.signature(train.main).parameters) == ["argv"]
+    assert list(inspect.signature(jtrain.main).parameters) == []
+    assert _same_signature(tr.train_step, jtr.train_step)
+    assert "NotImplementedError" not in inspect.getsource(tr.train_step)
