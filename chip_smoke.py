@@ -272,8 +272,20 @@ follow the numerics).
    production meshes: per-device bytes, no device memory allocated.
    Reports s/step, round s, peak memory and checkpoint bytes under
    ``launch``.
-16. Result: the ``kernels`` JSON line, the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+16. Dry run (``run_dryrun``; alone: ``chip_smoke.py --dryrun``): the
+   dry run's analysis (``launch/hlo_cost.py``, ``hlo_analysis.py``) held
+   against steps the card runs.  Phase 15's single-mode step at 48 layers
+   (8 x 128 tokens, parameters and AdamW state resident), traced on fake
+   CPU tensors whole and extrapolated, then profiled: the trace's flops
+   against the profiler's matmuls that ran, ``peak_estimate_bytes``
+   against ``max_memory_allocated`` over the step, each within
+   ``DRY_LIMITS``, the ``DRY_CONTROLS`` estimates outside them, the
+   device time at least max(t_compute_s, t_memory_s); one ``fl_round`` on
+   phase 14's pods: B2 exactly once, the record's bytes for it
+   4 (W N + W + N), the round's device time at least its bytes over the
+   card's rate.  Reports under ``dryrun`` and on a ``dryrun`` line.
+17. Result: the ``dryrun`` line, the ``kernels`` JSON line, the card line,
+   and last the ``{"ok": true, "device": ...}`` line.
 
 A full report goes to ``chiprun_out/chip_smoke_report.json``, also when a
 phase fails.
@@ -5133,6 +5145,385 @@ def run_launch(dev, rec):
     return fl["launches"]["fedavg_agg"]["agg"]
 
 
+# Phase 16, "dry run": the dry run's analysis (launch/hlo_cost.py and
+# launch/hlo_analysis.py, what ``python -m repro_torch.launch.dryrun``
+# records for every cell) held against steps the card runs.  (a)-(c): one
+# AdamW train_step of phase 15's single mode, musicgen-medium at full
+# width and depth on DRY_BATCH x DRY_SEQ tokens with its parameters and
+# AdamW state resident, counted on fake CPU tensors (traced whole, and
+# extrapolated from 1, 2 and 3 layers) and then run on the card: the
+# trace's flops against the profiler's (``with_flops``), the memory
+# summary's peak_estimate_bytes against max_memory_allocated over the step
+# (above what was allocated before the parameters), and the profiler's
+# device time at least max(t_compute_s, t_memory_s).  (d): one fl_round on
+# phase 14's pods (yi-9b's width cut to PODS_LAYERS, PODS_N pods): B2
+# launched exactly once, the record's bytes for that call 4 (W N + W + N)
+# (B2's byte bound), and the round's device time at least the record's
+# t_memory_s for the whole round (the record divides it over the PODS_N
+# devices of its mesh; the card runs every pod).
+DRY_ARCH, DRY_LAYERS = LAUNCH_ARCH, LAUNCH_LAYERS
+DRY_FULL = True                   # the tests' rehearsal: REDUCED widths
+DRY_BATCH, DRY_SEQ = 8, 128
+# |estimate / measured - 1|.  Measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: flops 0 (the matmuls that ran, as the profiler counts them
+# from shapes); peak 0.0018 whole and extrapolated with phase 16 run alone
+# (36,294,655,492 against 36,361,764,864 bytes: cuBLAS's workspace,
+# allocated in the warm-up step above the base), 2.6e-5 in the whole
+# script (36,295,585,792); the control without the optimizer's
+# temporaries 0.181-0.183
+DRY_LIMITS = {"flops": 1e-3, "peak": 0.01}
+# estimates for controls: the step traced without remat's checkpoints,
+# and with an optimizer that keeps no temporaries (its update returns the
+# state unchanged)
+DRY_ESTIMATES = ("no remat", "no optimizer temporaries")
+# the ones the check holds: at full width the step peaks in AdamW's pass
+# (remat changes only the backward's activations, below that peak)
+DRY_CONTROLS = ("no optimizer temporaries",)
+# cuBLAS's GEMM kernels, by the names they carry on Hopper
+GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def dry_mesh(pods=1):
+    """A one-device mesh (with a pod axis of ``pods`` for the fl round),
+    abstract as the production meshes are."""
+    from repro_torch.parallel.sharding import Mesh
+    if pods > 1:
+        return Mesh(np.full((pods, 1, 1), None, dtype=object),
+                    ("pod", "data", "model"))
+    return Mesh(np.full((1, 1), None, dtype=object), ("data", "model"))
+
+
+def dry_cfg(arch, n_layers, **kw):
+    from repro_torch import configs
+    return configs.get_config(arch, reduced=not DRY_FULL).replace(
+        n_layers=n_layers, **kw)
+
+
+def no_temporaries(optimizer):
+    """``optimizer`` whose update returns the state unchanged: the peak
+    check's control without the optimizer's temporaries."""
+    from repro_torch import optim
+    return optim.Optimizer(init=optimizer.init,
+                           update=lambda params, grads, state: (params,
+                                                                state))
+
+
+def dry_record(cfg, optimizer, full_trace_s, i=0, pods=1, batch=None,
+               seq=None):
+    """(traced, record) of step ``i`` of a train cell of ``cfg`` on
+    ``dry_mesh(pods)`` (``fl`` with pods > 1: 0 the local step, 1 the
+    round), counted as ``launch.dryrun`` counts a cell: whole when
+    ``full_trace_s`` allows, else extrapolated."""
+    from repro_torch.launch import dryrun
+    batch, seq = batch or DRY_BATCH, seq or DRY_SEQ
+    mesh = dry_mesh(pods)
+    kw = dict(batch=batch, seq_len=seq, fl=pods > 1, n_microbatch=1,
+              optimizer=optimizer)
+    name, traced = dryrun.trace_cell_step(cfg, "train", mesh, i,
+                                          full_trace_s=full_trace_s, **kw)
+    inputs = dryrun.cell_steps(cfg, "train", mesh, **kw)[i][3]
+    return traced, dryrun.step_record(name, traced, cfg, inputs, mesh,
+                                      batch=batch, seq_len=seq,
+                                      n_microbatch=1)
+
+
+def device_us(evt, dev) -> float:
+    """An event's own time on ``dev`` in microseconds (on the CPU, its
+    own CPU time)."""
+    if dev.type == "cuda":
+        return float(getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0)))
+    return float(evt.self_cpu_time_total)
+
+
+def profiled(dev, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` with flops: wall s, the
+    device's busy s (on the CPU, the ops' own CPU time), of it cuBLAS's
+    GEMMs, and the flops the profiler counts (all ops, and the matmuls'
+    alone)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + \
+        ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    with profile(activities=acts, with_flops=True, record_shapes=True) \
+            as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avg = prof.key_averages()
+    kind = torch.autograd.DeviceType.CUDA if dev.type == "cuda" \
+        else torch.autograd.DeviceType.CPU
+    on_dev = [e for e in avg if e.device_type == kind]
+    busy = sum(device_us(e, dev) for e in on_dev) / 1e6
+    gemm = sum(device_us(e, dev) for e in on_dev
+               if dev.type == "cuda"
+               and any(n in e.key.lower() for n in GEMM_NAMES)) / 1e6
+    flops = sum(float(e.flops or 0) for e in avg)
+    mm = [e for e in prof.events() if e.name in MATMUL_OPS]
+    ran = [e for e in mm if _ran(e)]
+    return {"wall_s": wall, "device_s": busy, "gemm_s": gemm,
+            "flops": flops,
+            "matmul_flops": sum(float(e.flops or 0) for e in mm),
+            "matmul_flops_ran": sum(float(e.flops or 0) for e in ran),
+            "matmuls_aborted": len(mm) - len(ran),
+            "n_kernels": sum(e.count for e in on_dev),
+            "post_s": time.perf_counter() - t0}
+
+
+def _ran(evt) -> bool:
+    """Whether a profiled op ran.  Remat's recompute (a non-reentrant
+    checkpoint) stops by raising from the saved-tensor hook, in autograd
+    before the op's kernel: the profiler has recorded the op, with its
+    flops, but it launched nothing and its only children are the
+    detaches of its saved inputs."""
+    return bool(evt.kernels) or any(
+        c.name not in ("aten::detach", "detach") or _ran(c)
+        for c in evt.cpu_children)
+
+
+def _rel(est, got) -> float:
+    return abs(est / got - 1.0) if got else math.inf
+
+
+def dry_estimates(cfg, opt) -> dict:
+    """The analysis of (a)-(c): DRY_ARCH's step counted whole, extrapolated,
+    and as the controls."""
+    est = {}
+    for label, c, o, full_s in (
+            ("full trace", cfg, opt, math.inf),
+            ("extrapolated", cfg, opt, 0.0),
+            ("no remat", cfg.replace(remat=False), opt, 0.0),
+            ("no optimizer temporaries", cfg, no_temporaries(opt), 0.0)):
+        traced, r = dry_record(c, o, full_s)
+        est[label] = {"flops": r["roofline"]["hlo_flops_per_device"],
+                      "hbm_bytes": r["roofline"]["hbm_bytes_per_device"],
+                      "peak_estimate_bytes":
+                          r["memory"]["peak_estimate_bytes"],
+                      "t_compute_s": r["roofline"]["t_compute_s"],
+                      "t_memory_s": r["roofline"]["t_memory_s"],
+                      "counted": traced.how, "trace_s": traced.seconds,
+                      "top_ops": r["top_ops"]}
+    return est
+
+
+def dry_gaps(est, measured_peak, prof) -> dict:
+    """|estimate / measured - 1| of each estimate's flops (against the
+    profiler's matmuls that ran) and peak."""
+    return {label: {"flops": _rel(e["flops"], prof["matmul_flops_ran"]),
+                    "peak": _rel(e["peak_estimate_bytes"], measured_peak)}
+            for label, e in est.items()}
+
+
+def dry_problems(gaps, device_s, bound) -> list:
+    """What (a)-(c) find wrong: an estimate outside its limit, a control
+    inside it, a device time under the bound."""
+    bad = [f"{label} {k} {gaps[label][k]:.4f}" for label in
+           ("full trace", "extrapolated") for k in DRY_LIMITS
+           if not gaps[label][k] <= DRY_LIMITS[k]]
+    bad += [f"control {c} passes ({gaps[c]['peak']:.4f})"
+            for c in DRY_CONTROLS if gaps[c]["peak"] <= DRY_LIMITS["peak"]]
+    if device_s < bound:
+        bad.append(f"device time {device_s:.4f} s under the bound "
+                   f"{bound:.4f} s")
+    return bad
+
+
+def dry_train(dev, rec):
+    """(a)-(c) of phase 16 on DRY_ARCH's step."""
+    from repro_torch import optim
+    from repro_torch.launch import hlo_cost, train
+    from repro_torch.models import init_params, train_step
+    cfg = dry_cfg(DRY_ARCH, DRY_LAYERS)
+    opt = optim.adamw(LAUNCH_LR)
+    t0 = time.perf_counter()
+    est = dry_estimates(cfg, opt)
+    analysis_s = time.perf_counter() - t0
+
+    gc_collect_cuda(dev)
+    base, _ = _device_bytes(dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    opt_state = opt.init(params)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"embeds": train.step_embeds(0, (DRY_BATCH, DRY_SEQ,
+                                             cfg.d_model), dev),
+             "labels": torch.randint(0, cfg.vocab_size,
+                                     (DRY_BATCH, DRY_SEQ), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    state = {"params": params, "opt_state": opt_state}
+    del params, opt_state
+
+    def step():
+        p, o, met = train_step(state["params"], state["opt_state"], batch,
+                               cfg=cfg, optimizer=opt)
+        state.update(params=p, opt_state=o)
+        return met
+    float(step()["loss"])                                 # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        float(step()["loss"])
+        wall = time.perf_counter() - t0
+        _, peak = _device_bytes(dev)
+        measured_peak = peak - base
+    else:          # the rehearsal: the live storages of a real CPU step
+        t0 = time.perf_counter()
+        measured_peak = hlo_cost.trace(lambda st, b: step(), state, batch,
+                                       fake=False).peak_bytes
+        wall = time.perf_counter() - t0
+    prof = profiled(dev, step)
+    del state, batch
+    gc_collect_cuda(dev)
+
+    full = est["full trace"]
+    bound = max(full["t_compute_s"], full["t_memory_s"])
+    gaps = dry_gaps(est, measured_peak, prof)
+    rec.update({"arch": cfg.name, "n_layers": cfg.n_layers,
+                "batch": DRY_BATCH, "seq": DRY_SEQ, "estimates": est,
+                "analysis_s": analysis_s, "measured_peak_bytes":
+                    measured_peak, "step_wall_s": wall, "profile": prof,
+                "bound_s": bound, "gaps": gaps, "limits": DRY_LIMITS,
+                "device_over_wall": prof["device_s"] / prof["wall_s"]})
+    print(f"dryrun {cfg.name} ({cfg.n_layers} layers, {DRY_BATCH} x "
+          f"{DRY_SEQ}): trace flops {full['flops']:.6e} (extrapolated "
+          f"{est['extrapolated']['flops']:.6e}), profiler: the matmuls that "
+          f"ran {prof['matmul_flops_ran']:.6e} (all {prof['matmul_flops']:.6e}"
+          f", {prof['matmuls_aborted']} aborted by remat's early stop; every"
+          f" op {prof['flops']:.6e}); peak estimate "
+          f"{full['peak_estimate_bytes']:,} (extrapolated "
+          f"{est['extrapolated']['peak_estimate_bytes']:,}), measured "
+          f"{measured_peak:,}; controls "
+          + ", ".join(f"{c} {est[c]['peak_estimate_bytes']:,}"
+                      for c in DRY_ESTIMATES)
+          + f"; device {prof['device_s']:.4f} s of wall {prof['wall_s']:.4f}"
+          f" s (GEMMs {prof['gemm_s']:.4f} s, {prof['n_kernels']} "
+          f"kernels; unprofiled wall {wall:.4f} s), bound {bound:.4f} s "
+          f"(t_compute {full['t_compute_s']:.4f}, t_memory "
+          f"{full['t_memory_s']:.4f}); analysis {analysis_s:.1f} s, "
+          f"profile post-processing {prof['post_s']:.1f} s")
+    print(f"dryrun gaps (limits {DRY_LIMITS}): {gaps}")
+    bad = dry_problems(gaps, prof["device_s"], bound)
+    if bad:
+        raise AssertionError(f"dryrun: {bad}")
+
+
+def gc_collect_cuda(dev):
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def pods_problems(launches, want, kern, bound_bytes, device_s, t_mem):
+    """What (d) finds wrong."""
+    bad = []
+    if launches != want:
+        bad.append(f"B2 launched {launches} times")
+    if kern.get("calls") != 1 or kern.get("hbm_bytes") != bound_bytes:
+        bad.append(f"the record's B2 call {kern}")
+    if device_s < t_mem:
+        bad.append(f"device time {device_s:.6f} s under t_memory_s "
+                   f"{t_mem:.6f}")
+    return bad
+
+
+def dry_pods(dev, rec) -> int:
+    """(d) of phase 16: one fl_round on phase 14's pods.  Returns B2's
+    launches."""
+    from repro_torch import optim
+    from repro_torch.core import federated
+    from repro_torch.kernels import fedavg_agg
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+    cfg = dry_cfg(PODS_ARCH, PODS_LAYERS)
+    traced, r = dry_record(cfg, optim.adamw(TRAIN_LR), math.inf, i=1,
+                           pods=PODS_N, batch=PODS_N * PODS_BATCH,
+                           seq=PODS_SEQ)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    N = sum(t.numel() for t in leaves(params))
+    sp = federated.stack_for_pods(params, PODS_N)
+    del params
+    w = torch.ones(PODS_N, device=dev)
+    zero_counters()
+    out = {}
+    prof = profiled(dev, lambda: out.update(p=federated.fl_round(sp, w)))
+    launches = fedavg_agg.LAUNCHES["agg"]
+    del sp, out
+    gc_collect_cuda(dev)
+    kern = traced.kernels.get("fedavg_agg_flat", {})
+    W = PODS_N
+    bound_bytes = 4 * (W * N + W + N)
+    # the record is a device's share of a PODS_N-device mesh; the card
+    # runs every pod, so it is held to the whole round's bytes
+    from repro_torch.launch.hlo_analysis import HBM_BW
+    t_mem = traced.hbm_bytes / HBM_BW
+    want = 1 if dev.type == "cuda" else 0
+    rec.update({"arch": cfg.name, "n_layers": cfg.n_layers, "pods": W,
+                "N": N, "b2_launches": launches,
+                "record_b2_bytes": kern.get("hbm_bytes"),
+                "record_b2_calls": kern.get("calls"),
+                "b2_byte_bound": bound_bytes, "record": r,
+                "profile": prof, "t_memory_s": t_mem})
+    print(f"dryrun fl_round {cfg.name} ({cfg.n_layers} layers) x {W} pods "
+          f"of {N:,}: B2 launched {launches} (expected {want}), the "
+          f"record's B2 bytes {kern.get('hbm_bytes')} in "
+          f"{kern.get('calls')} call(s), 4 (W N + W + N) = {bound_bytes}; "
+          f"device {prof['device_s']:.6f} s of wall {prof['wall_s']:.6f} s,"
+          f" the round's bytes over the card's rate {t_mem:.6f} s "
+          f"({traced.hbm_bytes:.6e} bytes; the record's t_memory_s a "
+          f"device {r['roofline']['t_memory_s']:.6f})")
+    bad = pods_problems(launches, want, kern, bound_bytes, prof["device_s"],
+                        t_mem)
+    if bad:
+        raise AssertionError(f"dryrun fl_round: {bad}")
+    return launches
+
+
+def run_dryrun(dev, rec) -> int:
+    """Phase 16.  Returns the round's B2 launches."""
+    rec["train"] = {}
+    dry_train(dev, rec["train"])
+    rec["fl_round"] = {}
+    return dry_pods(dev, rec["fl_round"])
+
+
+def dryrun_line(rec) -> dict:
+    """Phase 16's figures for the ``dryrun`` line."""
+    t, f = rec.get("train", {}), rec.get("fl_round", {})
+    est = t.get("estimates", {})
+    return {
+        "arch": t.get("arch"), "layers": t.get("n_layers"),
+        "trace_flops": est.get("full trace", {}).get("flops"),
+        "extrapolated_flops": est.get("extrapolated", {}).get("flops"),
+        "profiler_flops": t.get("profile", {}).get("matmul_flops_ran"),
+        "profiler_flops_all_ops": t.get("profile", {}).get("flops"),
+        "peak_estimate_bytes":
+            est.get("full trace", {}).get("peak_estimate_bytes"),
+        "extrapolated_peak_bytes":
+            est.get("extrapolated", {}).get("peak_estimate_bytes"),
+        "measured_peak_bytes": t.get("measured_peak_bytes"),
+        "control_peak_bytes": {c: est.get(c, {}).get("peak_estimate_bytes")
+                               for c in DRY_ESTIMATES},
+        "controls_checked": list(DRY_CONTROLS),
+        "gaps": t.get("gaps"), "limits": DRY_LIMITS,
+        "device_s": t.get("profile", {}).get("device_s"),
+        "wall_s": t.get("profile", {}).get("wall_s"),
+        "bound_s": t.get("bound_s"),
+        "t_compute_s": est.get("full trace", {}).get("t_compute_s"),
+        "t_memory_s": est.get("full trace", {}).get("t_memory_s"),
+        "round_b2_launches": f.get("b2_launches"),
+        "round_b2_bytes": f.get("record_b2_bytes"),
+        "round_b2_bound_bytes": f.get("b2_byte_bound"),
+        "round_device_s": f.get("profile", {}).get("device_s"),
+        "round_t_memory_s": f.get("t_memory_s")}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--resume-writer"]:
@@ -5175,9 +5566,23 @@ def main() -> int:
         if info.get("spill_stores") or info.get("spill_loads"):
             raise AssertionError(f"{kern} spills registers: {info}")
 
+    if sys.argv[1:2] == ["--dryrun"]:       # phase 16 alone
+        dry_rec = {}
+        t0 = time.perf_counter()
+        try:
+            run_dryrun(dev, dry_rec)
+        finally:
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            (out / "chip_smoke_dryrun.json").write_text(json.dumps(
+                {"card": card, "dryrun": dry_rec}, indent=1))
+        print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
+        print("dryrun " + json.dumps(dryrun_line(dry_rec)))
+        print(card)
+        return 0
     records = check_kernels(dev)
     runs, lm_rec, rwkv_rec, zoo_rec, pods_rec = {}, {}, {}, {}, {}
-    launch_rec = {}
+    launch_rec, dry_rec = {}, {}
     try:
         setups = Setups(dev)
         for phase in PHASES:
@@ -5253,6 +5658,13 @@ def main() -> int:
             rec_b2["max_abs_err"],
             *(c["max_abs_err"] for c in launch_rec["fl"]["b2_checks"]))
         print(f"phase launch: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        agg = run_dryrun(dev, dry_rec)
+        if agg < 1:
+            raise AssertionError("fedavg_agg_flat never launched in "
+                                 "phase 16")
+        records["fedavg_agg_flat"]["launches"] += agg
+        print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
     finally:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -5261,8 +5673,10 @@ def main() -> int:
             {"card": card, "seconds": seconds,
              "kernels": list(records.values()), "runs": runs,
              "lm": lm_rec, "rwkv": rwkv_rec, "zoo": zoo_rec,
-             "pods": pods_rec, "launch": launch_rec}, indent=1))
+             "pods": pods_rec, "launch": launch_rec, "dryrun": dry_rec},
+            indent=1))
     print(f"script: {seconds:.1f} s")
+    print("dryrun " + json.dumps(dryrun_line(dry_rec)))
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -91,14 +91,20 @@ def abstract_opt_state(cfg, mesh, optimizer):
 
 def abstract_batch(cfg, mesh, shape_name):
     info = SHAPES[shape_name]
-    B, S = info["global_batch"], info["seq_len"]
-    S_in = 1 if info["kind"] == "decode" else S
+    return batch_at(cfg, mesh, info["kind"], info["global_batch"],
+                    info["seq_len"])
+
+
+def batch_at(cfg, mesh, kind, B, S):
+    """``abstract_batch`` for a ``kind`` cell at ``B`` sequences of ``S``
+    tokens (the dry run's cells cut from ``SHAPES``)."""
+    S_in = 1 if kind == "decode" else S
     batch = {}
     if cfg.embeds_input:
         batch["embeds"] = _meta((B, S_in, cfg.d_model), COMPUTE_DTYPE)
     else:
         batch["tokens"] = _meta((B, S_in), torch.int32)
-    if info["kind"] == "train":
+    if kind == "train":
         batch["labels"] = _meta((B, S_in), torch.int32)
     specs = batch_specs(cfg, batch, mesh)
     return _sds(batch, to_named_tree(mesh, specs))
@@ -106,7 +112,11 @@ def abstract_batch(cfg, mesh, shape_name):
 
 def abstract_decode_state(cfg, mesh, shape_name):
     info = SHAPES[shape_name]
-    B, S = info["global_batch"], info["seq_len"]
+    return decode_state_at(cfg, mesh, info["global_batch"], info["seq_len"])
+
+
+def decode_state_at(cfg, mesh, B, S):
+    """``abstract_decode_state`` at ``B`` sequences of context ``S``."""
     shapes = _fake(lambda: init_decode_state(cfg, B, S, device="cpu"))
     specs = state_specs(cfg, shapes, mesh, B)
     return _sds(shapes, to_named_tree(mesh, specs))

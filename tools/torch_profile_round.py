@@ -57,13 +57,12 @@ COUNTED_OPS = ("aten::topk", "aten::sort", "aten::_local_scalar_dense",
                "cudaStreamSynchronize", "cudaDeviceSynchronize")
 B8_NAMES = ("flash_fwd", "flash_wgmma")   # B8's SIMT and tensor-core bodies
 B9_NAMES = ("wkv_state_inc", "wkv_scan", "wkv_out")   # B9's three passes
-# cuBLAS's GEMM kernels, by the names they carry on Hopper
-GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
+GEMM_NAMES = chip_smoke.GEMM_NAMES
+CUDA = torch.device("cuda")
 
 
 def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0)))
+    return chip_smoke.device_us(evt, CUDA)
 
 
 def _profile(fn):
