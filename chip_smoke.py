@@ -151,15 +151,30 @@ follow the numerics).
    each ``B7_FAULTS`` control failing (checked at small sizes in the
    tests); timed with L2 flushed, D = 1 in turns with the unsharded
    kernel and ``torch.addmv``/``torch.mv``, D > 1 with the unsharded
-   kernel, beside the byte bound.  Then each ``SHARD_RUNS`` run at MNIST
+   kernel, beside the byte bound.  ``check_shard_encode``: ef_encode's
+   sharded form (a sharded server's link vectors) on ``Sharded`` a, b
+   and c at each ``SHARD_ENC_SIZES`` width (the main path's MLP padded
+   for D = 4, exact select; 16,777,216, sampled, stride 128) for each
+   ``SHARD_ENC_FORMS`` codec (top-k, top-k+int8, int8) on meshes of 1, 2
+   and 4: every output bit for bit equal to the unsharded kernel's on the
+   gathered vectors and to the plain sharded version's, one select plus
+   3 launches a shard (2 for int8; one shard: the unsharded form's
+   launches), each ``SHARD_ENC_FAULTS`` control
+   failing; B4 per shard (``dequant_add`` on ``Sharded`` q and base) bit
+   for bit; both timed with L2 flushed in turns with the unsharded form.
+   Then each ``SHARD_RUNS`` run at MNIST
    width (phase 4's setup, ``SHARD_ROUNDS`` rounds) unsharded and at
    ``server_mesh`` 1, 2 and 4, counters at 0 before each run: every
    sharded history equals the unsharded one in every field, accuracy
-   bits included (the topology's root and leaves), each merge kernel and
-   ``dequant_add_rows`` launches D times the unsharded run's, the codec
-   as often as there, and B5 never; then ``SHARD_RESUME`` stopped at its
-   first snapshot and resumed in this process, equal to the unsharded
-   run.
+   bits included (the topology's root and leaves), every link vector
+   after the run is ``Sharded`` in D pieces of N/D, each merge kernel,
+   ``dequant_add_rows`` and B4 launch D times the unsharded run's, every
+   encode at D > 1 takes the sharded form and at D = 1 the unsharded one
+   on its one piece (``shard_enc_launches``), and B5 never;
+   then ``SHARD_RESUME`` stopped at its first snapshot and resumed in
+   this process, equal to the unsharded run.  Alone:
+   ``chip_smoke.py --shard`` (report in
+   ``chiprun_out/chip_smoke_shard.json``).
 10. LM serving: gemma2-2b at full width and depth (26 layers, seeded
    random weights on the card), attention through kernel B8: prefill of
    2 prompts of 8192 tokens from ``synthetic_token_batches`` (cut from
@@ -713,7 +728,9 @@ def launch_counters():
             "merge_adam": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
             "ef_encode": topk_quant.LAUNCHES,
+            "ef_encode_sharded": topk_quant.LAUNCHES,
             "select": topk_quant.LAUNCHES,
+            "sample": topk_quant.LAUNCHES,
             "decode_rows": topk_quant.LAUNCHES,
             "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES,
             "flash": flash_attention.LAUNCHES,
@@ -2987,9 +3004,42 @@ SHARD_RUNS = {
 }
 SHARD_RESUME = ("raw/sync", 2)   # killed at its first snapshot, resumed
 # launch counters that a sharded run multiplies by D (one per shard per
-# merge), and those it leaves as the unsharded run has them
-PER_SHARD = ("agg", "mix", "merge_mom", "merge_adam", "decode_rows")
-UNSHARDED = ("ef_encode", "decode", "encode", "select", "mom", "adam")
+# merge or decode), and those it leaves as the unsharded run has them; a
+# sharded run over D > 1 devices encodes only through ef_encode's sharded
+# form, over one device through the unsharded form (shard_enc_launches)
+PER_SHARD = ("agg", "mix", "merge_mom", "merge_adam", "decode_rows",
+             "decode")
+UNSHARDED = ("encode", "select", "sample", "mom", "adam")
+
+
+def shard_enc_launches(D: int, unsharded: int) -> tuple[int, int]:
+    """(unsharded, sharded) ef_encode launches of a SHARD_RUNS run on D
+    shards whose unsharded twin launched ``unsharded`` (one a top-k
+    encode: the exact path at MNIST width).  One shard: the unsharded form
+    on its one piece, the same launches.  D > 1: a sample, a stats and a
+    sweep a shard (every shard holds a share of the sample), and the
+    select, for each encode."""
+    if D == 1:
+        return unsharded, 0
+    return 0, (1 + 3 * D) * unsharded
+
+
+# check_shard_encode: ef_encode on Sharded a, b, c, all present (a sharded
+# server's uplink encode), at D = 1, 2 and 4 repeating the card, bit for
+# bit against the unsharded kernel on the gathered vectors at the same
+# width: (N, n_params, k) at the main path's MLP padded for D = 4 (the
+# exact path, k = 10,177) and at B7's width (the sampled path, stride 128)
+SHARD_ENC_SIZES = ((102_400, 101_770, 10_177),
+                   (16_777_216, 16_777_216, 1_677_721))
+# codec -> (top-k, quantize): the int8 codec encodes with k None
+SHARD_ENC_FORMS = {"topk_ef": (True, False), "topk_ef+int8": (True, True),
+                   "int8": (False, True)}
+# controls, on the top-k+int8 form at D = 2: what a faulty sharded encode
+# would return must fail the check (the inputs put max |x| at the first
+# element of the last shard)
+SHARD_ENC_FAULTS = ("a shard's sample offset one element off",
+                    "the last shard's partials left out of the reduction")
+N_TIMED_SHARD = 20
 
 
 def b7_inputs(dev, W, N, seed):
@@ -3199,16 +3249,277 @@ def check_b7(dev, sizes=B7_SIZES, meshes=B7_MESHES, fault=None):
     return rec
 
 
+def shard_enc_inputs(g, N):
+    """(a, b, c) of an uplink encode (as ef_inputs "parts" draws them)
+    with max |x| at element N / 2: the first element of the last shard at
+    D = 2."""
+    dev = g.device
+    a, b = (torch.randn(N, device=dev, generator=g) for _ in range(2))
+    a[N // 2] = 40.0
+    return a, b, 0.01 * torch.randn(N, device=dev, generator=g)
+
+
+def shard_enc_fault(fault, sh, *, k, n_params, quantize):
+    """What a sharded ef_encode with ``fault`` would return on the
+    ``Sharded`` inputs ``sh`` (gathered): the plain sharded decomposition
+    (``ref.reference_ef_encode_sharded``) with the last shard's share of
+    the sample read one element late, or with the last shard's max and
+    kept count left out of the reduction."""
+    from repro_torch.kernels import ref
+    if fault not in SHARD_ENC_FAULTS:
+        raise ValueError(fault)
+    mesh = sh[0].mesh
+    home = mesh.home
+    xs = [(a - b) + c for a, b, c in zip(*(t.shards for t in sh))]
+    n = sum(x.numel() for x in xs)
+    if fault == SHARD_ENC_FAULTS[0]:
+        stride, _, ks = ref.sample_plan(n, k, n_params)
+        plan = ref.shard_samples(n, len(xs), stride)
+        plan[-1] = (plan[-1][0] + 1, plan[-1][1] - 1)
+        sample = torch.cat([x[off::stride][:m].to(home)
+                            for x, (off, m) in zip(xs, plan)])
+        t = (torch.topk(sample.abs(), ks).values[-1]
+             if n_params <= ref.SAMPLE_CAP
+             else sample.abs().sort().values[-ks])
+        thresh = torch.clamp_min(t, ref.THRESH_FLOOR)
+        keep = xs
+    else:
+        thresh = ref.reference_topk_threshold_sharded(xs, k, n_params, home)
+        keep = xs[:-1]
+    x = torch.cat(xs)
+    kept = sum(torch.sum(p.abs() >= thresh) for p in keep)
+    if not quantize:
+        recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
+        return recon, x - recon, thresh, None, kept
+    scale = ref.reference_int8_scale(torch.stack([p.abs().max()
+                                                  for p in keep]))
+    q, r = ref.reference_topk_quant_encode(x, thresh, scale)
+    return q, r, thresh, scale, kept
+
+
+def _gathered(out):
+    """An encode's outputs with its ``Sharded`` ones gathered."""
+    from repro_torch.parallel import sharding as psh
+    return tuple(o.gather() if isinstance(o, psh.Sharded) else o
+                 for o in out)
+
+
+def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
+                       fault=None):
+    """ef_encode's sharded form on ``dev``: each SHARD_ENC_FORMS codec at
+    each (N, n_params, k) of ``sizes`` on each D of ``meshes`` (a mesh
+    repeating ``dev``), a, b and c all sharded; every output (q or recon
+    and the residual gathered, thresh, scale, kept) equal bit for bit to
+    the unsharded ef_encode's on the whole vectors and to the plain
+    sharded version's, and on the card the launches one select plus a
+    sample, a stats and a sweep a shard (a stats and a sweep a shard for
+    int8; at D = 1 the unsharded form's, under its own counter).  Then B4 per shard (``dequant_add`` on a ``Sharded`` q and
+    base: one launch a shard) bit for bit against the unsharded B4.  On
+    the card each is timed, L2 flushed, in turns with the unsharded form.
+    With ``fault`` (top-k+int8 at the first size, D = 2) the sharded
+    result is replaced by what a faulty encode would return: the check
+    must fail.  Returns the record."""
+    from repro_torch.kernels import ref, topk_quant
+    from repro_torch.parallel import sharding as psh
+    on_card = dev.type == "cuda"
+    timer = Timer(dev) if on_card and fault is None else None
+    g = torch.Generator(device=dev).manual_seed(27)
+    rec = {"cases": 0, "err": 0.0, "by_case": [], "decode": []}
+    if fault is not None:
+        sizes, meshes = sizes[:1], (2,)
+    ctr = topk_quant.LAUNCHES
+    for N, n_params, k in sizes:
+        a, b, c = shard_enc_inputs(g, N)
+        for form, (topk, quantize) in SHARD_ENC_FORMS.items():
+            if fault is not None and form != "topk_ef+int8":
+                continue
+            kw = dict(k=k if topk else None, n_params=n_params,
+                      quantize=quantize)
+            before = ctr["ef_encode"]
+            whole = topk_quant.ef_encode(a, b, c, **kw)
+            whole_l = ctr["ef_encode"] - before
+            for D in meshes:
+                mesh = psh.agg_mesh(devices=(dev,) * D)
+                sh = [psh.split(t, mesh) for t in (a, b, c)]
+                # one shard: the unsharded form on its piece
+                key = "ef_encode" if D == 1 else "ef_encode_sharded"
+                before = ctr[key]
+                got = _gathered(topk_quant.ef_encode(*sh, **kw))
+                launches = ctr[key] - before
+                if fault is not None:
+                    got = shard_enc_fault(fault, sh, **kw)
+                pout, pr, *rest = ref.reference_ef_encode_sharded(
+                    *(t.shards for t in sh), **kw, home=mesh.home)
+                plain = (torch.cat(pout), torch.cat(pr), *rest)
+                bad, bad_plain = ef_mismatch(got, whole), ef_mismatch(got,
+                                                                      plain)
+                finite = torch.isfinite(whole[1])
+                e = max_err(got[1][finite], whole[1][finite])
+                rec["err"] = max(rec["err"], e)
+                stride = ref.sample_plan(N, k, n_params)[0] if topk else 1
+                want_l = whole_l if D == 1 else (1 + sum(
+                    m > 0 for _, m in ref.shard_samples(N, D, stride))
+                    if topk else 0) + 2 * D
+                if bad or bad_plain:
+                    raise AssertionError(
+                        f"sharded ef_encode {form} N = {N} D = {D}: "
+                        f"{bad or 'nothing'} differ(s) from the unsharded "
+                        f"kernel, {bad_plain or 'nothing'} from the plain "
+                        f"sharded version")
+                if on_card and launches != want_l:
+                    raise AssertionError(
+                        f"sharded ef_encode {form} N = {N} D = {D}: "
+                        f"{launches} launches, {want_l} expected")
+                rec["cases"] += 1
+                case = {"form": form, "N": N, "n_params": n_params,
+                        "k": kw["k"], "D": D, "stride": stride,
+                        "launches": launches, "kept": int(whole[4]),
+                        "equal": True}
+                if timer is not None:
+                    ms, ums, turns = timer.turns(
+                        lambda: topk_quant.ef_encode(*sh, **kw),
+                        lambda: topk_quant.ef_encode(a, b, c, **kw),
+                        N_TIMED_SHARD)
+                    n_bytes = 3 * N * 4 + N * (1 if quantize else 4) \
+                        + N * 4 + 12
+                    b_ms, b_by = bound_ms(n_bytes, 8 * N)
+                    case.update(ms=ms, unsharded_ms=ums, turns=turns,
+                                plain_ms=timer(
+                                    lambda: ref.reference_ef_encode_sharded(
+                                        *(t.shards for t in sh), **kw,
+                                        home=mesh.home), N_TIMED_SHARD),
+                                bound_ms=b_ms, bound_by=b_by)
+                    print(f"time sharded ef_encode {form} N = {N} D = {D}: "
+                          f"{ms:.6f} ms, unsharded {ums:.6f} ms, plain "
+                          f"{case['plain_ms']:.6f} ms, bound {b_ms:.6f} ms "
+                          f"({b_by})")
+                rec["by_case"].append(case)
+                print(f"check sharded ef_encode {form} N = {N} D = {D}: "
+                      f"equal to the unsharded kernel and the plain sharded "
+                      f"version in every output; {launches} launch(es)")
+                del sh, got, plain
+            del whole
+        # B4 per shard on this width's int8 payload
+        q = torch.randint(-127, 128, (N,), device=dev, generator=g,
+                          dtype=torch.int8)
+        scale = 0.01 * torch.rand((), device=dev, generator=g)
+        whole = topk_quant.dequant_add(q, scale, a)
+        for D in meshes if fault is None else ():
+            mesh = psh.agg_mesh(devices=(dev,) * D)
+            q_sh, a_sh = psh.split(q, mesh), psh.split(a, mesh)
+            before = ctr["decode"]
+            got = topk_quant.dequant_add(q_sh, scale, a_sh)
+            launches = ctr["decode"] - before
+            if not same_bits(got.gather(), whole) or (on_card
+                                                      and launches != D):
+                raise AssertionError(f"sharded dequant_add N = {N} D = {D}:"
+                                     f" differs from the unsharded B4, or "
+                                     f"{launches} launches for {D} shards")
+            case = {"N": N, "D": D, "launches": launches, "equal": True}
+            if timer is not None:
+                ms, ums, turns = timer.turns(
+                    lambda: topk_quant.dequant_add(q_sh, scale, a_sh),
+                    lambda: topk_quant.dequant_add(q, scale, a),
+                    N_TIMED_SHARD)
+                b_ms, b_by = bound_ms(N + 4 * N + 4 * N + 4, 2 * N)
+                case.update(ms=ms, unsharded_ms=ums, turns=turns,
+                            plain_ms=timer(lambda: ref.reference_dequant_add(
+                                q, scale, a), N_TIMED_SHARD),
+                            bound_ms=b_ms, bound_by=b_by)
+                print(f"time sharded dequant_add N = {N} D = {D}: "
+                      f"{ms:.6f} ms, unsharded {ums:.6f} ms, bound "
+                      f"{b_ms:.6f} ms ({b_by})")
+            rec["decode"].append(case)
+        del a, b, c, q, whole
+        if on_card:
+            torch.cuda.empty_cache()
+    rec["ok"] = True
+    return rec
+
+
+def recorded_transports():
+    """A context in which every ``Transport`` built is appended to the
+    list it yields."""
+    import contextlib
+    from repro_torch.core import transport as T
+
+    @contextlib.contextmanager
+    def ctx():
+        made, init = [], T.Transport.__init__
+
+        def recording(self, *args, **kw):
+            init(self, *args, **kw)
+            made.append(self)
+        T.Transport.__init__ = recording
+        try:
+            yield made
+        finally:
+            T.Transport.__init__ = init
+    return ctx()
+
+
+def link_vectors(tr):
+    """(where, vector) for every link vector a transport holds: each
+    link's tx_base, residual, acked base and downlink residual, the ack
+    chain's residuals, the pending downlink's payload and pinned base, the
+    auto seam's residual; a payload's vector is its data (a quantised
+    one's q)."""
+    def of_payload(p):
+        d = p.data
+        if isinstance(d, tuple):
+            return d[0]
+        return None if isinstance(d, dict) else d
+    for wid, ln in tr._links.items():
+        yield f"{wid}.tx_base", ln.tx_base
+        yield f"{wid}.residual", ln.residual
+        yield f"{wid}.acked_base", ln._ack.acked_base
+        yield f"{wid}.down_residual", ln._ack.down_residual
+        for i, e in enumerate(ln._ack._entries):
+            yield f"{wid}.entry{i}.before", e[0]
+            yield f"{wid}.entry{i}.wrote", e[1]
+        if ln._pending_down is not None:
+            yield f"{wid}.pending_down", of_payload(ln._pending_down[0])
+            yield f"{wid}.pending_base", ln._pending_down[2]
+        if ln._up_restore is not None:
+            yield f"{wid}.up_restore", ln._up_restore[1]
+
+
+def check_shard_local(transports, D: int) -> int:
+    """Every link vector of every transport built over a mesh is a
+    ``Sharded`` of D pieces of N/D elements (N the bundle's padded
+    width); returns how many were checked.  Raises on a whole one."""
+    from repro_torch.parallel import sharding as psh
+    n = 0
+    for tr in transports:
+        if tr.mesh is None:
+            continue
+        S = tr.bundle.padded_size // D
+        for where, v in link_vectors(tr):
+            if v is None:
+                continue
+            if not (isinstance(v, psh.Sharded) and len(v.shards) == D
+                    and all(p.shape == (S,) for p in v.shards)):
+                raise AssertionError(f"link vector {where} is not {D} "
+                                     f"pieces of {S}: {type(v).__name__} "
+                                     f"{tuple(v.shape)}")
+            n += 1
+    return n
+
+
 def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
               meshes=B7_MESHES):
     """One SHARD_RUNS run unsharded, then at each D of ``meshes``
     (``server_mesh=1``; D > 1 a mesh repeating the setup's device), every
     launch counter at 0 before each run and read after.  Each sharded run
     must equal the unsharded one in every field, accuracy bits included
-    (the topology's root and leaves).  On the card each merge kernel's
-    launches and ``dequant_add_rows``' must be D times the unsharded
-    run's (one per shard per merge), the codec's equal to its, and the
-    standalone B5's 0.  Returns the run's record."""
+    (the topology's root and leaves), and after it every link vector of
+    its transports must be a ``Sharded`` of D pieces of N/D elements.  On
+    the card each merge kernel's launches, ``dequant_add_rows``' and B4's
+    must be D times the unsharded run's (one per shard per merge or
+    decode), every encode at D > 1 must take the sharded form and at
+    D = 1 the unsharded one (``shard_enc_launches``), and the standalone
+    B5's 0.  Returns
+    the run's record."""
     from repro_torch.core import run_fl
     from repro_torch.core import topology as ttop
     from repro_torch.parallel import sharding as psh
@@ -3217,37 +3528,40 @@ def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
     dev = next(iter(setup.weights0.values())).device
     counters = launch_counters()
 
-    def call(mesh):
+    def call(mesh, D=None):
         zero_counters()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if topo is not None:
-            res = ttop.run_fl_topology(setup, topology=topo,
-                                       epochs_per_round=epochs,
-                                       max_rounds=rounds, server_mesh=mesh,
-                                       **kw)
-            hists = {"root": res.root_history, **res.leaf_histories}
-        else:
-            hists = {"server": run_fl(setup, epochs_per_round=epochs,
-                                      max_rounds=rounds, server_mesh=mesh,
-                                      **kw)}
+        with recorded_transports() as made:
+            if topo is not None:
+                res = ttop.run_fl_topology(setup, topology=topo,
+                                           epochs_per_round=epochs,
+                                           max_rounds=rounds,
+                                           server_mesh=mesh, **kw)
+                hists = {"root": res.root_history, **res.leaf_histories}
+            else:
+                hists = {"server": run_fl(setup, epochs_per_round=epochs,
+                                          max_rounds=rounds,
+                                          server_mesh=mesh, **kw)}
         if dev.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: counters[k][k] for k in counters}
-        return _hex_histories(hists), launches, wall
+        n_vec = None if D is None else check_shard_local(made, D)
+        return _hex_histories(hists), launches, wall, n_vec
 
-    base, base_l, base_wall = call(None)
+    base, base_l, base_wall, _ = call(None)
     rec = {"rounds": rounds, "histories": base, "launches": {"0": base_l},
-           "wall_s": {"0": base_wall}, "equal": {}}
+           "wall_s": {"0": base_wall}, "equal": {}, "link_vectors": {}}
     if dev.type == "cuda" and not any(base_l[k] for k in PER_SHARD[:4]):
         raise AssertionError(f"shard {key}: no merge kernel launched")
     for D in meshes:
         mesh = 1 if D == 1 else psh.agg_mesh(devices=(dev,) * D)
-        hist, launches, wall = call(mesh)
+        hist, launches, wall, n_vec = call(mesh, D)
         rec["launches"][str(D)] = launches
         rec["wall_s"][str(D)] = wall
+        rec["link_vectors"][str(D)] = n_vec
         if hist != base:
             raise AssertionError(f"shard {key} D = {D}: the history differs "
                                  f"from the unsharded run")
@@ -3264,10 +3578,17 @@ def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
                 raise AssertionError(f"shard {key} D = {D}: {launches[k]} "
                                      f"{k} launches, the unsharded run "
                                      f"{base_l[k]}")
+        want = shard_enc_launches(D, base_l["ef_encode"])
+        if (launches["ef_encode"], launches["ef_encode_sharded"]) != want:
+            raise AssertionError(
+                f"shard {key} D = {D}: {launches['ef_encode']} unsharded "
+                f"and {launches['ef_encode_sharded']} sharded ef_encode "
+                f"launches, {want[0]} and {want[1]} expected")
         if launches["mom"] or launches["adam"]:
             raise AssertionError(f"shard {key} D = {D}: B5 launched")
     print(f"shard {key}: D = {', '.join(map(str, meshes))} equal to the "
-          f"unsharded run in every field; wall {rec['wall_s']}; launches "
+          f"unsharded run in every field; link vectors shard-local "
+          f"{rec['link_vectors']}; wall {rec['wall_s']}; launches "
           f"{ {D: {k: v for k, v in l.items() if v} for D, l in rec['launches'].items()} }")
     return rec
 
@@ -3309,10 +3630,12 @@ def run_shard(dev, setups, report):
     which shard_run holds), so a record's launches are its kernel's
     counter summed over the sharded runs."""
     rec = check_b7(dev)
+    enc = check_shard_encode(dev)
     setup = setups.get(RUNS["raw/sync"], dev)
     runs = {key: shard_run(key, setup) for key in SHARD_RUNS}
     resume = shard_resume(setup, want=runs[SHARD_RESUME[0]]["histories"])
-    report["shard"] = {"b7": rec, "runs": runs, "resume": resume}
+    report["shard"] = {"b7": rec, "encode": enc, "runs": runs,
+                       "resume": resume}
     records = {}
     big = max(W * N for W, N in B7_SIZES)
     for name, (form, ctr, tpu) in B7_RECORDS.items():
@@ -3333,8 +3656,37 @@ def run_shard(dev, setups, report):
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shard_row_bytes")},
             "by_case": mine}
+    # the sharded codec: its headline the main path's width at the
+    # largest mesh, in the uplink's top-k+int8 form
+    N0 = SHARD_ENC_SIZES[0][0]
+    D0 = max(B7_MESHES)
+    head = next(c for c in enc["by_case"] if c["N"] == N0 and c["D"] == D0
+                and c["form"] == "topk_ef+int8")
+    dec = next(c for c in enc["decode"] if c["N"] == N0 and c["D"] == D0)
+    src = "src/repro_torch/kernels/csrc/topk_quant.cu"
+    wrapper = "src/repro_torch/kernels/topk_quant.py"
+    keys = ("N", "D", "ms", "unsharded_ms", "plain_ms", "bound_ms",
+            "bound_by")
+    records["ef_encode_sharded"] = {
+        "name": "ef_encode_sharded", "route": "cuda", "ok": True,
+        "source": src, "wrapper": wrapper,
+        "replaces": "src/repro/kernels/topk_quant.py:60",
+        "launches": sum(r["launches"][str(D)]["ef_encode_sharded"]
+                        for r in runs.values() for D in B7_MESHES),
+        "max_abs_err": enc["err"], "library_ms": None,
+        **{k: head[k] for k in keys}, "form": head["form"],
+        "by_case": enc["by_case"]}
+    records["dequant_add_sharded"] = {
+        "name": "dequant_add_sharded", "route": "cuda", "ok": True,
+        "source": src, "wrapper": wrapper,
+        "replaces": "src/repro/kernels/topk_quant.py:89",
+        "launches": sum(r["launches"][str(D)]["decode"]
+                        for r in runs.values() for D in B7_MESHES),
+        "max_abs_err": 0.0, "library_ms": None,
+        **{k: dec[k] for k in keys}, "by_case": enc["decode"]}
     for name in ("fedavg_mix_flat_sharded", "fedavg_agg_flat_sharded",
-                 "merge_opt_flat_sharded_mom", "merge_opt_flat_sharded_adam"):
+                 "merge_opt_flat_sharded_mom", "merge_opt_flat_sharded_adam",
+                 "ef_encode_sharded", "dequant_add_sharded"):
         if records[name]["launches"] < 1:
             raise AssertionError(f"{name} never launched in phase 9's runs")
     return records
@@ -5578,6 +5930,20 @@ def main() -> int:
                 {"card": card, "dryrun": dry_rec}, indent=1))
         print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
         print("dryrun " + json.dumps(dryrun_line(dry_rec)))
+        print(card)
+        return 0
+    if sys.argv[1:2] == ["--shard"]:        # phase 9 alone
+        runs = {}
+        t0 = time.perf_counter()
+        try:
+            records = run_shard(dev, Setups(dev), runs)
+        finally:
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            (out / "chip_smoke_shard.json").write_text(json.dumps(
+                {"card": card, "shard": runs.get("shard")}, indent=1))
+        print(f"phase shard: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"kernels": list(records.values())}))
         print(card)
         return 0
     records = check_kernels(dev)

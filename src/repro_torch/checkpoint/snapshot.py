@@ -29,11 +29,13 @@ live tensor, keyed by its ``id``, so that two references stay one object
 (an ``EncodedVec.base`` shared by the responses pinned to one model, a
 payload held by a link and its ack cell), with one sync for the batch.
 A restore moves each tensor once to the restoring federation's device,
-again as one batch.  A sharded substrate's pieces (``Sharded`` row
-buffer, optimizer moments) are tensors of the image like any other, so
-the same batch copies every shard; restore puts each piece back on its
-own mesh device.  A snapshot therefore pickles with no card in the
-reader, and restoring one twice gives two independent federations.
+again as one batch.  A sharded server's pieces (``Sharded`` row buffer,
+optimizer moments, every link vector, ack image and pinned payload) are
+tensors of the image like any other, so the same batch copies every
+shard, and each ``Sharded`` stays one object, shared where it was;
+restore puts each piece back on its own mesh device.  A snapshot
+therefore pickles with no card in the reader, and restoring one twice
+gives two independent federations.
 
 Event replay invariant.  Every ``resume_*`` helper in the core consumes
 exactly one ``loop.schedule_abs`` call; restore replays serialized event
@@ -79,31 +81,53 @@ _MISSING = "__missing__"       # selector attr never set (pre-first-select)
 
 
 # --- tensors across the process boundary ---
-def _copy_graph(obj, move: Callable[[list], list]):
+def _copy_graph(obj, move: Callable[[list], list], place: bool = False):
     """A copy of the object graph ``obj`` with each distinct tensor ``t``
     replaced by ``move(tensors)[i]``.  One pickle pass collects the
     tensors, one entry per live tensor keyed by ``id``; ``move`` copies
     them as one batch; the unpickle rebuilds the graph around the copies.
-    Every object shared inside ``obj`` stays shared in the copy."""
-    tensors, index = [], {}
+    Every object shared inside ``obj`` stays shared in the copy.  A
+    ``Sharded`` travels as its mesh and its pieces (tensors of the batch)
+    and comes back as one new ``Sharded`` per distinct one, shared where
+    it was (an ack chain's residual, a base pinned by several payloads);
+    with ``place`` each piece then goes to its own mesh device
+    (``to_mesh``): ``move`` brought every tensor to one device."""
+    tensors, index, specs, sharded = [], {}, [], {}
+
+    def tensor_id(o):
+        i = index.get(id(o))
+        if i is None:
+            i = index[id(o)] = len(tensors)
+            tensors.append(o)
+        return i
 
     class _Out(pickle.Pickler):
         def persistent_id(self, o):
             if isinstance(o, torch.Tensor):
-                i = index.get(id(o))
-                if i is None:
-                    i = index[id(o)] = len(tensors)
-                    tensors.append(o)
-                return i
+                return ("t", tensor_id(o))
+            if isinstance(o, psh.Sharded):
+                j = sharded.get(id(o))
+                if j is None:
+                    j = sharded[id(o)] = len(specs)
+                    specs.append((o.mesh, [tensor_id(p) for p in o.shards]))
+                return ("s", j)
             return None
 
     buf = io.BytesIO()
     _Out(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
     moved = move(tensors)
+    built = {}
 
     class _In(pickle.Unpickler):
-        def persistent_load(self, i):
-            return moved[i]
+        def persistent_load(self, pid):
+            kind, i = pid
+            if kind == "t":
+                return moved[i]
+            if i not in built:
+                mesh, idx = specs[i]
+                s = psh.Sharded([moved[t] for t in idx], mesh)
+                built[i] = s.to_mesh() if place else s
+            return built[i]
 
     buf.seek(0)
     return _In(buf).load()
@@ -435,9 +459,8 @@ def _capture_flat(fl) -> Optional[dict]:
 def _restore_flat(fl, img: Optional[dict]) -> None:
     if img is None or fl is None:
         return
-    rows = img["rows"]
-    # a sharded row buffer: each piece back on its own device
-    fl._rows = rows.to_mesh() if isinstance(rows, psh.Sharded) else rows
+    # a sharded row buffer's pieces are back on their devices (_on)
+    fl._rows = img["rows"]
     fl._free = list(img["free"])
     fl._next_row = img["next_row"]
     fl._dirty = set(img["dirty"])
@@ -777,9 +800,12 @@ class FederationSnapshot:
 
     # --- restore ---
     def _on(self, device: torch.device) -> "FederationSnapshot":
-        """A copy of this snapshot with every tensor on ``device``."""
+        """A copy of this snapshot with every tensor on ``device``, and
+        every ``Sharded`` piece (row buffer, moments, link vectors, ack
+        images, pinned payloads) on its own mesh device."""
         state, events, rekicks = _copy_graph(
-            (self.state, self.events, self.rekicks), _to_device(device))
+            (self.state, self.events, self.rekicks), _to_device(device),
+            place=True)
         return FederationSnapshot(self.kind, self.clock, state, events,
                                   rekicks)
 

@@ -27,13 +27,15 @@ merge writes.
 Sharded substrate: with ``mesh=`` (a 1-D ``parallel.sharding.agg_mesh``)
 the bundle pads N to ``BLOCK * n_shards`` and the flat state holds its
 row buffer and server mirror as ``Sharded`` pieces, one a device, and
-merges through the sharded kernels (one launch per shard: B7).  Whole
-vectors (``pack``, every link's vectors, decoded responses) stay on the
-home device; ``_set_rows`` lands each shard's slice of them in its rows
-(an encoded merge decoded by one ``dequant_add_rows`` a shard), and
-``unpack`` gathers the shards on the home device.  Every element is
-computed by the same arithmetic as unsharded, so a sharded merge equals
-the unsharded one bit for bit at any mesh size.
+merges through the sharded kernels (one launch per shard: B7).  The
+transport's link vectors and decoded responses are ``Sharded`` over the
+same mesh (``core/transport.py``), an ``EncodedVec`` holds ``Sharded`` q
+and base, and ``_set_rows`` lands each shard's own piece in its rows (an
+encoded merge decoded by one ``dequant_add_rows`` a shard, from pieces
+already on that shard's device); a whole vector (``bundle.pack``) is
+sliced there instead.  ``unpack`` gathers the shards on the home device.
+Every element is computed by the same arithmetic as unsharded, so a
+sharded merge equals the unsharded one bit for bit at any mesh size.
 """
 from __future__ import annotations
 
@@ -81,11 +83,13 @@ def _check_mesh(mesh) -> None:
 class EncodedVec:
     """A packed vector still encoded: ``base + q * scale`` (q (N,) int8,
     scale 0-d f32, base the (N,) f32 vector it was encoded against, pinned
-    when the response arrived).  ``merge_rows`` decodes every one of a
-    merge straight into its row in one launch."""
-    q: torch.Tensor
+    when the response arrived; on a sharded server q and base are
+    ``Sharded`` and the scale lies on the home device).  ``merge_rows``
+    decodes every one of a merge straight into its row in one launch (one
+    a shard)."""
+    q: object
     scale: torch.Tensor
-    base: torch.Tensor
+    base: object
 
 
 def packable(tree) -> bool:
@@ -204,9 +208,10 @@ class ParamBundle:
             if encoded:
                 with psh.device_guard(dev):
                     topk_quant.dequant_add_rows(
-                        [v.q[lo:hi].to(dev) for v in vecs],
+                        [shard_piece(v.q, d, lo, hi, dev) for v in vecs],
                         [v.scale.to(dev) for v in vecs],
-                        [v.base[lo:hi].to(dev) for v in vecs], piece)
+                        [shard_piece(v.base, d, lo, hi, dev) for v in vecs],
+                        piece)
                 continue
             if n:
                 torch.stack([shard_piece(v, d, lo, hi, dev) for v in vecs],
@@ -524,10 +529,18 @@ class FlatServerState:
             fused_merge(cur, rows, self._delta_weights(), mesh=self.mesh))
 
     def delta_vec(self, cur_tree, new_vec, base_vec):
-        """``cur + (new - base)`` on whole packed vectors; returns the
-        packed result (``Sharded`` with a mesh), written into the server
-        mirror (which is consumed)."""
-        rows = torch.stack([new_vec, base_vec])
+        """``cur + (new - base)`` on packed vectors (with a mesh,
+        ``Sharded`` ones stacked piece by piece into a ``Sharded`` (2,
+        N/D); whole ones sliced); returns the packed result (``Sharded``
+        with a mesh), written into the server mirror (which is
+        consumed)."""
+        if self.mesh is None:
+            rows = torch.stack([new_vec, base_vec])
+        else:
+            rows = psh.Sharded([
+                torch.stack([shard_piece(v, d, *self.bundle.shard_bounds(d),
+                                         dev) for v in (new_vec, base_vec)])
+                for d, dev in enumerate(self.mesh.devices)], self.mesh)
         return fused_merge(self._server_buffer(cur_tree), rows,
                            self._delta_weights(), mesh=self.mesh)
 

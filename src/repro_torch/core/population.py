@@ -44,6 +44,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.parallel import sharding as psh
+
 from .estimator import TimeEstimator, WorkerProfile
 
 _GROW = 64          # lane-array growth quantum
@@ -195,8 +197,13 @@ class WorkerPopulation:
         for wid, link in transport._links.items():
             lane = self._lane_of.get(wid)
             if lane is not None and link.residual is not None:
-                self.ef_norm[lane] = float(
-                    np.linalg.norm(np.asarray(link.residual)))
+                # a sharded link's residual gathered first: one norm over
+                # the whole vector gives the unsharded run's bits
+                r = link.residual
+                if isinstance(r, psh.Sharded):
+                    r = r.gather()
+                self.ef_norm[lane] = float(np.linalg.norm(np.asarray(
+                    r.cpu())))
         return self.ef_norm[:self.size]
 
     # --- views ---

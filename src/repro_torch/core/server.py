@@ -34,8 +34,8 @@ re-create them.
 Sharded substrate (``mesh=``, a 1-D ``parallel.sharding.agg_mesh``): the
 packed merge state shards along the parameter axis over the mesh and
 every merge runs one kernel launch per shard; the transport resolves the
-same mesh-aware bundle, and its link vectors stay whole on the home
-device.
+same mesh-aware bundle, and its link vectors are ``Sharded`` over the
+same mesh (shard-local, as the JAX package's are).
 """
 from __future__ import annotations
 
@@ -395,8 +395,9 @@ class AggregationServer:
         if self.async_delta and self.mode == "async":
             # delta-accumulate in flat-vector space: cur + (new - base);
             # delta codecs already hold the packed base on the link
+            # (Sharded on a sharded server, as the pack here is)
             base_vec = (link.tx_base if self.transport.tracks_tx_base
-                        else self._flat.bundle.pack(
+                        else self._flat.pack(
                             self._dispatch_base.get(res.worker_id,
                                                     self.weights)))
             weights = self._flat.delta_vec(self.weights, weights, base_vec)

@@ -197,8 +197,8 @@ class ServerOpt:
 
     def restore(self, img: dict) -> None:
         # copies again: the restored vectors update in place from here on
-        # (sharded ones each piece back on its device)
-        self._m, self._v = (_on_mesh(_copy(img[k])) for k in ("m", "v"))
+        # (a snapshot's restore placed sharded pieces on their devices)
+        self._m, self._v = (_copy(img[k]) for k in ("m", "v"))
         self._m_tree, self._v_tree = _copy(img["m_tree"]), _copy(img["v_tree"])
         self.rebase()
 
@@ -206,10 +206,6 @@ class ServerOpt:
 def _zeros_like(x):
     return x.zeros_like() if isinstance(x, psh.Sharded) else \
         torch.zeros_like(x)
-
-
-def _on_mesh(x):
-    return x.to_mesh() if isinstance(x, psh.Sharded) else x
 
 
 def _copy(x):

@@ -66,27 +66,36 @@ Links materialise on first contact, and ``Transport.lru_evict`` drops the
 least recently used quiescent links above a bound (cohort runs).
 
 Sharded substrate.  ``Transport(mesh=...)`` resolves the SAME mesh-aware
-bundle the server uses (N padded to ``BLOCK * n_shards``), so decoded
-vectors match the sharded row buffer's width.  Unlike the JAX package,
-whose links hold shard-local slices, every link vector (``tx_base``,
-``acked_base``, residuals, payloads) stays whole on the home device: the
-top-k threshold is global, and a threshold over per-device pieces would
-need a cross-device histogram reduction inside ``ef_encode``.  The codec
-therefore sees the same values whatever the sharding, and only the
-merge's decode lands each shard's slice in that shard's rows.
+bundle the server uses (N padded to ``BLOCK * n_shards``), and every pack
+that feeds a link is split onto the mesh (``Transport.pack``), so every
+link vector (``tx_base``, ``acked_base``, both EF residuals, the delta
+codecs' payloads, the ack chain's residuals and pinned bases) is a
+``parallel.sharding.Sharded`` vector: one (N/D,) piece a device, as the
+JAX package's links hold shard-local slices.  The codec runs on the
+pieces: ``ef_encode``'s sharded form selects the (global) threshold over
+the gathered sample and reduces the scale and the kept count across the
+shards' partials, each shard's sweep and each decode (``dequant_add``)
+runs on its own device, and the merge's decode lands each shard's pieces
+in that shard's rows.  The wire bytes are unchanged (``kept`` is the
+global count), and a sharded run equals the unsharded one bit for bit.
+The worker side gathers where it unpacks (``ParamBundle.unpack``).
 """
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import topk_quant
+from repro_torch.parallel import sharding as psh
 
 from . import flatbuf
+
+# a link vector: whole, or Sharded over the server mesh
+Vec = Union[torch.Tensor, psh.Sharded]
 
 # tie-guard: a kth-largest |x| of exactly 0 (e.g. an all-zero delta from a
 # data-less worker) must select nothing, not everything
@@ -168,7 +177,12 @@ def topk_threshold(x: torch.Tensor, k: int, n_params: int) -> torch.Tensor:
     return topk_quant.topk_threshold(x, k, n_params)
 
 
-def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _dequant(q, scale: torch.Tensor):
+    """``q * scale`` in f32 (a ``Sharded`` q piece by piece, the scale
+    copied to each piece's device)."""
+    if isinstance(q, psh.Sharded):
+        return psh.Sharded([_dequant(p, scale.to(p.device))
+                            for p in q.shards], q.mesh)
     return q.to(torch.float32) * scale
 
 
@@ -209,8 +223,8 @@ class WorkerAckState:
     __slots__ = ("acked_base", "down_residual", "_entries")
 
     def __init__(self):
-        self.acked_base: Optional[torch.Tensor] = None
-        self.down_residual: Optional[torch.Tensor] = None
+        self.acked_base: Optional[Vec] = None
+        self.down_residual: Optional[Vec] = None
         self._entries: list = []
 
     def push(self) -> list:
@@ -453,8 +467,8 @@ class Link:
                  worker_id: str = ""):
         self.t = transport
         self.worker_id = worker_id
-        self.tx_base: Optional[torch.Tensor] = None   # packed dispatch base
-        self.residual: Optional[torch.Tensor] = None  # uplink EF (topk_ef*)
+        self.tx_base: Optional[Vec] = None   # packed dispatch base
+        self.residual: Optional[Vec] = None  # uplink EF (topk_ef*)
         self._ack = ack if ack is not None else WorkerAckState()
         # in-flight downlink awaiting ack:
         # (payload, revert-chain entry or None, pinned encode base or None)
@@ -501,15 +515,15 @@ class Link:
         return rel.timeout_mult * max(base, t_tx) * rel.backoff ** attempt
 
     @property
-    def acked_base(self) -> Optional[torch.Tensor]:
+    def acked_base(self) -> Optional[Vec]:
         return self._ack.acked_base
 
     @property
-    def down_residual(self) -> Optional[torch.Tensor]:
+    def down_residual(self) -> Optional[Vec]:
         return self._ack.down_residual
 
     # --- shared flat-delta codec stages ---
-    def _codec_encode(self, new: torch.Tensor, base: torch.Tensor, residual,
+    def _codec_encode(self, new: Vec, base: Vec, residual,
                       spec: CodecSpec, frac: Optional[float] = None
                       ) -> Tuple[Payload, object]:
         """Encode the packed flat delta ``(new - base) + residual``
@@ -537,7 +551,7 @@ class Link:
         return Payload(spec.name, 4 * n, x), residual  # dense f32
 
     def _codec_apply(self, data, spec: CodecSpec,
-                     base: torch.Tensor) -> torch.Tensor:
+                     base: Vec) -> Vec:
         """``base + recon(delta)``: the fused dequantise + delta-apply."""
         if spec.quantize:
             q, scale = data
@@ -585,7 +599,7 @@ class Link:
         self._pending_down = (payload, entry, base)
         return payload
 
-    def decode_down_vec(self, payload: Payload) -> torch.Tensor:
+    def decode_down_vec(self, payload: Payload) -> Vec:
         """Payload -> packed flat f32 vector of the dispatched model,
         reconstructed against the base it was encoded from."""
         if payload.codec == "raw":
@@ -603,7 +617,7 @@ class Link:
             return payload.data
         return self.t.bundle.unpack(self.decode_down_vec(payload))
 
-    def ack_down(self, payload: Payload, vec: torch.Tensor) -> None:
+    def ack_down(self, payload: Payload, vec: Vec) -> None:
         """Advance the last-acked state to ``vec`` at fetch completion.
         Only the pending payload may ack (a raw payload with nothing
         pending may too: re-acking a full model is exact)."""
@@ -659,7 +673,7 @@ class Link:
                 # next compressed dispatch (nothing consumed)
                 self._up_restore = None
             return Payload(spec.name, t.raw_bytes, new_tree)
-        vec = t.bundle.pack(new_tree)
+        vec = t.pack(new_tree)
         prev_res = self.residual
         payload, self.residual = self._codec_encode(
             vec, self.tx_base, prev_res, spec, frac)
@@ -674,12 +688,12 @@ class Link:
                 self._up_restore = None
         return payload
 
-    def decode_up_vec(self, payload: Payload) -> torch.Tensor:
+    def decode_up_vec(self, payload: Payload) -> Vec:
         """Payload -> packed flat f32 vector of the worker's new absolute
         weights (lands in the server's (W, N) row buffer)."""
         spec = CODECS[payload.codec]
         if not spec.delta:
-            return self.t.bundle.pack(payload.data)
+            return self.t.pack(payload.data)
         return self._codec_apply(payload.data, spec, self.tx_base)
 
     def up_vec_deferred(self, payload: Payload):
@@ -746,8 +760,8 @@ class Transport:
         self.spec_up = AUTO_SPEC if self.auto_up else CODECS[codec]
         self.spec_down = AUTO_SPEC if self.auto_down else CODECS[down_codec]
         self.frac = float(frac)
-        # the server's (mesh-aware) bundle: link vectors are whole, of its
-        # padded width, on the home device
+        # the server's (mesh-aware) bundle; with a mesh every link vector
+        # is Sharded over it (pack)
         self.mesh = mesh
         self.bundle = flatbuf.bundle_for(template, mesh)
         self.raw_bytes = (int(raw_bytes) if raw_bytes is not None
@@ -777,11 +791,17 @@ class Transport:
         # one packed copy of the current server model per dispatch round:
         # every selected worker's encode_down shares it (keyed on identity)
         self._down_tree = None
-        self._down_vec: Optional[torch.Tensor] = None
+        self._down_vec: Optional[Vec] = None
 
-    def _pack_down(self, weights_tree) -> torch.Tensor:
+    def pack(self, tree):
+        """``tree`` packed as the links hold it: whole, or with a mesh
+        ``Sharded`` over it (one (N/D,) piece a device)."""
+        vec = self.bundle.pack(tree)
+        return vec if self.mesh is None else psh.split(vec, self.mesh)
+
+    def _pack_down(self, weights_tree):
         if self._down_tree is not weights_tree:
-            self._down_vec = self.bundle.pack(weights_tree)
+            self._down_vec = self.pack(weights_tree)
             self._down_tree = weights_tree
         return self._down_vec
 

@@ -46,9 +46,14 @@ SIGNATURES = {
     # scale, kept; ctas; stream
     "ef_encode_cluster_launch": (_P,) * 3 + (_I64,) * 4 + (_C, _C)
     + (_P,) * 6 + (_C, _P),
-    # a, b, c; N; thresh_in, part; blocks, quantize; q, recon, r, thresh,
-    # scale, kept; stream
-    "ef_encode_grid_launch": (_P,) * 3 + (_I64, _P, _P, _C, _C)
+    # the grid and sharded forms' pieces: a, b, c; N, off, stride, m; out;
+    # stream
+    "ef_encode_sample_launch": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
+    # a, b, c; N; thresh_in, part; blocks; stream
+    "ef_encode_stats_launch": (_P,) * 3 + (_I64, _P, _P, _C, _P),
+    # a, b, c; N; thresh_in, part; n_part, group; blocks, quantize; q,
+    # recon, r, thresh, scale, kept; stream
+    "ef_encode_sweep_launch": (_P,) * 3 + (_I64, _P, _P, _I64, _I64, _C, _C)
     + (_P,) * 6 + (_P,),
     # host arrays of q, scale and base pointers; n_dec, n_zero; rows; N;
     # stream

@@ -8,7 +8,8 @@
 //   dequant_add (_decode_kernel)       -> dequant_add_launch:
 //       out = base + q * scale
 // and, redesigned for Hopper around the paths that call them:
-//   ef_encode_cluster_launch / ef_encode_grid_launch: the whole error-
+//   ef_encode_cluster_launch (+ ef_encode_stats_launch and
+//   ef_encode_sweep_launch above one cluster's size): the whole error-
 //       feedback top-k(+int8) encode of repro/core/transport.py
 //       (ef_topk_encode: x = (a - b) + c, the k-th largest |x| as the
 //       threshold, max|x| / 127 as the scale, the kept count, then q and r
@@ -49,6 +50,19 @@
 // the sample only, then ef_grid_stats (per-block max key and kept count) and
 // ef_grid_sweep (every block reduces the per-block partials, block 0 writes
 // scale and kept) cover the full vector: three launches, no atomics, exact.
+//
+// A vector sharded over D devices (a sharded server's link vectors, JAX's
+// shard-local slices) is encoded by the same pieces, split apart:
+// ef_sample copies each shard's share of the select's input x[::stride]
+// (global index order, x formed as above) into a small buffer; the pieces
+// are concatenated on the home device, where one ef_cluster selects over
+// them (stride 1, the same multiset, so the same threshold bit for bit);
+// each shard runs ef_grid_stats on its own piece; the D shards' partials,
+// concatenated in shard order, go to every device, and each shard's
+// ef_grid_sweep reduces all D * blocks of them (n_part, in groups of
+// `group` max keys then `group` counts), so every shard derives the same
+// scale and kept: integer max and sum are exact in any order.  Only the
+// sample (at most 1 MB) and the partials cross devices.
 //
 // Numerics: the explicit _rn intrinsics keep nvcc from contracting
 // x - q * scale (or base + q * scale) into an FMA, and x / scale is the
@@ -407,14 +421,16 @@ struct GridArgs {
   const float* c;
   long long n;
   const float* thresh_in;  // the selected threshold, or null: threshold 0
-  unsigned* part;          // per block: max key [G], kept count [G]
+  unsigned* part;          // stats: per block max key [G], kept count [G]
+  long long n_part;        // sweep: partials reduced, in groups of
+  long long group;         // `group` max keys then `group` counts
   int quantize;
   int8_t* q;
   float* recon;
   float* r;
-  float* thresh;           // 0-d outputs (thresh only when thresh_in is null)
-  float* scale;
-  int* kept;
+  float* thresh;           // 0-d outputs (thresh only when thresh_in is
+  float* scale;            // null), written by block 0 when kept is not
+  int* kept;               // null
 };
 
 __global__ void __launch_bounds__(kGridThreads)
@@ -441,16 +457,18 @@ __global__ void __launch_bounds__(kGridThreads)
   __shared__ unsigned red[32];
   const float t = p.thresh_in ? *p.thresh_in : 0.f;
   unsigned kmax = 0, cnt = 0;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x) {
-    kmax = max(kmax, p.part[i]);
-    cnt += p.part[gridDim.x + i];
+  for (long long i = threadIdx.x; i < p.n_part; i += blockDim.x) {
+    const long long g = i / p.group;
+    const unsigned* pg = p.part + 2 * g * p.group;
+    kmax = max(kmax, pg[i - g * p.group]);
+    cnt += pg[p.group + i - g * p.group];
   }
   kmax = block_reduce(kmax, red, MaxOp());
   cnt = block_reduce(cnt, red, AddOp());
   const float s = p.quantize
       ? __fmul_rn(clamp_min_nan(__uint_as_float(kmax), kScaleFloor), kInv127)
       : 0.f;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && p.kept) {
     if (!p.thresh_in) *p.thresh = 0.f;
     if (p.quantize) *p.scale = s;
     *p.kept = (int)cnt;
@@ -465,6 +483,16 @@ __global__ void __launch_bounds__(kGridThreads)
       p.recon[j] = mask(v, t, &rr);
     p.r[j] = rr;
   }
+}
+
+// one shard's share of the select's input: out[i] = x[off + i * stride]
+__global__ void __launch_bounds__(kGridThreads)
+    ef_sample(const float* __restrict__ a, const float* __restrict__ b,
+              const float* __restrict__ c, long long off, long long stride,
+              long long m, float* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < m;
+       i += (long long)gridDim.x * blockDim.x)
+    out[i] = x_at(a, b, c, off + i * stride);
 }
 
 // ---- one merge's decodes into the row buffer --------------------------------
@@ -603,20 +631,57 @@ extern "C" int ef_encode_cluster_launch(
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// The grid form over the full vector after a select (thresh_in on the
-// card) or with threshold 0 (thresh_in null): per-block stats into part
-// (2 * blocks unsigned), then the sweep.  Two launches.
-extern "C" int ef_encode_grid_launch(
-    const float* a, const float* b, const float* c, long long N,
-    const float* thresh_in, unsigned* part, int blocks, int quantize,
-    int8_t* q, float* recon, float* r, float* thresh, float* scale,
-    int* kept, cudaStream_t stream) {
+// The grid and sharded forms' pieces.  A vector above one cluster's size
+// is encoded, after a select (thresh_in on the card) or with threshold 0
+// (thresh_in null), by a stats launch and a sweep launch with n_part =
+// group = blocks.  A sharded vector takes a sample launch, a stats launch
+// and a sweep launch a shard, each on the shard's device and stream, the
+// sweep reducing every shard's partials.
+// ef_encode_sample_launch: out[i] = x[off + i * stride] for i < m, over
+// the shard's N elements (x = (a - b) + c; b, c may be null).
+extern "C" int ef_encode_sample_launch(const float* a, const float* b,
+                                       const float* c, long long N,
+                                       long long off, long long stride,
+                                       long long m, float* out,
+                                       cudaStream_t stream) {
+  if (N <= 0 || off < 0 || stride < 1 || m < 1 ||
+      off + (m - 1) * stride >= N)
+    return (int)cudaErrorInvalidValue;
+  const long long want = (m + kGridThreads - 1) / kGridThreads;
+  const unsigned blocks = (unsigned)(want < 1024 ? want : 1024);
+  ef_sample<<<blocks, kGridThreads, 0, stream>>>(a, b, c, off, stride, m,
+                                                  out);
+  return (int)cudaGetLastError();
+}
+
+// ef_encode_stats_launch: the shard's per-block max key and kept count at
+// the threshold *thresh_in (null: 0) into part (2 * blocks unsigned).
+extern "C" int ef_encode_stats_launch(const float* a, const float* b,
+                                      const float* c, long long N,
+                                      const float* thresh_in, unsigned* part,
+                                      int blocks, cudaStream_t stream) {
   if (N <= 0 || blocks < 1) return (int)cudaErrorInvalidValue;
-  const GridArgs p{a, b, c, N, thresh_in, part, quantize,
-                   q, recon, r, thresh, scale, kept};
+  const GridArgs p{a, b, c, N, thresh_in, part, 0, 0, 0,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
   ef_grid_stats<<<blocks, kGridThreads, 0, stream>>>(p);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// ef_encode_sweep_launch: the shard's q or recon and r, from the scale and
+// kept count that the n_part partials of part give (in groups of `group`
+// max keys then `group` counts: every shard's stats, in shard order);
+// thresh (when thresh_in is null), scale and kept written when kept is
+// not null (the home shard's launch).
+extern "C" int ef_encode_sweep_launch(
+    const float* a, const float* b, const float* c, long long N,
+    const float* thresh_in, const unsigned* part, long long n_part,
+    long long group, int blocks, int quantize, int8_t* q, float* recon,
+    float* r, float* thresh, float* scale, int* kept, cudaStream_t stream) {
+  if (N <= 0 || blocks < 1 || group < 1 || n_part < 1 || n_part % group)
+    return (int)cudaErrorInvalidValue;
+  const GridArgs p{a, b, c, N, thresh_in, const_cast<unsigned*>(part),
+                   n_part, group, quantize, q, recon, r, thresh, scale,
+                   kept};
   ef_grid_sweep<<<blocks, kGridThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }

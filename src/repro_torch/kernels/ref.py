@@ -142,11 +142,7 @@ def reference_ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     scale and ``reference_topk_quant_encode``, else the masked recon and
     ``x - recon``.  Returns ``(q or recon, residual, thresh, scale or
     None, kept)``, all on x's device."""
-    x = a.float()
-    if b is not None:
-        x = x - b
-    if c is not None:
-        x = x + c
+    x = _x_of(a, b, c)
     if k is None:
         thresh = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
@@ -158,6 +154,86 @@ def reference_ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return q, r, thresh, scale, kept
     recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
     return recon, x - recon, thresh, None, kept
+
+
+def shard_samples(size: int, n_shards: int, stride: int):
+    """Each shard's share of the select's input ``x[::stride]`` of a
+    ``size``-element vector split into ``n_shards`` equal pieces: per
+    shard ``(off, m)``, its first sampled element at local index ``off``
+    (the first global index >= the shard's start that is 0 mod
+    ``stride``) and ``m`` sampled elements.  Concatenated in shard order
+    the shares are ``x[::stride]``."""
+    if size % n_shards:
+        raise ValueError(f"N = {size} not divisible by {n_shards} shards")
+    s = size // n_shards
+    out = []
+    for d in range(n_shards):
+        off = -(d * s) % stride
+        out.append((off, 0 if off >= s else (s - off + stride - 1) // stride))
+    return out
+
+
+def reference_topk_threshold_sharded(xs, k: int, n_params: int,
+                                     home: torch.device) -> torch.Tensor:
+    """``reference_topk_threshold`` of the vector held as the pieces
+    ``xs`` (shard order): each shard's share of the select's input
+    (``shard_samples``) concatenated on ``home``, the threshold taken
+    there (a 0-d tensor on ``home``)."""
+    D = len(xs)
+    n = D * int(xs[0].shape[0])
+    stride, _, ks = sample_plan(n, k, n_params)
+    sample = torch.cat([x[off::stride].to(home) for x, (off, m)
+                        in zip(xs, shard_samples(n, D, stride)) if m])
+    if n_params <= SAMPLE_CAP:
+        t = torch.topk(sample.abs(), ks).values[-1]
+    else:
+        t = sample.abs().sort().values[-ks]
+    return torch.clamp_min(t, THRESH_FLOOR)
+
+
+def _x_of(a, b, c):
+    x = a.float()
+    if b is not None:
+        x = x - b
+    if c is not None:
+        x = x + c
+    return x
+
+
+def reference_ef_encode_sharded(a, b=None, c=None, *, k: Optional[int],
+                                n_params: int, quantize: bool,
+                                home: torch.device):
+    """``reference_ef_encode`` over a vector held as pieces (``a``, ``b``,
+    ``c``: sequences of equal (N/D,) pieces in shard order, ``b``/``c``
+    None or all present), decomposed as the sharded kernels run it: each
+    shard's share of the select's input (``shard_samples``) concatenated
+    on ``home`` and the threshold taken there; the threshold on each
+    shard's device, each shard's max |x| and kept count, reduced on
+    ``home`` into the scale and the kept count; then each shard's outputs
+    from those.  Returns ``([q or recon], [residual], thresh, scale or
+    None, kept)``: pieces in shard order, the 0-d values on ``home``.
+    Equals ``reference_ef_encode`` of the whole vectors bit for bit: the
+    k-th largest of a multiset, a max and a count do not depend on the
+    order they are taken in."""
+    xs = [_x_of(a[d], None if b is None else b[d], None if c is None
+                else c[d]) for d in range(len(a))]
+    if k is None:
+        thresh = torch.zeros((), dtype=torch.float32, device=home)
+    else:
+        thresh = reference_topk_threshold_sharded(xs, k, n_params, home)
+    ts = [thresh.to(x.device) for x in xs]
+    kept = torch.stack([torch.sum(x.abs() >= t).to(home)
+                        for x, t in zip(xs, ts)]).sum()
+    if not quantize:
+        recons = [torch.where(x.abs() >= t, x, torch.zeros_like(x))
+                  for x, t in zip(xs, ts)]
+        return (recons, [x - r for x, r in zip(xs, recons)], thresh, None,
+                kept)
+    scale = reference_int8_scale(torch.stack([x.abs().max().to(home)
+                                              for x in xs]))
+    qr = [reference_topk_quant_encode(x, t, scale.to(x.device))
+          for x, t in zip(xs, ts)]
+    return [q for q, _ in qr], [r for _, r in qr], thresh, scale, kept
 
 
 def reference_server_opt(prev: torch.Tensor, merged: torch.Tensor,

@@ -11,6 +11,14 @@ launch, ``topk_threshold`` that launch's select alone, and
 row buffer in one launch.  On a CUDA tensor each launches
 ``csrc/topk_quant.cu``; on a CPU tensor each runs its plain version in
 ``ref.py``.  See the CUDA source for the design and its bound.
+
+``ef_encode``, ``topk_threshold`` and ``dequant_add`` also take vectors
+sharded over a server mesh (``parallel.sharding.Sharded``, a sharded
+server's link vectors): each shard's pieces are encoded and decoded by
+launches on its own device, and only the select's input and O(blocks)
+partials cross devices (``ef_encode``'s docstring).  The cross-device
+copies are written for distinct devices, but every mesh tested so far
+repeats one device (one card, or the CPU).
 """
 from __future__ import annotations
 
@@ -19,12 +27,17 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.parallel import sharding as psh
+
 from . import check_cuda_tensor, check_status, ref, use_kernel
 from .ref import SAMPLE_CAP, THRESH_FLOOR, sample_plan  # noqa: F401
 
 # kernel launches by wrapper: a run shows it went through the kernels
+# (ef_encode_sharded: every launch of the sharded encode, the select on
+# the home device and each shard's sample, stats and sweep; sample: the
+# shards' sample launches of a sharded topk_threshold)
 LAUNCHES = {"encode": 0, "decode": 0, "ef_encode": 0, "select": 0,
-            "decode_rows": 0}
+            "decode_rows": 0, "ef_encode_sharded": 0, "sample": 0}
 
 # CTAs of ef_encode's cluster: 16, a non-portable size the H100 schedules
 # (7 such clusters at once), faster than the portable 8 at the MLP's width
@@ -75,7 +88,16 @@ def topk_quant_encode(x: torch.Tensor, thresh: Scalar, scale: Scalar
 def dequant_add(q: torch.Tensor, scale: Scalar, base: torch.Tensor
                 ) -> torch.Tensor:
     """One pass: ``base + q * scale`` with q (N,) int8 and base (N,) f32;
-    returns a new vector."""
+    returns a new vector.  ``Sharded`` q and base (one mesh): one launch
+    a shard on its device, the scale copied there; a ``Sharded``
+    result."""
+    if isinstance(q, psh.Sharded):
+        out = []
+        for qd, bd, dev in zip(q.shards, _pieces_like(base, q),
+                               q.mesh.devices):
+            with psh.device_guard(dev):
+                out.append(dequant_add(qd, _scalar_to(scale, dev), bd))
+        return psh.Sharded(out, q.mesh)
     if not use_kernel(q, base):
         return ref.reference_dequant_add(q, scale, base)
     from ._build import lib
@@ -94,6 +116,34 @@ def dequant_add(q: torch.Tensor, scale: Scalar, base: torch.Tensor
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _scalar_to(v: Scalar, dev: torch.device) -> Scalar:
+    return v.to(dev) if isinstance(v, torch.Tensor) else v
+
+
+def _pieces_like(t, like: "psh.Sharded"):
+    """The pieces of ``t``, a ``Sharded`` over ``like``'s mesh, or None
+    pieces for None."""
+    if t is None:
+        return (None,) * len(like.shards)
+    if not (isinstance(t, psh.Sharded) and t.mesh == like.mesh
+            and len(t.shards) == len(like.shards)):
+        raise ValueError("sharded operands must share one mesh")
+    return t.shards
+
+
+def _on_kernel(shards) -> bool:
+    """Whether every shard's pieces (a tuple each, None entries skipped)
+    go to the kernels (True) or every one to the plain version (False)."""
+    kinds = {use_kernel(*(t for t in p if t is not None)) for p in shards}
+    if len(kinds) != 1:
+        raise ValueError("a mesh whose pieces lie on the CPU and the card")
+    return kinds.pop()
 
 
 def _select_cluster(a, b, c, n: int, stride: int, m: int, k: int, sweep,
@@ -121,7 +171,26 @@ def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     masked to ``|x| >= thresh``; thresh, scale and kept (int32) are 0-d
     tensors on x's device.  One launch when the sample is x itself and
     fits one cluster (N <= ``CLUSTER_MAX``, the FL paths' widths);
-    otherwise a cluster select over the sample, then two passes over x."""
+    otherwise a cluster select over the sample, then two passes over x.
+
+    ``Sharded`` a (b and c, where given, on its mesh) takes the sharded
+    form: each shard's share of the select's input ``x[::stride]``
+    (``ref.shard_samples``) copied out on its device, concatenated on the
+    home device and selected there by one cluster launch (stride 1 over
+    the m sampled elements; ``sample_plan`` keeps m within
+    ``CLUSTER_MAX``); the threshold copied to each device, each shard's
+    per-block max and kept count (stats), all shards' partials copied to
+    each device, and each shard's sweep reducing all of them, so every
+    shard has the same scale and kept count.  q or recon and the residual
+    come back ``Sharded``, thresh, scale and kept on the home device
+    (written by shard 0's sweep), equal bit for bit to this function on
+    the gathered vectors at the same width.  One launch on the home
+    device and 3 a shard (2 with ``k`` None), counted under
+    ``LAUNCHES["ef_encode_sharded"]``.  A mesh of one device takes the
+    unsharded form on its one piece (its launches and counter)."""
+    if isinstance(a, psh.Sharded):
+        return _ef_encode_sharded(a, b, c, k=k, n_params=n_params,
+                                  quantize=quantize)
     parts = [t for t in (a, b, c) if t is not None]
     if not use_kernel(*parts):
         return ref.reference_ef_encode(a, b, c, k=k, n_params=n_params,
@@ -154,21 +223,150 @@ def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                             None, None, None, stats)
         blocks = min(GRID_BLOCKS, -(-n // 256))
         part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
-        status = lib().ef_encode_grid_launch(
-            _ptr(a), _ptr(b), _ptr(c), n,
-            stats.data_ptr() if ks else None, part.data_ptr(), blocks,
-            int(quantize), _ptr(q), _ptr(recon), r.data_ptr(),
-            stats.data_ptr(), stats.data_ptr() + 4, stats.data_ptr() + 8,
-            torch.cuda.current_stream(dev).cuda_stream)
-        check_status(status, "ef_encode (grid)")
+        t_in = stats.data_ptr() if ks else None
+        status = lib().ef_encode_stats_launch(
+            _ptr(a), _ptr(b), _ptr(c), n, t_in, part.data_ptr(), blocks,
+            _stream(dev))
+        check_status(status, "ef_encode (grid stats)")
+        status = lib().ef_encode_sweep_launch(
+            _ptr(a), _ptr(b), _ptr(c), n, t_in, part.data_ptr(), blocks,
+            blocks, blocks, int(quantize), _ptr(q), _ptr(recon),
+            r.data_ptr(), stats.data_ptr(), stats.data_ptr() + 4,
+            stats.data_ptr() + 8, _stream(dev))
+        check_status(status, "ef_encode (grid sweep)")
         LAUNCHES["ef_encode"] += 3 if ks else 2
     kept = stats[2:].view(torch.int32)[0]
     return out, r, stats[0], (stats[1] if quantize else None), kept
 
 
+def _shard_parts(a, b, c):
+    """Per shard, its (a, b, c) pieces (None for a missing b or c), and
+    the pieces' width."""
+    pb, pc = _pieces_like(b, a), _pieces_like(c, a)
+    shards = list(zip(a.shards, pb, pc))
+    S = a.shards[0].numel()
+    for pieces in shards:
+        for t, name in zip(pieces, "abc"):
+            if t is not None:
+                check_cuda_tensor(t, name, torch.float32, S)
+    return shards, S
+
+
+def _sharded_select(shards, S: int, mesh, k: int, n_params: int,
+                    stats: torch.Tensor) -> int:
+    """The sharded form's select: each shard's share of x[::stride] copied
+    out on its device, the shares concatenated on the home device in
+    shard order, one cluster launch selecting over them into
+    ``stats[0]``.  Returns the launches made."""
+    from ._build import lib
+    n = S * len(shards)
+    stride, m, ks = sample_plan(n, k, n_params)
+    if not 1 <= ks <= m or m > CLUSTER_MAX:
+        raise ValueError(f"k = {k} outside 1..{m}, or {m} > CLUSTER_MAX")
+    pieces = []
+    for (a, b, c), dev, (off, md) in zip(shards, mesh.devices,
+                                         ref.shard_samples(n, len(shards),
+                                                           stride)):
+        if not md:
+            continue
+        with psh.device_guard(dev):
+            piece = torch.empty(md, dtype=torch.float32, device=dev)
+            status = lib().ef_encode_sample_launch(
+                _ptr(a), _ptr(b), _ptr(c), S, off, stride, md,
+                piece.data_ptr(), _stream(dev))
+            check_status(status, "ef_encode (sharded sample)")
+        pieces.append(piece)
+    home = mesh.home
+    with psh.device_guard(home):
+        sample = torch.cat([p.to(home) for p in pieces])
+        _select_cluster(sample, None, None, m, 1, m, ks, False, False,
+                        None, None, None, stats)
+    return len(pieces) + 1
+
+
+def _ef_encode_sharded(a, b, c, *, k, n_params, quantize):
+    mesh, D = a.mesh, len(a.shards)
+    shards, S = _shard_parts(a, b, c)
+    if D == 1:
+        # nothing crosses devices: the unsharded encode on the one piece
+        out, r, thresh, scale, kept = ef_encode(*shards[0], k=k,
+                                                n_params=n_params,
+                                                quantize=quantize)
+        return (psh.Sharded([out], mesh), psh.Sharded([r], mesh), thresh,
+                scale, kept)
+    home = mesh.home
+    if not _on_kernel(shards):
+        pa, pb, pc = ([p[i] for p in shards] for i in range(3))
+        out, r, thresh, scale, kept = ref.reference_ef_encode_sharded(
+            pa, None if b is None else pb, None if c is None else pc, k=k,
+            n_params=n_params, quantize=quantize, home=home)
+        return (psh.Sharded(out, mesh), psh.Sharded(r, mesh), thresh, scale,
+                kept)
+    if a.shards[0].device != home:
+        raise ValueError("shard 0 must lie on the mesh's home device")
+    from ._build import lib
+    # thresh, scale (f32) and kept (int32) in one allocation
+    stats = torch.empty(3, dtype=torch.float32, device=home)
+    launches = 0
+    if k is not None:
+        launches += _sharded_select(shards, S, mesh, k, n_params, stats)
+    blocks = min(GRID_BLOCKS, -(-S // 256))
+    thr, parts = [], []
+    for (pa, pb, pc), dev in zip(shards, mesh.devices):
+        with psh.device_guard(dev):
+            t_in = None if k is None else stats[:1].to(dev)
+            part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
+            status = lib().ef_encode_stats_launch(
+                _ptr(pa), _ptr(pb), _ptr(pc), S, _ptr(t_in),
+                part.data_ptr(), blocks, _stream(dev))
+            check_status(status, "ef_encode (sharded stats)")
+        thr.append(t_in)
+        parts.append(part)
+    with psh.device_guard(home):
+        every = torch.cat([p.to(home) for p in parts])
+    outs, rs = [], []
+    for d, ((pa, pb, pc), dev) in enumerate(zip(shards, mesh.devices)):
+        with psh.device_guard(dev):
+            part = every.to(dev)
+            out = torch.empty(S, dtype=torch.int8 if quantize
+                              else torch.float32, device=dev)
+            r = torch.empty(S, dtype=torch.float32, device=dev)
+            q, recon = (out, None) if quantize else (None, out)
+            st = stats if d == 0 else None
+            status = lib().ef_encode_sweep_launch(
+                _ptr(pa), _ptr(pb), _ptr(pc), S, _ptr(thr[d]),
+                part.data_ptr(), D * blocks, blocks, blocks, int(quantize),
+                _ptr(q), _ptr(recon), r.data_ptr(), _ptr(st),
+                None if st is None else st.data_ptr() + 4,
+                None if st is None else st.data_ptr() + 8, _stream(dev))
+            check_status(status, "ef_encode (sharded sweep)")
+        outs.append(out)
+        rs.append(r)
+    LAUNCHES["ef_encode_sharded"] += launches + 2 * D
+    kept = stats[2:].view(torch.int32)[0]
+    return (psh.Sharded(outs, mesh), psh.Sharded(rs, mesh), stats[0],
+            stats[1] if quantize else None, kept)
+
+
 def topk_threshold(x: torch.Tensor, k: int, n_params: int) -> torch.Tensor:
     """0-d |x| threshold selecting ~the k largest coordinates of x (N,)
-    f32: ``ef_encode``'s select alone, one cluster launch."""
+    f32: ``ef_encode``'s select alone, one cluster launch.  A ``Sharded``
+    x over more than one device takes the sharded form's select (each
+    shard's share of the sample, counted under ``LAUNCHES["sample"]``,
+    then the one cluster launch on the home device) and returns the
+    threshold on the home device."""
+    if isinstance(x, psh.Sharded):
+        shards, S = _shard_parts(x, None, None)
+        if len(shards) == 1:
+            return topk_threshold(shards[0][0], k, n_params)
+        if not _on_kernel(shards):
+            return ref.reference_topk_threshold_sharded(
+                x.shards, k, n_params, x.mesh.home)
+        stats = torch.empty(3, dtype=torch.float32, device=x.mesh.home)
+        LAUNCHES["sample"] += _sharded_select(shards, S, x.mesh, k,
+                                              n_params, stats) - 1
+        LAUNCHES["select"] += 1
+        return stats[0]
     if not use_kernel(x):
         return ref.reference_topk_threshold(x, k, n_params)
     n = x.numel()

@@ -5,12 +5,12 @@ decode-state ``PartitionSpec``\\ s.
 **The aggregation server's mesh.**  One process drives every device, as
 JAX does.  A mesh is a tuple of ``torch.device``\\ s over the one axis
 ``AGG_AXIS``; device 0 is the *home* device, where whole vectors (the
-model, every link's vectors) live.  The packed flat parameter axis N of
+model, gathers, a codec's 0-d statistics) live.  The packed flat parameter axis N of
 the server model and of the ``(W, N)`` update-row buffer shards over it:
 a sharded vector is D contiguous ``(N/D,)`` pieces and a sharded row
 buffer D contiguous ``(W, N/D)`` pieces (``Sharded``), piece d on device
-d.  Every worker's lane of a parameter sits on one device, so the merge's
-W-reduce is shard-local.
+d; so are every link's vectors.  Every worker's lane of a parameter sits
+on one device, so the merge's W-reduce is shard-local.
 
 Device counts.  ``agg_mesh(n)`` takes the first n CUDA devices.  On the
 CPU the count comes from ``REPRO_HOST_DEVICES`` (default 1), the variable
@@ -200,6 +200,21 @@ class Sharded:
         """Row ``row`` of a sharded row buffer, as a sharded vector (views
         into the pieces)."""
         return Sharded([s[row] for s in self.shards], self.mesh)
+
+    def _zip(self, other: "Sharded", op) -> "Sharded":
+        if not (isinstance(other, Sharded) and other.mesh == self.mesh
+                and len(other.shards) == len(self.shards)):
+            raise ValueError("operands sharded over different meshes")
+        return Sharded([op(a, b) for a, b in zip(self.shards, other.shards)],
+                       self.mesh)
+
+    # elementwise, piece by piece on each piece's device: the same bits
+    # as the op on the whole tensors
+    def __add__(self, other: "Sharded") -> "Sharded":
+        return self._zip(other, torch.add)
+
+    def __sub__(self, other: "Sharded") -> "Sharded":
+        return self._zip(other, torch.sub)
 
 
 def device_guard(device: torch.device):

@@ -33,6 +33,7 @@ from repro_torch.core import transport as transport_mod
 from repro_torch.core.events import EventLoop
 from repro_torch.core.server import AggregationServer
 from repro_torch.core.worker import FLWorker
+from repro_torch.parallel import sharding as psh
 
 
 @dataclass
@@ -229,8 +230,10 @@ def _audit_history(history, label: str) -> None:
             f"{label}: retransmit counter ran backwards at v{cur.version}"
 
 
-def _finite(vec: torch.Tensor) -> bool:
-    return bool(torch.isfinite(vec).all())
+def _finite(vec) -> bool:
+    """Every element finite (a ``Sharded`` vector: every piece)."""
+    pieces = vec.shards if isinstance(vec, psh.Sharded) else (vec,)
+    return all(bool(torch.isfinite(p).all()) for p in pieces)
 
 
 def audit_chaos_run(topo) -> Dict[str, object]:
