@@ -27,11 +27,18 @@ and prints no result):
    1000, bit-exact; that ``t / 127.0`` on the card is ``t`` times
    fl32(1/127), as the plain chain's scale assumes; B3's redesign
    ``ef_encode`` (the whole EF top-k+int8
-   encode, one cluster launch) on every ``EF_CASES`` input and the select
+   encode, one cluster launch; above one cluster's size the grid form,
+   three launches: a pass over x, the select, a second pass) on every
+   ``EF_CASES`` input and the select
    alone on each top-k one, bit for bit in every output (q or recon,
-   residual, threshold, scale, kept count), with each ``EF_FAULTS``
+   residual, threshold, scale, kept count), the grid form's cases also
+   against the staged plain version and (below the pod width) each of
+   their launches alone against its plain stage (``check_ef_stages``),
+   with each ``EF_FAULTS``
    control failing (a threshold one rank lower, fmaxf for the
-   NaN-propagating max, kept with ``>``); B4's redesign
+   NaN-propagating max, kept with ``>``); the grid form timed at
+   ``GRID_TIMED`` and at the pod width (also with x = a alone, the pod
+   round's call); B4's redesign
    ``dequant_add_rows`` (one merge's decodes into the row buffer) bit for
    bit at ``ROWS_W`` decodes with stale rows zeroed; the server-optimizer
    step at N = 101,888, 29,184 (the
@@ -54,9 +61,9 @@ and prints no result):
    version and one-call library
    yardstick with CUDA events (median of 50 cold-L2 runs after warm-up;
    10 for flash attention and WKV, whose sequential ``reference_wkv`` is
-   timed too; kernel and library in turns: library, kernel, kernel,
-   library), beside the least time the card could take; B1 at W = 1, 2
-   and 30 in turns with ``torch.addmv``; the fused merge at the paths'
+   timed too, and 3 after one warm-up for their plain versions; kernel
+   and library in turns: library, kernel, kernel, library), beside the
+   least time the card could take; B1 at W = 1, 2 and 30 in turns with ``torch.addmv``; the fused merge at the paths'
    shapes in turns against the two launches it replaces (the merge, then
    B5); ``ef_encode`` and ``dequant_add_rows`` in turns against the
    parent's form of the same work (the chain of PyTorch ops around B3; 30
@@ -87,7 +94,9 @@ none of B5 anywhere, one launch of B2 or B1 per other merge, one
 ``ef_encode`` launch per encode and none of B3 or of the select alone,
 and one ``dequant_add_rows`` launch per merge whose responses waited
 encoded: sync, time_based and FedAsync async).  Every raw run is
-repeated on the CPU in this process from the same initial weights: every
+repeated on the CPU from the same initial weights (in ``CPU_WORKERS``
+worker processes, all submitted before phase 4's first card run so that
+they overlap the card's runs; ``CpuReruns``): every
 history field but accuracy must match exactly.  Accuracy cannot match
 point for point: SGD over these runs is chaotic, and a one-ulp change to
 one initial weight alone moves it (``SPREAD``, measured on the CPU with
@@ -109,7 +118,9 @@ follow the numerics).
    every encode; cohort/scale: W = 10,000 workers on one shard, cohort 64
    (row buffer at most 2 x 64, at most 256 resident links, B2 once a
    round), beside W = 64 with no cohort; cohort/main (cohort = W) and
-   topology/1x1, which must equal phase 4's raw/sync bit for bit;
+   topology/1x1, which must equal phase 4's raw/sync bit for bit over
+   their 10 rounds (the auto runs, lossy/uplink_only and cohort/main_k10
+   take 10 rounds too, lossy/sync and lossy/async 20);
    cohort/main_k10; chaos/1x2 (``fig_chaos_sweep`` at loss 0.1, failover
    on, target 0.8: one failover, t80 beside ``BENCH_chaos.json``) and
    chaos_raw/1x2.  Then the controls: a sender that re-encodes each
@@ -157,9 +168,11 @@ follow the numerics).
    for D = 4, exact select; 16,777,216, sampled, stride 128) for each
    ``SHARD_ENC_FORMS`` codec (top-k, top-k+int8, int8) on meshes of 1, 2
    and 4: every output bit for bit equal to the unsharded kernel's on the
-   gathered vectors and to the plain sharded version's, one select plus
-   3 launches a shard (2 for int8; one shard: the unsharded form's
-   launches), each ``SHARD_ENC_FAULTS`` control
+   gathered vectors and to the plain sharded (staged) version's, at
+   D = 4 each launch alone against its plain stage, 2D + 2 launches (a
+   pass 1 and a pass 2 a shard, the select and the kept partials' sum;
+   2D + 1 for int8; one shard: the unsharded form's launches), each
+   ``SHARD_ENC_FAULTS`` control
    failing; B4 per shard (``dequant_add`` on ``Sharded`` q and base) bit
    for bit; both timed with L2 flushed in turns with the unsharded form.
    Then each ``SHARD_RUNS`` run at MNIST
@@ -264,13 +277,15 @@ follow the numerics).
    ``fl_round`` (B2 once, every pod equal after it), one more local step
    and ``fl_round_delta_compressed`` with ``ErrorFeedbackCompressor(frac=
    0.1)`` (``ef_encode``'s grid form once over 1,216,389,120 elements,
+   three launches,
    B6 once); B2, ``ef_encode`` and B6 each replayed through its plain
    version on the card, bit for bit.  Reports s/step, s/round and peak
    memory.
 15. Launch (``run_launch``): the production training script, ``python -m
    repro_torch.launch.train``, in subprocesses at musicgen-medium's full
    width.  Single mode at full depth (48 layers, 1,815,234,048
-   parameters, 30 steps of 8 x 128 tokens at ``LAUNCH_LR``): the loss
+   parameters, 30 steps of 8 x 128 tokens at ``LAUNCH_LR``, no
+   checkpoint): the loss
    finite, its last ``LAUNCH_LAST`` values at least ``LAUNCH_FALL`` below
    the first, no kernel launched.  Fl mode, 2 pods, at the deepest depth
    whose estimated peak (``fl_peak_estimate``, with ``LAUNCH_RESERVE``)
@@ -522,6 +537,10 @@ FLASH_FAULTS = {"gemma2-2b global": ("no softcap",),
 # each of which the build's -Xptxas -v report must hold without spills
 WGMMA_DIMS = (64, 112, 128, 256)
 N_TIMED_FLASH = 10
+# the plain versions of B8 and B9 at full width (0.06-1.1 s a call) and
+# B7's at 17.2 GB (~0.03 s, 18 cases): their yardstick readings take 3
+# runs after 1 warm-up, not 10 after 5 (~35 s at 15 calls each)
+N_TIMED_PLAIN, WARM_PLAIN = 3, 1
 # The LM phase: gemma2-2b at full width and depth, cut from
 # SHAPES["prefill_32k"] (32 prompts of 32,768 tokens) to 2 of 8192, then
 # LM_DECODE greedy decode steps; the card-vs-CPU repeat keeps the width
@@ -679,8 +698,8 @@ class Timer:
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
-    def __call__(self, fn, n: int = N_TIMED) -> float:
-        for _ in range(5):
+    def __call__(self, fn, n: int = N_TIMED, warm: int = 5) -> float:
+        for _ in range(warm):
             fn()
         pairs = []
         for _ in range(n):
@@ -1323,20 +1342,44 @@ def check_codec_fused(dev, timer):
           f"differ from a correctly rounded division")
     if not same_bits(div, v * ref.INV_127):
         raise AssertionError("t / 127.0 on the card is not t * fl32(1/127)")
-    cases, controls = [], {}
+    cases, controls, pods = [], {}, None
     for label, (N, n_params, k, quantize, draw) in EF_CASES.items():
         a, b, c = ef_inputs(g, N, draw)
         kw = dict(k=k, n_params=n_params, quantize=quantize)
+        stride, m = (1, N) if k is None else ref.sample_plan(N, k,
+                                                             n_params)[:2]
+        grid = not (stride == 1 and m <= topk_quant.CLUSTER_MAX)
         before = topk_quant.LAUNCHES["ef_encode"]
         got = topk_quant.ef_encode(a, b, c, **kw)
+        launches = topk_quant.LAUNCHES["ef_encode"] - before
         want = ref.reference_ef_encode(a, b, c, **kw)
         bad = ef_mismatch(got, want)
-        launches = topk_quant.LAUNCHES["ef_encode"] - before
         rec = {"case": label, "N": N, "n_params": n_params, "k": k,
                "quantize": quantize, "draw": draw, "launches": launches,
+               "form": "grid" if grid else "cluster",
                "kept": int(want[4]), "thresh": float(want[2]),
                "scale": None if want[3] is None else float(want[3]),
                "mismatch": bad}
+        if launches != (3 if grid else 1):
+            raise AssertionError(f"ef_encode {label}: {launches} launches "
+                                 f"for its {rec['form']} form")
+        if grid:
+            # the grid form's staged plain version too, and each of its
+            # launches alone against its stage
+            del want
+            outs, rs, *rest = ref.reference_ef_encode_sharded(
+                [a], *(None if t is None else [t] for t in (b, c)), **kw,
+                home=dev)
+            rec["mismatch_staged"] = ef_mismatch(got, (outs[0], rs[0],
+                                                       *rest))
+            bad = bad + rec["mismatch_staged"]
+            del outs, rs, rest
+            if N <= 1 << 24:
+                rec["stages"] = check_ef_stages(
+                    [a], *(None if t is None else [t] for t in (b, c)), **kw)
+                bad = bad + rec["stages"]
+            else:
+                pods = time_pods(timer, label, a, b, c, kw)
         if k is not None:
             x = a if b is None else (a - b) + c
             rec["select_equal"] = same_bits(
@@ -1356,7 +1399,8 @@ def check_codec_fused(dev, timer):
             raise AssertionError(f"ef_encode {label}: kernel and plain "
                                  f"version differ in {bad or 'the select'}")
         cases.append(rec)
-        del a, b, c, got, want
+        del a, b, c, got
+        torch.cuda.empty_cache()
     for fault, bad in controls.items():
         print(f"check ef_encode control ({fault}, on {EF_FAULTS[fault]}): "
               f"outputs differing: {bad}")
@@ -1426,6 +1470,7 @@ def check_codec_fused(dev, timer):
           f"{enc['topk_ms']:.6f}), plain {enc['plain_ms']:.6f} ms, bound "
           f"{b_ms:.6f} ms ({b_by}); clusters the card holds at once "
           f"{enc['clusters_active']}")
+    grid = time_grid(timer, g, pods)
     W = 30
     qs, scales, bases = rows_inputs(g, W, N)
     bases = [bases[0]] * W               # one round: one dispatch base
@@ -1454,7 +1499,66 @@ def check_codec_fused(dev, timer):
     print(f"time dequant_add_rows W = {W}: kernel {ms:.6f} ms, the parent's "
           f"30 x B4 + stack + zero_ {parent_ms:.6f} ms, plain "
           f"{dec['plain_ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return {"ef_encode": enc, "dequant_add_rows": dec}
+    return {"ef_encode": enc, "ef_encode_grid": grid,
+            "dequant_add_rows": dec}
+
+
+# ef_encode's grid form is timed here, top-k+int8 on "parts" inputs (the
+# pod width also with x = a alone, as the compressed pod round calls it)
+GRID_TIMED = (16_777_216, 16_777_216, 1_677_721)
+N_TIMED_PODS = 5
+
+
+def _ef_bytes(N, abc: bool) -> int:
+    """A top-k+int8 encode's own bytes: a (and b, c) read once, q and r
+    written once, the three 0-d outputs."""
+    return (3 if abc else 1) * 4 * N + N + 4 * N + 12
+
+
+def time_pods(timer, label, a, b, c, kw):
+    """The grid form at the pod width: the kernel and the staged plain
+    version on ``label``'s inputs, and the kernel on x = (a - b) + c
+    alone (the compressed pod round's call), N_TIMED_PODS runs each."""
+    from repro_torch.kernels import ref, topk_quant
+    N = a.numel()
+    ms = timer(lambda: topk_quant.ef_encode(a, b, c, **kw), N_TIMED_PODS)
+    plain_ms = timer(lambda: ref.reference_ef_encode_sharded(
+        [a], [b], [c], **kw, home=a.device), N_TIMED_PODS)
+    x = (a - b) + c
+    ms_a = timer(lambda: topk_quant.ef_encode(x, **kw), N_TIMED_PODS)
+    del x
+    b_ms, b_by = bound_ms(_ef_bytes(N, True), 8 * N)
+    ba_ms, _ = bound_ms(_ef_bytes(N, False), 8 * N)
+    rec = {"case": label, "N": N, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "ms_x_alone": ms_a,
+           "bound_ms_x_alone": ba_ms}
+    print(f"time ef_encode grid form {label} (N = {N:,}): kernel "
+          f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}); x alone (the pod round's call) {ms_a:.6f} ms, bound "
+          f"{ba_ms:.6f} ms")
+    return rec
+
+
+def time_grid(timer, g, pods):
+    """The grid form's record of the kernels line: top-k+int8 at
+    GRID_TIMED's width on "parts" inputs, kernel and staged plain version
+    timed with L2 flushed, beside the pod width's ``pods`` record."""
+    from repro_torch.kernels import ref, topk_quant
+    N, n_params, k = GRID_TIMED
+    kw = dict(k=k, n_params=n_params, quantize=True)
+    a, b, c = ef_inputs(g, N, "parts")
+    ms = timer(lambda: topk_quant.ef_encode(a, b, c, **kw))
+    plain_ms = timer(lambda: ref.reference_ef_encode_sharded(
+        [a], [b], [c], **kw, home=a.device))
+    b_ms, b_by = bound_ms(_ef_bytes(N, True), 8 * N)
+    print(f"time ef_encode grid form N = {N:,}: kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"name": "ef_encode_grid", "route": "cuda", "ok": True,
+            "source": "src/repro_torch/kernels/csrc/topk_quant.cu",
+            "replaces": "src/repro/kernels/topk_quant.py:60",
+            "launches": 0, "max_abs_err": 0.0, "N": N, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "pods": pods}
 
 
 def cluster_occupancy(N):
@@ -1597,7 +1701,8 @@ def check_flash(dev, timer):
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True)
             ms, lib_ms, turns = timer.turns(kern, lib, N_TIMED_FLASH)
-            rec.update(ms=ms, plain_ms=timer(plain, N_TIMED_FLASH),
+            rec.update(ms=ms, plain_ms=timer(plain, N_TIMED_PLAIN,
+                                             WARM_PLAIN),
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                        flops=flops, turns=turns)
             print(f"time flash_attention {label}: kernel {rec['ms']:.4f} ms "
@@ -1818,10 +1923,12 @@ def check_wkv(dev, timer):
             rec.update(wkv_bound(B, S, H, K, C, r.element_size(),
                                  with_state))
             rec.update(ms=timer(kern, N_TIMED_WKV),
-                       plain_ms=timer(plain, N_TIMED_WKV), library_ms=None)
+                       plain_ms=timer(plain, N_TIMED_PLAIN, WARM_PLAIN),
+                       library_ms=None)
             if dt == torch.bfloat16 and not with_state:
                 rec["reference_wkv_ms"] = timer(
-                    lambda: ref.reference_wkv(r, k, v, w, u), 3)
+                    lambda: ref.reference_wkv(r, k, v, w, u), N_TIMED_PLAIN,
+                    WARM_PLAIN)
             print(f"time wkv {label}: kernel {rec['ms']:.4f} ms, plain "
                   f"{rec['plain_ms']:.4f} ms, reference_wkv "
                   f"{rec.get('reference_wkv_ms')} ms, bound "
@@ -2010,13 +2117,10 @@ def replay_run(setups, report):
         raise AssertionError(f"replay of {REPLAY_RUN}: {bad[:5]}")
 
 
-def compare_with_cpu(key, setup, report):
-    """The run again on the CPU from the same initial weights: every
-    non-accuracy field equal, accuracy within ``gap_bounds``."""
-    from repro_torch.core import run_fl
-    spec = RUNS[key]
-    h = run_fl(setup, epochs_per_round=EPOCHS, max_rounds=spec["rounds"],
-               **spec["run_kw"])
+def compare_with_cpu(key, h, report):
+    """The run again on the CPU from the same initial weights (its history
+    ``h``, from ``CpuReruns``): every non-accuracy field equal, accuracy
+    within ``gap_bounds``."""
     gpu = report[key]["history"]
     if len(gpu) != len(h):
         raise AssertionError(f"{key}: {len(gpu)} points on the card, "
@@ -2041,9 +2145,74 @@ def compare_with_cpu(key, setup, report):
                              f"above {bounds}")
 
 
-def run_phase(phase, setups, report):
-    """Phases 4-6: every run of ``phase`` on the card, then the raw ones
-    on the CPU."""
+# The CPU reruns of phases 4-7 run in CPU_WORKERS worker processes
+# (spawned: no CUDA state), CPU_THREADS torch threads each, all submitted
+# before phase 4's first card run, so they overlap the card runs, which
+# leave the host's other cores idle; the card process compares each run
+# with its rerun in turn.  The card runs' host-clock readings (s/round,
+# cohort/scale's rounds/s) are taken beside these workers.
+CPU_WORKERS, CPU_THREADS = 3, 2
+
+
+def _cpu_worker_init():
+    torch.set_num_threads(CPU_THREADS)
+
+
+def cpu_rerun(kind, key, weights0):
+    """One CPU rerun, from the card's initial weights ``weights0``
+    (numpy): kind "run", the history of RUNS run ``key``; "fleet", FLEET
+    run ``key``'s ``(history, extras, codecs)``."""
+    if kind == "run":
+        from repro_torch.core import run_fl
+        spec = RUNS[key]
+        setups = Setups("cpu")
+        setups._weights0[(spec["phase"], spec["model"])] = weights0
+        return run_fl(setups.get(spec, "cpu"), epochs_per_round=EPOCHS,
+                      max_rounds=spec["rounds"], **spec["run_kw"])
+    with recorded_codecs() as codecs:
+        h, extra = fleet_call(key, fleet_setup(key, "cpu", dict(weights0)))
+    return h, extra, codecs
+
+
+class CpuReruns:
+    """Every CPU rerun of phases 4-7, submitted at once.  The card's
+    initial weights are drawn first (each compared run's setup on the
+    card, and one fleet setup of each kind that draws its own), so the
+    reruns start from them."""
+
+    def __init__(self, setups):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init)
+        jobs = []
+        for key, spec in RUNS.items():
+            if spec["compare"]:
+                setups.get(spec, setups.dev)
+                jobs.append(("run", key, setups._weights0[(spec["phase"],
+                                                           spec["model"])]))
+        main_w0 = setups._weights0[("main", "mlp")]
+        self.fleet_weights0 = {"main": main_w0, "lossy": main_w0}
+        for key, spec in FLEET.items():
+            if spec["kind"] not in self.fleet_weights0:
+                fleet_setup(key, setups.dev, self.fleet_weights0)
+        jobs += [("fleet", key, self.fleet_weights0)
+                 for key, spec in FLEET.items()
+                 if spec["compare"] or spec["kind"] == "auto"]
+        self.jobs = {(kind, key): self.pool.submit(cpu_rerun, kind, key, w)
+                     for kind, key, w in jobs}
+
+    def result(self, kind, key):
+        return self.jobs[(kind, key)].result()
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phase(phase, setups, report, cpu):
+    """Phases 4-6: every run of ``phase`` on the card, then each compared
+    one against its CPU rerun (``cpu``, a ``CpuReruns``)."""
     keys = [k for k, s in RUNS.items() if s["phase"] == phase]
     for key in keys:
         drive(key, setups.get(RUNS[key], setups.dev), report)
@@ -2070,7 +2239,7 @@ def run_phase(phase, setups, report):
                                  f"< 0.8")
     for key in keys:
         if RUNS[key]["compare"]:
-            compare_with_cpu(key, setups.get(RUNS[key], "cpu"), report)
+            compare_with_cpu(key, cpu.result("run", key), report)
 
 
 # ---------------------------------------------------------------------------
@@ -2111,17 +2280,19 @@ def _fleet(kind, rounds, run_kw=None, compare=True, **extra):
 
 # run key -> what it drives; "compare": every non-accuracy field equal to
 # a CPU run's; "same_as": equal to that phase 4 run on the card, bit for
-# bit, accuracy included.  Rounds are leaf rounds, root rounds for the
-# chaos runs.
+# bit, accuracy included (its first rounds, where this run has fewer).
+# Rounds are leaf rounds, root rounds for the chaos runs.  The runs held
+# to no accuracy bound take 10 rounds, not 20 (chip_smoke.py inside half
+# its time limit); lossy/sync, held to MAIN_GAPS, keeps 20.
 FLEET = {
     "lossy/sync": _fleet("lossy", 20, RAW_SYNC),
     "lossy/async": _fleet("lossy", 20,
                           {**MODES["async"], **TRANSPORTS["raw"]}),
     # top-k kept counts follow the numerics, so not field by field
     "lossy/uplink_only": _fleet(
-        "lossy", 20, {**MODES["sync"], **TRANSPORTS["uplink_only"]},
+        "lossy", 10, {**MODES["sync"], **TRANSPORTS["uplink_only"]},
         compare=False),
-    **{f"auto/{t}": _fleet("auto", 20, {**SYNC, "transport": "auto"},
+    **{f"auto/{t}": _fleet("auto", 10, {**SYNC, "transport": "auto"},
                            compare=t == "backbone", div=d)
        for t, d in AUTO_TIERS.items()},
     "cohort/scale": _fleet("scale", SCALE["rounds"],
@@ -2129,10 +2300,10 @@ FLEET = {
                            W=SCALE["W"]),
     "cohort/scale_plain": _fleet("scale", SCALE["rounds"], SYNC,
                                  compare=False, W=SCALE["plain_W"]),
-    "cohort/main": _fleet("main", 20, {**RAW_SYNC, "cohort": 30},
+    "cohort/main": _fleet("main", 10, {**RAW_SYNC, "cohort": 30},
                           compare=False, same_as="raw/sync"),
-    "cohort/main_k10": _fleet("main", 20, {**RAW_SYNC, "cohort": 10}),
-    "topology/1x1": _fleet("main", 20, {**RAW_SYNC, "topology": "1x1"},
+    "cohort/main_k10": _fleet("main", 10, {**RAW_SYNC, "cohort": 10}),
+    "topology/1x1": _fleet("main", 10, {**RAW_SYNC, "topology": "1x1"},
                            compare=False, same_as="raw/sync"),
     "chaos/1x2": _fleet("chaos", CHAOS_MAX_ROUNDS, compare=False,
                         codec="topk_ef+int8", target=CHAOS_TARGET),
@@ -2486,15 +2657,15 @@ def fleet_drive(key, setup, report, rounds=None):
     return report[key]
 
 
-def fleet_compare(key, setup, report):
-    """Fleet run ``key`` again on the CPU: every non-accuracy field equal
+def fleet_compare(key, cpu_run, report):
+    """Fleet run ``key`` against its CPU rerun (``cpu_run``, ``(history,
+    extras, codecs)`` from ``CpuReruns``): every non-accuracy field equal
     (retransmits included), and what the kind adds (the lossy runs'
     ledger, the scale runs' evictions, the chaos runs' failover and
     audit); the auto runs' codec counts within AUTO_CODEC_GAP, at the
     backbone every field too.  Returns the CPU history and extras."""
     spec = FLEET[key]
-    with recorded_codecs() as codecs:
-        h, extra = fleet_call(key, setup)
+    h, extra, codecs = cpu_run
     gpu = report[key]
     if spec["compare"]:
         if len(gpu["history"]) != len(h):
@@ -2543,21 +2714,21 @@ def _without_accuracy(x):
     return x
 
 
-def run_fleet(setups, report):
+def run_fleet(setups, report, cpu):
     """Phase 7: every FLEET run on the card, the card-only checks, the
-    controls, then the CPU runs."""
+    controls, then the comparisons with the CPU reruns (``cpu``)."""
     from repro_torch.core import server, time_to_accuracy
     dev = setups.dev
-    main_w0 = setups._weights0[("main", "mlp")]
-    weights0 = {"main": main_w0, "lossy": main_w0}
+    weights0 = cpu.fleet_weights0
     for key in FLEET:
         fleet_drive(key, fleet_setup(key, dev, weights0), report)
     # the cohort covering every worker and the passthrough topology are
     # the single-server run: phase 4's on the card, bit for bit
     for key, spec in FLEET.items():
         if "same_as" in spec:
-            same = report[key]["history"] == report[spec["same_as"]][
-                "history"]
+            mine = report[key]["history"]
+            same = (len(mine) == spec["rounds"] + 1 and mine
+                    == report[spec["same_as"]]["history"][:len(mine)])
             report[key]["equals_" + spec["same_as"]] = same
             print(f"fleet {key}: history equal to phase 4's "
                   f"{spec['same_as']} bit for bit: {same}")
@@ -2602,17 +2773,17 @@ def run_fleet(setups, report):
           f"({extra['retx_up']} retransmitted copies); caught: {caught}")
     if not caught:
         raise AssertionError("the re-encoding control passed the check")
-    cpu = {}
+    cpu_runs = {}
     for key, spec in FLEET.items():
         if spec["compare"] or spec["kind"] == "auto":
-            cpu[key] = fleet_compare(key, fleet_setup(key, "cpu", weights0),
-                                     report)
+            cpu_runs[key] = fleet_compare(key, cpu.result("fleet", key),
+                                          report)
     # the tuner's controls, on the card against the CPU's correct counts
     key = f"auto/{AUTO_FAULT_TIER}"
     for fault in AUTO_FAULTS:
         with faulty_tuner(fault), recorded_codecs() as codecs:
             fleet_call(key, fleet_setup(key, dev, weights0))
-        gap = codec_gap(codecs, cpu[key][2])
+        gap = codec_gap(codecs, cpu_runs[key][2])
         controls[f"tuner {fault}"] = {"codecs": codecs, "codec_gap": gap}
         print(f"control tuner {fault}: codecs {codecs}, gap {gap:.4f} "
               f"against the CPU (limit {AUTO_CODEC_GAP})")
@@ -3016,12 +3187,12 @@ def shard_enc_launches(D: int, unsharded: int) -> tuple[int, int]:
     """(unsharded, sharded) ef_encode launches of a SHARD_RUNS run on D
     shards whose unsharded twin launched ``unsharded`` (one a top-k
     encode: the exact path at MNIST width).  One shard: the unsharded form
-    on its one piece, the same launches.  D > 1: a sample, a stats and a
-    sweep a shard (every shard holds a share of the sample), and the
-    select, for each encode."""
+    on its one piece, the same launches.  D > 1: a pass 1 and a pass 2 a
+    shard, the select and the kept partials' sum on the home device, for
+    each encode."""
     if D == 1:
         return unsharded, 0
-    return 0, (1 + 3 * D) * unsharded
+    return 0, (2 * D + 2) * unsharded
 
 
 # check_shard_encode: ef_encode on Sharded a, b, c, all present (a sharded
@@ -3038,7 +3209,8 @@ SHARD_ENC_FORMS = {"topk_ef": (True, False), "topk_ef+int8": (True, True),
 # would return must fail the check (the inputs put max |x| at the first
 # element of the last shard)
 SHARD_ENC_FAULTS = ("a shard's sample offset one element off",
-                    "the last shard's partials left out of the reduction")
+                    "the last shard's partials left out of the reduction",
+                    "a shard's kept partials left out of the total")
 N_TIMED_SHARD = 20
 
 
@@ -3231,7 +3403,9 @@ def check_b7(dev, sizes=B7_SIZES, meshes=B7_MESHES, fault=None):
                 case = {"form": form, "W": W, "N": N, "D": D, "ms": ms,
                         "unsharded_ms": ums,
                         "library_ms": lib_ms.get(form),
-                        "plain_ms": timer(lambda: b7_plain(form, o, D), n),
+                        "plain_ms": timer(lambda: b7_plain(form, o, D),
+                                          *((N_TIMED_PLAIN, WARM_PLAIN)
+                                            if W * N > 1 << 28 else (n,))),
                         "bound_ms": b_ms, "bound_by": b_by,
                         "n_bytes": n_bytes, "shard_row_bytes": shard_bytes,
                         "turns": turns}
@@ -3263,8 +3437,9 @@ def shard_enc_fault(fault, sh, *, k, n_params, quantize):
     """What a sharded ef_encode with ``fault`` would return on the
     ``Sharded`` inputs ``sh`` (gathered): the plain sharded decomposition
     (``ref.reference_ef_encode_sharded``) with the last shard's share of
-    the sample read one element late, or with the last shard's max and
-    kept count left out of the reduction."""
+    the sample read one element late, with the last shard's max and kept
+    count left out of the reduction, or with only its kept partials left
+    out of the kept total (the sum after the passes 2)."""
     from repro_torch.kernels import ref
     if fault not in SHARD_ENC_FAULTS:
         raise ValueError(fault)
@@ -3285,9 +3460,10 @@ def shard_enc_fault(fault, sh, *, k, n_params, quantize):
         keep = xs
     else:
         thresh = ref.reference_topk_threshold_sharded(xs, k, n_params, home)
-        keep = xs[:-1]
+        keep = xs[:-1] if fault == SHARD_ENC_FAULTS[1] else xs
+    counted = xs[:-1] if fault != SHARD_ENC_FAULTS[0] else xs
     x = torch.cat(xs)
-    kept = sum(torch.sum(p.abs() >= thresh) for p in keep)
+    kept = sum(torch.sum(p.abs() >= thresh) for p in counted)
     if not quantize:
         recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
         return recon, x - recon, thresh, None, kept
@@ -3304,6 +3480,96 @@ def _gathered(out):
                  for o in out)
 
 
+def check_ef_stages(pa, pb, pc, *, k, n_params, quantize):
+    """Each launch of ef_encode's grid form, alone, against its stage of
+    the plain staged version (``ref.reference_ef_pass1``,
+    ``reference_ef_select``, ``reference_ef_pass2``) on the same inputs:
+    the pieces ``pa``, ``pb``, ``pc`` (one vector: one piece; ``pb``,
+    ``pc`` None or all present) in shard order.  Pass 1 a piece: its share
+    of the sample, x where stored, the max of its max keys and (int8) its
+    kept partials' sum; the select (top-k) or the reduce (int8) on the
+    first piece's device: thresh and scale; pass 2 a piece: q or recon, r
+    and its kept partials' sum; the kept total.  Launches here do not
+    count as the path's.  Returns the names of the stages' outputs that
+    differ."""
+    from repro_torch.kernels import ref, topk_quant as tq
+    D, S = len(pa), pa[0].numel()
+    n, home = D * S, pa[0].device
+    topk = k is not None
+    if topk:
+        stride, m, ks = ref.sample_plan(n, k, n_params)
+        plan = ref.shard_samples(n, D, stride)
+    else:
+        stride, plan = 1, [(0, 0)] * D
+    G = tq.grid_blocks(S)
+    store = pb is not None
+    bad, p1, k_pass1 = [], [], []
+    i32 = torch.int32
+    for d, (off, md) in enumerate(plan):
+        a, b, c = pa[d], pb and pb[d], pc and pc[d]
+        sample = torch.empty(md, device=home) if md else None
+        x = torch.empty(S, device=home) if store else None
+        pm = torch.empty(G, dtype=i32, device=home)
+        pk = None if topk else torch.empty(G, dtype=i32, device=home)
+        tq.ef_pass1(a, b, c, blocks=G, off=off, stride=stride, sample=sample,
+                    x=x, part_max=pm, part_kept=pk)
+        xv, smp, mx, k0 = ref.reference_ef_pass1(a, b, c, off=off,
+                                                 stride=stride, m=md,
+                                                 count=not topk)
+        for name, got, want in (("x", x, xv if store else None),
+                                ("sample", sample, smp if md else None),
+                                ("max", tq.key_max(pm), mx)):
+            if got is not None and not same_bits(got, want):
+                bad.append(f"pass 1 piece {d}: {name}")
+        if pk is not None and int(pk.sum()) != int(k0):
+            bad.append(f"pass 1 piece {d}: kept partials")
+        p1.append((x if store else a, sample, pm, pk, xv, mx, k0))
+        k_pass1.append(k0)
+    stats = torch.empty(3, device=home)
+    maxes = torch.stack([mx for *_, mx, _ in p1])
+    pmax = torch.cat([pm for _, _, pm, *_ in p1])
+    if topk:
+        smp = torch.cat([t for _, t, *_ in p1 if t is not None])
+        tq.ef_select(smp, ks, stats, exact=n_params <= ref.SAMPLE_CAP,
+                     part_max=pmax if quantize else None)
+        t, sc = ref.reference_ef_select(smp, ks, maxes if quantize else None,
+                                        exact=n_params <= ref.SAMPLE_CAP)
+    else:
+        tq.ef_reduce(stats, part_max=pmax,
+                     part_kept=torch.cat([pk for _, _, _, pk, *_ in p1]),
+                     thresh=True)
+        t = torch.zeros((), device=home)
+        sc = ref.reference_int8_scale(maxes)
+        if int(tq.kept_word(stats)[0]) != int(sum(k_pass1)):
+            bad.append("reduce: kept")
+    if not same_bits(stats[0], t):
+        bad.append("select: thresh")
+    if quantize and not same_bits(stats[1], sc):
+        bad.append("select: scale")
+    kparts, total = [], 0
+    for d, (x, _, _, _, xv, _, _) in enumerate(p1):
+        out = torch.empty(S, dtype=torch.int8 if quantize else torch.float32,
+                          device=home)
+        r = torch.empty(S, device=home)
+        pk = torch.empty(G, dtype=i32, device=home)
+        tq.ef_pass2(x, stats, blocks=G, quantize=quantize, out=out, r=r,
+                    part_kept=pk)
+        o, rr, kd = ref.reference_ef_pass2(xv, t, sc if quantize else None)
+        for name, got, want in (("out", out, o), ("r", r, rr)):
+            if not same_bits(got, want):
+                bad.append(f"pass 2 piece {d}: {name}")
+        if int(pk.sum()) != int(kd):
+            bad.append(f"pass 2 piece {d}: kept partials")
+        kparts.append(pk)
+        total += int(kd)
+        del out, r, o, rr
+    if topk:
+        tq.ef_reduce(stats, part_kept=torch.cat(kparts))
+        if int(tq.kept_word(stats)[0]) != total:
+            bad.append("kept sum")
+    return bad
+
+
 def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
                        fault=None):
     """ef_encode's sharded form on ``dev``: each SHARD_ENC_FORMS codec at
@@ -3311,9 +3577,10 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
     repeating ``dev``), a, b and c all sharded; every output (q or recon
     and the residual gathered, thresh, scale, kept) equal bit for bit to
     the unsharded ef_encode's on the whole vectors and to the plain
-    sharded version's, and on the card the launches one select plus a
-    sample, a stats and a sweep a shard (a stats and a sweep a shard for
-    int8; at D = 1 the unsharded form's, under its own counter).  Then B4 per shard (``dequant_add`` on a ``Sharded`` q and
+    sharded version's, at the largest D each launch alone against its
+    plain stage (``check_ef_stages``), and on the card 2D + 2 launches
+    (2D + 1 for int8; at D = 1 the unsharded form's, under its own
+    counter).  Then B4 per shard (``dequant_add`` on a ``Sharded`` q and
     base: one launch a shard) bit for bit against the unsharded B4.  On
     the card each is timed, L2 flushed, in turns with the unsharded form.
     With ``fault`` (top-k+int8 at the first size, D = 2) the sharded
@@ -3357,9 +3624,7 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
                 e = max_err(got[1][finite], whole[1][finite])
                 rec["err"] = max(rec["err"], e)
                 stride = ref.sample_plan(N, k, n_params)[0] if topk else 1
-                want_l = whole_l if D == 1 else (1 + sum(
-                    m > 0 for _, m in ref.shard_samples(N, D, stride))
-                    if topk else 0) + 2 * D
+                want_l = whole_l if D == 1 else 2 * D + (2 if topk else 1)
                 if bad or bad_plain:
                     raise AssertionError(
                         f"sharded ef_encode {form} N = {N} D = {D}: "
@@ -3375,6 +3640,15 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
                         "k": kw["k"], "D": D, "stride": stride,
                         "launches": launches, "kept": int(whole[4]),
                         "equal": True}
+                if fault is None and D == max(meshes) and D > 1:
+                    # each launch of the form alone, against its stage
+                    stages = check_ef_stages(
+                        *(None if t is None else t.shards for t in sh), **kw)
+                    if stages:
+                        raise AssertionError(
+                            f"sharded ef_encode {form} N = {N} D = {D}: "
+                            f"stages differ from the plain stages: {stages}")
+                    case["stages_equal"] = True
                 if timer is not None:
                     ms, ums, turns = timer.turns(
                         lambda: topk_quant.ef_encode(*sh, **kw),
@@ -3435,6 +3709,24 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
             torch.cuda.empty_cache()
     rec["ok"] = True
     return rec
+
+
+def shard_enc_controls(dev) -> dict:
+    """Each SHARD_ENC_FAULTS control on ``dev``: check_shard_encode given
+    the fault must fail.  Returns fault -> caught."""
+    out = {}
+    for fault in SHARD_ENC_FAULTS:
+        try:
+            check_shard_encode(dev, fault=fault)
+            out[fault] = False
+        except AssertionError:
+            out[fault] = True
+        print(f"check sharded ef_encode control ({fault}): caught "
+              f"{out[fault]}")
+        if not out[fault]:
+            raise AssertionError(f"sharded ef_encode: the check does not "
+                                 f"catch {fault}")
+    return out
 
 
 def recorded_transports():
@@ -3631,6 +3923,7 @@ def run_shard(dev, setups, report):
     counter summed over the sharded runs."""
     rec = check_b7(dev)
     enc = check_shard_encode(dev)
+    enc["controls"] = shard_enc_controls(dev)
     setup = setups.get(RUNS["raw/sync"], dev)
     runs = {key: shard_run(key, setup) for key in SHARD_RUNS}
     resume = shard_resume(setup, want=runs[SHARD_RESUME[0]]["histories"])
@@ -5095,8 +5388,12 @@ LAUNCH_LAYERS = 48
 # at least LAUNCH_FALL below the first.
 LAUNCH_LR = 3e-4
 LAUNCH_LAST, LAUNCH_FALL = 5, 0.1
+# single mode writes no checkpoint: at 48 layers one is 25 GB (14 B a
+# parameter), and the trainer's default (every 20 steps) would write one
+# at step 20 that nothing here reads; the kill-and-resume run below holds
+# the checkpoints, at 2 layers
 LAUNCH_SINGLE = ["--steps", "30", "--batch", "8", "--seq", "128", "--lr",
-                 LAUNCH_LR]
+                 LAUNCH_LR, "--ckpt-every", "31"]
 LAUNCH_FL = ["--mode", "fl", "--pods", "2", "--steps", "3", "--fl-every",
              "2", "--batch", "8", "--seq", "128", "--lr", LAUNCH_LR]
 LAUNCH_FREE = 10e9
@@ -5104,9 +5401,11 @@ LAUNCH_FREE = 10e9
 # 73.89 against 72.68 GB reserved on an H100 80GB HBM3 at 700 W)
 LAUNCH_RESERVE = 1.5e9
 LAUNCH_RESUME_LAYERS = 2
-# the kill lands after the first of six checkpoints: the writer would
-# need 20 more steps and 5 more writes to finish
-LAUNCH_RESUME = ["--steps", "24", "--ckpt-every", "4", "--batch", "8",
+# the kill lands after the first of three checkpoints: the writer would
+# need 8 more steps and 2 more writes to finish (each 1.1 GB write and
+# the manager's reads of the kept files cost seconds; two resumed
+# checkpoints check what more would)
+LAUNCH_RESUME = ["--steps", "12", "--ckpt-every", "4", "--batch", "8",
                  "--seq", "128", "--lr", LAUNCH_LR]
 LAUNCH_TIMEOUT_S = 600.0
 # training runs at attn_impl "xla": fl mode's one round is the only launch
@@ -5209,15 +5508,19 @@ def run_train(dev, work, name, *args, check=None):
     """One trainer process to its end: its summary, and with ``check``
     (see ``launch_train_checked``) the checked calls under "checked"."""
     log = Path(work) / f"{name}.log"
+    t0 = time.perf_counter()
     with open(log, "wb") as f:
         proc = subprocess.run(train_argv(dev, *args, check=check), stdout=f,
                               stderr=subprocess.STDOUT, cwd=ROOT,
                               env=_train_env(), timeout=LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
     text = log.read_text(errors="replace")
     if proc.returncode != 0:
         raise AssertionError(f"launch {name}: exit {proc.returncode}:\n"
                              f"{text[-3000:]}")
     out = train_summary(text)
+    out["wall_s"] = wall
+    print(f"launch {name}: the process took {wall:.1f} s")
     if check is not None:
         out["checked"] = train_summary(text, "[check] ")
     return out
@@ -5949,15 +6252,18 @@ def main() -> int:
     records = check_kernels(dev)
     runs, lm_rec, rwkv_rec, zoo_rec, pods_rec = {}, {}, {}, {}, {}
     launch_rec, dry_rec = {}, {}
+    cpu = None
     try:
         setups = Setups(dev)
+        cpu = CpuReruns(setups)
         for phase in PHASES:
             t0 = time.perf_counter()
-            run_phase(phase, setups, runs)
+            run_phase(phase, setups, runs, cpu)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        run_fleet(setups, runs)
+        run_fleet(setups, runs, cpu)
         print(f"phase fleet: {time.perf_counter() - t0:.1f} s")
+        cpu.close()
         fl_runs = [r for r in runs.values() if "launches" in r]
         for required in (REQUIRED, FLEET_REQUIRED):
             for name, (ctr, keys) in required.items():
@@ -6008,7 +6314,7 @@ def main() -> int:
         pods = run_pods(dev, pods_rec)
         for name, ctr in (("fedavg_agg_flat", "agg"),
                           ("fedavg_mix_flat", "mix"),
-                          ("ef_encode", "ef_encode")):
+                          ("ef_encode_grid", "ef_encode")):
             if pods[ctr] < 1:
                 raise AssertionError(f"{name} never launched in phase 14")
             records[name]["launches"] += pods[ctr]
@@ -6032,6 +6338,8 @@ def main() -> int:
         records["fedavg_agg_flat"]["launches"] += agg
         print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
     finally:
+        if cpu is not None:
+            cpu.close()
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         seconds = time.perf_counter() - t_script

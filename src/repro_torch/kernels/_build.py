@@ -42,19 +42,18 @@ SIGNATURES = {
     "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
     # ctas, dynamic shared memory, int* clusters
     "ef_cluster_max_active": (_C, _I64, _P),
-    # a, b, c; N, stride, m, k; sweep, quantize; q, recon, r, thresh,
-    # scale, kept; ctas; stream
+    # a, b, c; N, stride, m, k; sweep, quantize; part, n_part; q, recon,
+    # r, thresh, scale, kept; ctas; stream
     "ef_encode_cluster_launch": (_P,) * 3 + (_I64,) * 4 + (_C, _C)
-    + (_P,) * 6 + (_C, _P),
-    # the grid and sharded forms' pieces: a, b, c; N, off, stride, m; out;
-    # stream
-    "ef_encode_sample_launch": (_P,) * 3 + (_I64,) * 4 + (_P, _P),
-    # a, b, c; N; thresh_in, part; blocks; stream
-    "ef_encode_stats_launch": (_P,) * 3 + (_I64, _P, _P, _C, _P),
-    # a, b, c; N; thresh_in, part; n_part, group; blocks, quantize; q,
-    # recon, r, thresh, scale, kept; stream
-    "ef_encode_sweep_launch": (_P,) * 3 + (_I64, _P, _P, _I64, _I64, _C, _C)
-    + (_P,) * 6 + (_P,),
+    + (_P, _I64) + (_P,) * 6 + (_C, _P),
+    # the grid and sharded forms' passes: a, b, c; N, off, stride, m;
+    # sample, x, part_max, part_kept, zero; blocks; stream
+    "ef_encode_pass1_launch": (_P,) * 3 + (_I64,) * 4 + (_P,) * 5
+    + (_C, _P),
+    # x; N; ts; quantize; q, recon, r, part_kept, kept; blocks; stream
+    "ef_encode_pass2_launch": (_P, _I64, _P, _C) + (_P,) * 5 + (_C, _P),
+    # part_max, n_max, part_kept, n_kept; thresh, scale, kept; stream
+    "ef_encode_reduce_launch": (_P, _I64, _P, _I64) + (_P,) * 3 + (_P,),
     # host arrays of q, scale and base pointers; n_dec, n_zero; rows; N;
     # stream
     "dequant_add_rows_launch": (_P, _P, _P, _C, _C, _P, _I64, _P),

@@ -8,8 +8,8 @@
 //   dequant_add (_decode_kernel)       -> dequant_add_launch:
 //       out = base + q * scale
 // and, redesigned for Hopper around the paths that call them:
-//   ef_encode_cluster_launch (+ ef_encode_stats_launch and
-//   ef_encode_sweep_launch above one cluster's size): the whole error-
+//   ef_encode_cluster_launch (above one cluster's size, between
+//   ef_encode_pass1_launch and ef_encode_pass2_launch): the whole error-
 //       feedback top-k(+int8) encode of repro/core/transport.py
 //       (ef_topk_encode: x = (a - b) + c, the k-th largest |x| as the
 //       threshold, max|x| / 127 as the scale, the kept count, then q and r
@@ -46,23 +46,40 @@
 // no HBM round trip between the steps.
 //
 // Above one cluster's size (the strided-sample threshold of transport.py's
-// DGC path, or the int8 codec over a large vector), ef_cluster selects over
-// the sample only, then ef_grid_stats (per-block max key and kept count) and
-// ef_grid_sweep (every block reduces the per-block partials, block 0 writes
-// scale and kept) cover the full vector: three launches, no atomics, exact.
-//
-// A vector sharded over D devices (a sharded server's link vectors, JAX's
-// shard-local slices) is encoded by the same pieces, split apart:
-// ef_sample copies each shard's share of the select's input x[::stride]
-// (global index order, x formed as above) into a small buffer; the pieces
-// are concatenated on the home device, where one ef_cluster selects over
-// them (stride 1, the same multiset, so the same threshold bit for bit);
-// each shard runs ef_grid_stats on its own piece; the D shards' partials,
-// concatenated in shard order, go to every device, and each shard's
-// ef_grid_sweep reduces all D * blocks of them (n_part, in groups of
-// `group` max keys then `group` counts), so every shard derives the same
-// scale and kept: integer max and sum are exact in any order.  Only the
-// sample (at most 1 MB) and the partials cross devices.
+// DGC path, or the int8 codec over a large vector) the encode is two
+// streaming passes over x around one small launch, bound by the bytes of
+// the passes (at 16.8M with a, b and c: 419 MB, against the 285 MB that
+// the function's own operands are):
+//   ef_pass1 reads a, b and c once with 16-byte loads on a grid that fills
+//   the card (GRID_BLOCKS blocks, two chunks of 48 bytes a thread in
+//   flight), stores x where pass 2 is to read it (into the residual's
+//   buffer, the loads evict-first so that L2 keeps the x written last; not
+//   where x is a itself), writes the select's input
+//   x[off::stride] from the same registers (the sampled index tracked by
+//   adds) and per-block max keys; for the int8 codec, whose threshold 0 is
+//   known before any pass, also per-block kept counts.  It waits for
+//   nothing.
+//   ef_cluster, without sweep, selects over the gathered sample (stride 1,
+//   16-byte loads from one buffer) and reduces the max keys into the scale
+//   in the same launch (ef_reduce instead for the int8 codec: the scale
+//   and kept, no select).  Only thresh and scale, 8 bytes, go on.
+//   ef_pass2 reads x (4 bytes an element when pass 1 stored it; a itself
+//   otherwise) from the end, so its first reads hit L2, writes q or recon
+//   and r (in place over x), and counts
+//   |x| >= thresh: into a counter pass 1 zeroed (one vector) or per-block
+//   partials that one ef_reduce sums after every piece's pass 2 (a sharded
+//   vector).  The kept count is an output only, so nothing waits for it.
+// Three launches for one vector; for a vector sharded over D devices (a
+// sharded server's link vectors, JAX's shard-local slices) a pass 1 and a
+// pass 2 a shard, each on its shard's device, one select and (top-k) one
+// sum of the kept partials on the home device: 2D + 2 (2D + 1 for int8).
+// Each shard's pass 1 writes its share of the sample (global index order)
+// and its partials straight into one buffer each on the home device where
+// the shard lies there (a mesh repeating one card: no copy, no
+// concatenation), else into its own buffers, copied there.  The radix
+// select over the same multiset gives the same threshold bit for bit, and
+// integer max and sum are exact in any order, so every output equals the
+// unsharded encode's.
 //
 // Numerics: the explicit _rn intrinsics keep nvcc from contracting
 // x - q * scale (or base + q * scale) into an FMA, and x / scale is the
@@ -117,7 +134,6 @@ inline unsigned blocks_for(long long n) {
 // ---- the fused EF encode ---------------------------------------------------
 
 constexpr int kSelThreads = 1024;      // threads of a cluster CTA
-constexpr int kGridThreads = 256;      // threads of a grid-path block
 constexpr unsigned kAbs = 0x7fffffffu;
 constexpr float kThreshFloor = 1e-30f; // ref.THRESH_FLOOR
 constexpr float kScaleFloor = 1e-12f;
@@ -169,6 +185,32 @@ __device__ __forceinline__ float4 x_at4(const float* __restrict__ a,
   }
   if (c) {
     const float4 w = reinterpret_cast<const float4*>(c)[j4];
+    v = make_float4(__fadd_rn(v.x, w.x), __fadd_rn(v.y, w.y),
+                    __fadd_rn(v.z, w.z), __fadd_rn(v.w, w.w));
+  }
+  return v;
+}
+
+// x_at4 for the grid passes: with `stream`, the loads are evict-first
+// (read once: they leave L2 to what pass 1 stores for pass 2)
+__device__ __forceinline__ float4 ld4(const float* p, long long j4,
+                                      bool stream) {
+  const float4* q = reinterpret_cast<const float4*>(p) + j4;
+  return stream ? __ldcs(q) : *q;
+}
+
+__device__ __forceinline__ float4 x_at4s(const float* __restrict__ a,
+                                         const float* __restrict__ b,
+                                         const float* __restrict__ c,
+                                         long long j4, bool stream) {
+  float4 v = ld4(a, j4, stream);
+  if (b) {
+    const float4 w = ld4(b, j4, stream);
+    v = make_float4(__fsub_rn(v.x, w.x), __fsub_rn(v.y, w.y),
+                    __fsub_rn(v.z, w.z), __fsub_rn(v.w, w.w));
+  }
+  if (c) {
+    const float4 w = ld4(c, j4, stream);
     v = make_float4(__fadd_rn(v.x, w.x), __fadd_rn(v.y, w.y),
                     __fadd_rn(v.z, w.z), __fadd_rn(v.w, w.w));
   }
@@ -272,8 +314,13 @@ __device__ void find_digit(const unsigned* tot, unsigned R, unsigned* digit,
   }
 }
 
+// kScale (the grid form's select, without sweep): the n_part max keys of
+// part, pass 1's partials, reduced into the scale by CTA 0 as well; the
+// cluster form itself is the kScale = false instance
+template <bool kScale>
 __global__ void __launch_bounds__(kSelThreads, 1)
-    ef_cluster(const __grid_constant__ EncodeArgs p) {
+    ef_cluster(const __grid_constant__ EncodeArgs p,
+               const unsigned* __restrict__ part, long long n_part) {
   extern __shared__ float4 dyn[];
   float* xs = reinterpret_cast<float*>(dyn);
   __shared__ unsigned hist[2][256];
@@ -356,6 +403,16 @@ __global__ void __launch_bounds__(kSelThreads, 1)
                                          kThreshFloor)
                          : 0.f;
   if (!p.sweep) {
+    if constexpr (kScale) {
+      if (me == 0) {
+        unsigned km = 0;
+        for (long long i = tid; i < n_part; i += T) km = max(km, part[i]);
+        km = block_reduce(km, red, MaxOp());
+        if (tid == 0)
+          *p.scale = __fmul_rn(clamp_min_nan(__uint_as_float(km),
+                                             kScaleFloor), kInv127);
+      }
+    }
     if (me == 0 && tid == 0) *p.thresh = t;
     cluster.sync();     // no CTA leaves while another reads its histograms
     return;
@@ -415,67 +472,185 @@ __global__ void __launch_bounds__(kSelThreads, 1)
   }
 }
 
-struct GridArgs {
-  const float* a;
+// ---- the grid form's passes ------------------------------------------------
+
+constexpr int kPassThreads = 256;
+
+struct Pass1Args {
+  const float* a;      // x = (a - b) + c over this piece; b and c may be null
   const float* b;
   const float* c;
+  long long n;         // elements of the piece
+  long long off;       // sample[i] = x[off + i * stride] for i < m
+  long long stride;
+  long long m;
+  float* sample;       // the piece's share of the select's input, or null
+  float* x;            // x stored for pass 2, or null
+  unsigned* part_max;  // per block max key, or null
+  unsigned* part_kept; // per block count of |x| >= 0 (threshold 0), or null
+  int* zero;           // set to 0 (the counter pass 2 adds to), or null
+  int vec;             // a, b, c and x 16-byte aligned
+};
+
+// The sampled elements among the w values v of x at local indices p ..
+// p + w - 1, where p - off = q * stride + r with 0 <= r < stride: element
+// p + e is sampled when r + e is a multiple of stride (r + e < stride + 4,
+// so one of 0, 1, 2, 3 times it), as element q + (r + e) / stride.
+__device__ __forceinline__ void put_sample(float* sample, const float* v,
+                                           int w, long long q, long long r,
+                                           long long stride) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (e >= w) break;
+    const long long t = r + e;
+    const int j = t == 0 ? 0 : t == stride ? 1 : t == 2 * stride ? 2
+                : t == 3 * stride ? 3 : -1;
+    if (j >= 0) sample[q + j] = v[e];
+  }
+}
+
+// Pass 1: one streaming read of a, b and c (16-byte loads, U chunks of
+// four a thread in flight: 2 with b or c, 4 with a alone), x formed as the
+// torch ops round it; x stored where pass 2 is to read it (then a, b and c
+// are loaded evict-first, so L2 keeps the x written last; where x is a,
+// pass 2 reads a again, and its loads are plain); the piece's share of
+// the select's input written from the same registers (the sampled index
+// tracked by adds, no division a chunk); the per-block max key and, with
+// the threshold known to be 0, the per-block kept count.  Nothing here
+// waits for a threshold.
+template <int U>
+__global__ void __launch_bounds__(kPassThreads, 4)
+    ef_pass1(const __grid_constant__ Pass1Args p) {
+  __shared__ unsigned red[32];
+  const long long T = (long long)gridDim.x * blockDim.x;
+  const long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  unsigned kmax = 0, cnt = 0;
+  auto one = [&](long long j, float v) {       // a scalar element
+    kmax = max(kmax, key_of(v));
+    cnt += fabsf(v) >= 0.f;
+    if (p.x) p.x[j] = v;
+    if (p.sample && j >= p.off && (j - p.off) % p.stride == 0)
+      p.sample[(j - p.off) / p.stride] = v;
+  };
+  if (p.vec) {
+    const long long n4 = p.n >> 2;
+    // chunk j4 starts at element 4 j4; a thread's chunks step by T
+    const long long d = 4 * g - p.off;
+    long long q = d >= 0 ? d / p.stride : -((p.stride - 1 - d) / p.stride);
+    long long r = d - q * p.stride;       // floor division: 0 <= r < stride
+    const long long dq = 4 * T / p.stride, dr = 4 * T - dq * p.stride;
+    auto chunk = [&](long long j4, float4 v) {
+      kmax = max(kmax, max(max(key_of(v.x), key_of(v.y)),
+                           max(key_of(v.z), key_of(v.w))));
+      cnt += (fabsf(v.x) >= 0.f) + (fabsf(v.y) >= 0.f) +
+             (fabsf(v.z) >= 0.f) + (fabsf(v.w) >= 0.f);
+      if (p.x) reinterpret_cast<float4*>(p.x)[j4] = v;
+      if (p.sample) {
+        const float e[4] = {v.x, v.y, v.z, v.w};
+        put_sample(p.sample, e, 4, q, r, p.stride);
+      }
+      q += dq;
+      r += dr;
+      if (r >= p.stride) {
+        r -= p.stride;
+        ++q;
+      }
+    };
+    const bool stream = p.x != nullptr;
+    for (long long j4 = g; j4 < n4; j4 += U * T) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (j4 + u * T < n4) v[u] = x_at4s(p.a, p.b, p.c, j4 + u * T, stream);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j4 + u * T >= n4) break;
+        chunk(j4 + u * T, v[u]);
+      }
+    }
+    for (long long j = (n4 << 2) + g; j < p.n; j += T)
+      one(j, x_at(p.a, p.b, p.c, j));
+  } else {
+    for (long long j = g; j < p.n; j += T) one(j, x_at(p.a, p.b, p.c, j));
+  }
+  if (p.part_max) {
+    kmax = block_reduce(kmax, red, MaxOp());
+    if (threadIdx.x == 0) p.part_max[blockIdx.x] = kmax;
+  }
+  if (p.part_kept) {
+    cnt = block_reduce(cnt, red, AddOp());
+    if (threadIdx.x == 0) p.part_kept[blockIdx.x] = cnt;
+  }
+  if (p.zero && g == 0) *p.zero = 0;
+}
+
+struct Pass2Args {
+  const float* x;      // x (pass 1's store, which r may be, or a itself)
   long long n;
-  const float* thresh_in;  // the selected threshold, or null: threshold 0
-  unsigned* part;          // stats: per block max key [G], kept count [G]
-  long long n_part;        // sweep: partials reduced, in groups of
-  long long group;         // `group` max keys then `group` counts
+  const float* ts;     // thresh, then scale (quantize): on this device
   int quantize;
   int8_t* q;
   float* recon;
   float* r;
-  float* thresh;           // 0-d outputs (thresh only when thresh_in is
-  float* scale;            // null), written by block 0 when kept is not
-  int* kept;               // null
+  unsigned* part_kept; // per block count of |x| >= thresh, or null
+  int* kept;           // the count added here (zeroed by pass 1), or null
+  int vec;             // x, q, recon and r aligned for 16-byte access
 };
 
-__global__ void __launch_bounds__(kGridThreads)
-    ef_grid_stats(const __grid_constant__ GridArgs p) {
+// Pass 2: x read once more (4 bytes an element, four 16-byte loads a thread
+// in flight), q or recon and r written, the kept count taken on the way.
+// The chunks are walked from the end, so the first reads find the x that
+// pass 1 wrote last still in L2; x is loaded and q, recon and r stored
+// evict-first.  x and r may be one buffer: each element is read before it
+// is written, by the same thread.
+__global__ void __launch_bounds__(kPassThreads, 4)
+    ef_pass2(const __grid_constant__ Pass2Args p) {
   __shared__ unsigned red[32];
-  const float t = p.thresh_in ? *p.thresh_in : 0.f;
-  unsigned kmax = 0, cnt = 0;
-  for (long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       j < p.n; j += (long long)gridDim.x * blockDim.x) {
-    const float v = x_at(p.a, p.b, p.c, j);
-    kmax = max(kmax, key_of(v));
+  const long long T = (long long)gridDim.x * blockDim.x;
+  const long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const float t = p.ts[0];
+  const float s = p.quantize ? p.ts[1] : 0.f;
+  unsigned cnt = 0;
+  long long tail = 0;
+  if (p.vec) {
+    constexpr int U = 4;
+    const long long n4 = p.n >> 2;
+    const float4* x4 = reinterpret_cast<const float4*>(p.x);
+    for (long long j4 = g; j4 < n4; j4 += U * T) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (j4 + u * T < n4) v[u] = __ldcs(x4 + (n4 - 1 - j4 - u * T));
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j4 + u * T >= n4) break;
+        const long long i4 = n4 - 1 - j4 - u * T;
+        cnt += (fabsf(v[u].x) >= t) + (fabsf(v[u].y) >= t) +
+               (fabsf(v[u].z) >= t) + (fabsf(v[u].w) >= t);
+        float4 rr;
+        if (p.quantize) {
+          char4 qq;
+          qq.x = quant(v[u].x, t, s, &rr.x);
+          qq.y = quant(v[u].y, t, s, &rr.y);
+          qq.z = quant(v[u].z, t, s, &rr.z);
+          qq.w = quant(v[u].w, t, s, &rr.w);
+          __stcs(reinterpret_cast<char4*>(p.q) + i4, qq);
+        } else {
+          float4 rec;
+          rec.x = mask(v[u].x, t, &rr.x);
+          rec.y = mask(v[u].y, t, &rr.y);
+          rec.z = mask(v[u].z, t, &rr.z);
+          rec.w = mask(v[u].w, t, &rr.w);
+          __stcs(reinterpret_cast<float4*>(p.recon) + i4, rec);
+        }
+        __stcs(reinterpret_cast<float4*>(p.r) + i4, rr);
+      }
+    }
+    tail = n4 << 2;
+  }
+  for (long long j = tail + g; j < p.n; j += T) {
+    const float v = p.x[j];
     cnt += fabsf(v) >= t;
-  }
-  kmax = block_reduce(kmax, red, MaxOp());
-  cnt = block_reduce(cnt, red, AddOp());
-  if (threadIdx.x == 0) {
-    p.part[blockIdx.x] = kmax;
-    p.part[gridDim.x + blockIdx.x] = cnt;
-  }
-}
-
-__global__ void __launch_bounds__(kGridThreads)
-    ef_grid_sweep(const __grid_constant__ GridArgs p) {
-  __shared__ unsigned red[32];
-  const float t = p.thresh_in ? *p.thresh_in : 0.f;
-  unsigned kmax = 0, cnt = 0;
-  for (long long i = threadIdx.x; i < p.n_part; i += blockDim.x) {
-    const long long g = i / p.group;
-    const unsigned* pg = p.part + 2 * g * p.group;
-    kmax = max(kmax, pg[i - g * p.group]);
-    cnt += pg[p.group + i - g * p.group];
-  }
-  kmax = block_reduce(kmax, red, MaxOp());
-  cnt = block_reduce(cnt, red, AddOp());
-  const float s = p.quantize
-      ? __fmul_rn(clamp_min_nan(__uint_as_float(kmax), kScaleFloor), kInv127)
-      : 0.f;
-  if (blockIdx.x == 0 && threadIdx.x == 0 && p.kept) {
-    if (!p.thresh_in) *p.thresh = 0.f;
-    if (p.quantize) *p.scale = s;
-    *p.kept = (int)cnt;
-  }
-  for (long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       j < p.n; j += (long long)gridDim.x * blockDim.x) {
-    const float v = x_at(p.a, p.b, p.c, j);
     float rr;
     if (p.quantize)
       p.q[j] = quant(v, t, s, &rr);
@@ -483,16 +658,36 @@ __global__ void __launch_bounds__(kGridThreads)
       p.recon[j] = mask(v, t, &rr);
     p.r[j] = rr;
   }
+  if (p.part_kept || p.kept) {
+    cnt = block_reduce(cnt, red, AddOp());
+    if (threadIdx.x == 0) {
+      if (p.part_kept) p.part_kept[blockIdx.x] = cnt;
+      if (p.kept) atomicAdd(reinterpret_cast<unsigned*>(p.kept), cnt);
+    }
+  }
 }
 
-// one shard's share of the select's input: out[i] = x[off + i * stride]
-__global__ void __launch_bounds__(kGridThreads)
-    ef_sample(const float* __restrict__ a, const float* __restrict__ b,
-              const float* __restrict__ c, long long off, long long stride,
-              long long m, float* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < m;
-       i += (long long)gridDim.x * blockDim.x)
-    out[i] = x_at(a, b, c, off + i * stride);
+// One block: the max of n_max max keys into the scale, the sum of n_kept
+// counts into kept, and the threshold 0 (each where its pointer is given).
+__global__ void __launch_bounds__(kSelThreads)
+    ef_reduce(const unsigned* __restrict__ part_max, long long n_max,
+              const unsigned* __restrict__ part_kept, long long n_kept,
+              float* thresh, float* scale, int* kept) {
+  __shared__ unsigned red[32];
+  unsigned kmax = 0, cnt = 0;
+  for (long long i = threadIdx.x; i < n_max; i += blockDim.x)
+    kmax = max(kmax, part_max[i]);
+  for (long long i = threadIdx.x; i < n_kept; i += blockDim.x)
+    cnt += part_kept[i];
+  kmax = block_reduce(kmax, red, MaxOp());
+  cnt = block_reduce(cnt, red, AddOp());
+  if (threadIdx.x == 0) {
+    if (thresh) *thresh = 0.f;
+    if (scale)
+      *scale = __fmul_rn(clamp_min_nan(__uint_as_float(kmax), kScaleFloor),
+                         kInv127);
+    if (kept) *kept = (int)cnt;
+  }
 }
 
 // ---- one merge's decodes into the row buffer --------------------------------
@@ -542,12 +737,19 @@ long long ef_cluster_smem(long long m, int ctas) {
 
 // ef_cluster may take kMaxSmem of dynamic shared memory and 16 CTAs a
 // cluster (the attributes persist: set once)
+template <bool kScale>
+cudaError_t opt_in_one() {
+  cudaError_t r = cudaFuncSetAttribute(
+      ef_cluster<kScale>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  return r != cudaSuccess ? r : cudaFuncSetAttribute(
+      ef_cluster<kScale>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 cudaError_t opt_in() {
   static cudaError_t e = [] {
-    cudaError_t r = cudaFuncSetAttribute(
-        ef_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    return r != cudaSuccess ? r : cudaFuncSetAttribute(
-        ef_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t r = opt_in_one<false>();
+    return r != cudaSuccess ? r : opt_in_one<true>();
   }();
   return e;
 }
@@ -602,21 +804,26 @@ extern "C" int ef_cluster_max_active(int ctas, long long smem,
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(ctas, smem, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(clusters, ef_cluster, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, ef_cluster<false>,
+                                             &cfg);
 }
 
 // The cluster form: x = (a - b) + c over N elements (b, c may be null),
 // the select over x[::stride]'s m elements at rank k (0: threshold 0), and
-// with sweep (stride 1) q or recon, r, scale and kept; thresh always.  All
-// pointers on the card; q/recon, r (N,) and thresh, scale, kept 0-d.
+// with sweep (stride 1) q or recon, r, scale and kept; thresh always.
+// Without sweep, part (n_part max keys: pass 1's partials) reduced into
+// the scale where given.  All pointers on the card; q/recon, r (N,) and
+// thresh, scale, kept 0-d.
 extern "C" int ef_encode_cluster_launch(
     const float* a, const float* b, const float* c, long long N,
     long long stride, long long m, long long k, int sweep, int quantize,
-    int8_t* q, float* recon, float* r, float* thresh, float* scale,
-    int* kept, int ctas, cudaStream_t stream) {
+    const unsigned* part, long long n_part, int8_t* q, float* recon,
+    float* r, float* thresh, float* scale, int* kept, int ctas,
+    cudaStream_t stream) {
   const long long smem = ef_cluster_smem(m, ctas);
   if (N <= 0 || m <= 0 || ctas < 1 || ctas > kMaxCtas || k > m || k < 0 ||
-      (sweep && stride != 1) || smem > kMaxSmem)
+      (sweep && (stride != 1 || part)) || (part && n_part < 1) ||
+      smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const int vec = stride == 1 && aligned16(a) && aligned16(b) &&
                   aligned16(c);
@@ -627,62 +834,68 @@ extern "C" int ef_encode_cluster_launch(
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(ctas, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, ef_cluster, p);
+  e = part ? cudaLaunchKernelEx(&cfg, ef_cluster<true>, p, part, n_part)
+           : cudaLaunchKernelEx(&cfg, ef_cluster<false>, p,
+                                (const unsigned*)nullptr, 0LL);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// The grid and sharded forms' pieces.  A vector above one cluster's size
-// is encoded, after a select (thresh_in on the card) or with threshold 0
-// (thresh_in null), by a stats launch and a sweep launch with n_part =
-// group = blocks.  A sharded vector takes a sample launch, a stats launch
-// and a sweep launch a shard, each on the shard's device and stream, the
-// sweep reducing every shard's partials.
-// ef_encode_sample_launch: out[i] = x[off + i * stride] for i < m, over
-// the shard's N elements (x = (a - b) + c; b, c may be null).
-extern "C" int ef_encode_sample_launch(const float* a, const float* b,
-                                       const float* c, long long N,
-                                       long long off, long long stride,
-                                       long long m, float* out,
-                                       cudaStream_t stream) {
-  if (N <= 0 || off < 0 || stride < 1 || m < 1 ||
-      off + (m - 1) * stride >= N)
-    return (int)cudaErrorInvalidValue;
-  const long long want = (m + kGridThreads - 1) / kGridThreads;
-  const unsigned blocks = (unsigned)(want < 1024 ? want : 1024);
-  ef_sample<<<blocks, kGridThreads, 0, stream>>>(a, b, c, off, stride, m,
-                                                  out);
-  return (int)cudaGetLastError();
-}
-
-// ef_encode_stats_launch: the shard's per-block max key and kept count at
-// the threshold *thresh_in (null: 0) into part (2 * blocks unsigned).
-extern "C" int ef_encode_stats_launch(const float* a, const float* b,
-                                      const float* c, long long N,
-                                      const float* thresh_in, unsigned* part,
-                                      int blocks, cudaStream_t stream) {
-  if (N <= 0 || blocks < 1) return (int)cudaErrorInvalidValue;
-  const GridArgs p{a, b, c, N, thresh_in, part, 0, 0, 0,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  ef_grid_stats<<<blocks, kGridThreads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// ef_encode_sweep_launch: the shard's q or recon and r, from the scale and
-// kept count that the n_part partials of part give (in groups of `group`
-// max keys then `group` counts: every shard's stats, in shard order);
-// thresh (when thresh_in is null), scale and kept written when kept is
-// not null (the home shard's launch).
-extern "C" int ef_encode_sweep_launch(
+// The grid and sharded forms' passes (the select between them is the
+// cluster launch above, without sweep, over the gathered sample).
+// ef_encode_pass1_launch: over one piece's N elements (x = (a - b) + c;
+// b, c may be null): sample[i] = x[off + i * stride] for i < m (sample
+// null or m 0: none), x stored into x (or null), per-block max keys into
+// part_max and counts of |x| >= 0 into part_kept (blocks each, or null),
+// *zero = 0 (or null).
+extern "C" int ef_encode_pass1_launch(
     const float* a, const float* b, const float* c, long long N,
-    const float* thresh_in, const unsigned* part, long long n_part,
-    long long group, int blocks, int quantize, int8_t* q, float* recon,
-    float* r, float* thresh, float* scale, int* kept, cudaStream_t stream) {
-  if (N <= 0 || blocks < 1 || group < 1 || n_part < 1 || n_part % group)
+    long long off, long long stride, long long m, float* sample, float* x,
+    unsigned* part_max, unsigned* part_kept, int* zero, int blocks,
+    cudaStream_t stream) {
+  if (N <= 0 || blocks < 1 || off < 0 || stride < 1 || m < 0 ||
+      (sample && m && off + (m - 1) * stride >= N))
     return (int)cudaErrorInvalidValue;
-  const GridArgs p{a, b, c, N, thresh_in, const_cast<unsigned*>(part),
-                   n_part, group, quantize, q, recon, r, thresh, scale,
-                   kept};
-  ef_grid_sweep<<<blocks, kGridThreads, 0, stream>>>(p);
+  const int vec = aligned16(a) && aligned16(b) && aligned16(c) &&
+                  aligned16(x);
+  const Pass1Args p{a, b, c, N, off, stride, m, m ? sample : nullptr, x,
+                    part_max, part_kept, zero, vec};
+  if (b || c)
+    ef_pass1<2><<<blocks, kPassThreads, 0, stream>>>(p);
+  else
+    ef_pass1<4><<<blocks, kPassThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ef_encode_pass2_launch: q (int8) or recon and r (N,) from x (N,), which
+// may be r itself, at the threshold ts[0] and (quantize) the scale ts[1];
+// per-block counts of |x| >= ts[0] into part_kept (blocks, or null) or
+// added to *kept (or null).
+extern "C" int ef_encode_pass2_launch(
+    const float* x, long long N, const float* ts, int quantize, int8_t* q,
+    float* recon, float* r, unsigned* part_kept, int* kept, int blocks,
+    cudaStream_t stream) {
+  if (N <= 0 || blocks < 1 || !ts || !r || (quantize ? !q : !recon))
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(x) && aligned16(r) && aligned16(recon) &&
+                  (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+  const Pass2Args p{x, N, ts, quantize, q, recon, r, part_kept, kept, vec};
+  ef_pass2<<<blocks, kPassThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ef_encode_reduce_launch: one block; the scale from n_max max keys, kept
+// from n_kept counts, thresh = 0 (each where its pointer is not null).
+extern "C" int ef_encode_reduce_launch(const unsigned* part_max,
+                                       long long n_max,
+                                       const unsigned* part_kept,
+                                       long long n_kept, float* thresh,
+                                       float* scale, int* kept,
+                                       cudaStream_t stream) {
+  if (n_max < 0 || n_kept < 0 || (scale && !part_max) ||
+      (kept && !part_kept))
+    return (int)cudaErrorInvalidValue;
+  ef_reduce<<<1, kSelThreads, 0, stream>>>(part_max, n_max, part_kept,
+                                           n_kept, thresh, scale, kept);
   return (int)cudaGetLastError();
 }
 

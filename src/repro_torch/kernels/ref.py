@@ -184,11 +184,8 @@ def reference_topk_threshold_sharded(xs, k: int, n_params: int,
     stride, _, ks = sample_plan(n, k, n_params)
     sample = torch.cat([x[off::stride].to(home) for x, (off, m)
                         in zip(xs, shard_samples(n, D, stride)) if m])
-    if n_params <= SAMPLE_CAP:
-        t = torch.topk(sample.abs(), ks).values[-1]
-    else:
-        t = sample.abs().sort().values[-ks]
-    return torch.clamp_min(t, THRESH_FLOOR)
+    return reference_ef_select(sample, ks, None,
+                               exact=n_params <= SAMPLE_CAP)[0]
 
 
 def _x_of(a, b, c):
@@ -200,40 +197,95 @@ def _x_of(a, b, c):
     return x
 
 
+def reference_ef_pass1(a, b=None, c=None, *, off: int = 0, stride: int = 1,
+                       m: int = 0, count: bool = False):
+    """Pass 1 of the grid form over one piece, as ``ef_pass1`` runs it:
+    ``x = (a - b) + c``, the piece's share of the select's input
+    ``x[off::stride][:m]``, max |x| (NaN-propagating: what the per-block
+    max keys reduce to) and, with ``count`` (the int8 codec, whose
+    threshold 0 is known before the pass), the kept count at threshold 0.
+    Returns ``(x, sample, max, kept or None)``."""
+    x = _x_of(a, b, c)
+    xa = x.abs()
+    return (x, x[off::stride][:m], xa.max(),
+            torch.sum(xa >= 0) if count else None)
+
+
+def _kth_largest(v: torch.Tensor, ks: int, exact: bool) -> torch.Tensor:
+    """The ks-th largest of ``v`` (``torch.topk`` where the threshold is
+    exact, a sort on the sampled path, as the reference's select)."""
+    if exact:
+        return torch.topk(v, ks).values[-1]
+    return v.sort().values[-ks]
+
+
+def reference_ef_select(sample: torch.Tensor, ks: int, maxes, *,
+                        exact: bool):
+    """The grid form's select, as its cluster launch runs it over the
+    gathered sample: the ks-th largest |sample| floored at THRESH_FLOOR,
+    and the scale from ``maxes`` (the pieces' max |x|; None: no scale).
+    Returns ``(thresh, scale or None)``."""
+    t = torch.clamp_min(_kth_largest(sample.abs(), ks, exact), THRESH_FLOOR)
+    return t, None if maxes is None else reference_int8_scale(maxes)
+
+
+def reference_ef_pass2(x: torch.Tensor, thresh, scale=None):
+    """Pass 2 over one piece: with ``scale`` ``(q, x - q * scale, kept)``
+    (``reference_topk_quant_encode``), else ``(recon, x - recon, kept)``
+    with recon x masked to ``|x| >= thresh``; kept ``sum(|x| >=
+    thresh)``."""
+    kept = torch.sum(x.abs() >= thresh)
+    if scale is not None:
+        q, r = reference_topk_quant_encode(x, thresh, scale)
+        return q, r, kept
+    recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
+    return recon, x - recon, kept
+
+
 def reference_ef_encode_sharded(a, b=None, c=None, *, k: Optional[int],
                                 n_params: int, quantize: bool,
                                 home: torch.device):
     """``reference_ef_encode`` over a vector held as pieces (``a``, ``b``,
     ``c``: sequences of equal (N/D,) pieces in shard order, ``b``/``c``
-    None or all present), decomposed as the sharded kernels run it: each
-    shard's share of the select's input (``shard_samples``) concatenated
-    on ``home`` and the threshold taken there; the threshold on each
-    shard's device, each shard's max |x| and kept count, reduced on
-    ``home`` into the scale and the kept count; then each shard's outputs
-    from those.  Returns ``([q or recon], [residual], thresh, scale or
-    None, kept)``: pieces in shard order, the 0-d values on ``home``.
-    Equals ``reference_ef_encode`` of the whole vectors bit for bit: the
-    k-th largest of a multiset, a max and a count do not depend on the
-    order they are taken in."""
-    xs = [_x_of(a[d], None if b is None else b[d], None if c is None
-                else c[d]) for d in range(len(a))]
+    None or all present), staged as the grid form's kernels run it: each
+    piece's pass 1 (``reference_ef_pass1``: x, its share of the select's
+    input ``shard_samples``, its max |x|; for the int8 codec its kept
+    count); on ``home`` the shares concatenated and the select and scale
+    taken (``reference_ef_select``; threshold 0 for the int8 codec); each
+    piece's pass 2 at the threshold and scale copied to its device
+    (``reference_ef_pass2``); the kept counts summed on ``home``.  Returns
+    ``([q or recon], [residual], thresh, scale or None, kept)``: pieces in
+    shard order, the 0-d values on ``home``.  With one piece it is the
+    grid form of one vector.  Equals ``reference_ef_encode`` of the whole
+    vectors bit for bit: the k-th largest of a multiset, a max and a count
+    do not depend on the order they are taken in."""
+    D = len(a)
+    n = D * int(a[0].shape[0])
+    if k is None:
+        stride, ks, plan = 1, None, [(0, 0)] * D
+    else:
+        stride, _, ks = sample_plan(n, k, n_params)
+        plan = shard_samples(n, D, stride)
+    p1 = [reference_ef_pass1(a[d], None if b is None else b[d],
+                             None if c is None else c[d], off=off,
+                             stride=stride, m=md, count=k is None)
+          for d, (off, md) in enumerate(plan)]
+    maxes = (torch.stack([mx.to(home) for _, _, mx, _ in p1]) if quantize
+             else None)
     if k is None:
         thresh = torch.zeros((), dtype=torch.float32, device=home)
+        scale = None if maxes is None else reference_int8_scale(maxes)
     else:
-        thresh = reference_topk_threshold_sharded(xs, k, n_params, home)
-    ts = [thresh.to(x.device) for x in xs]
-    kept = torch.stack([torch.sum(x.abs() >= t).to(home)
-                        for x, t in zip(xs, ts)]).sum()
-    if not quantize:
-        recons = [torch.where(x.abs() >= t, x, torch.zeros_like(x))
-                  for x, t in zip(xs, ts)]
-        return (recons, [x - r for x, r in zip(xs, recons)], thresh, None,
-                kept)
-    scale = reference_int8_scale(torch.stack([x.abs().max().to(home)
-                                              for x in xs]))
-    qr = [reference_topk_quant_encode(x, t, scale.to(x.device))
-          for x, t in zip(xs, ts)]
-    return [q for q, _ in qr], [r for _, r in qr], thresh, scale, kept
+        sample = torch.cat([s.to(home) for _, s, _, _ in p1])
+        thresh, scale = reference_ef_select(sample, ks, maxes,
+                                            exact=n_params <= SAMPLE_CAP)
+    p2 = [reference_ef_pass2(x, thresh.to(x.device),
+                             None if scale is None else scale.to(x.device))
+          for x, _, _, _ in p1]
+    counts = [k0 for _, _, _, k0 in p1] if k is None else \
+        [kd for _, _, kd in p2]
+    kept = torch.stack([kd.to(home) for kd in counts]).sum()
+    return [o for o, _, _ in p2], [r for _, r, _ in p2], thresh, scale, kept
 
 
 def reference_server_opt(prev: torch.Tensor, merged: torch.Tensor,

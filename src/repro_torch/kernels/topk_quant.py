@@ -33,9 +33,10 @@ from . import check_cuda_tensor, check_status, ref, use_kernel
 from .ref import SAMPLE_CAP, THRESH_FLOOR, sample_plan  # noqa: F401
 
 # kernel launches by wrapper: a run shows it went through the kernels
-# (ef_encode_sharded: every launch of the sharded encode, the select on
-# the home device and each shard's sample, stats and sweep; sample: the
-# shards' sample launches of a sharded topk_threshold)
+# (ef_encode: every launch of an unsharded encode, 1 or 3; ef_encode_sharded:
+# every launch of the sharded encode, each shard's two passes and the
+# select and kept sum on the home device; sample: the shards' pass 1
+# launches of a sharded topk_threshold)
 LAUNCHES = {"encode": 0, "decode": 0, "ef_encode": 0, "select": 0,
             "decode_rows": 0, "ef_encode_sharded": 0, "sample": 0}
 
@@ -43,7 +44,8 @@ LAUNCHES = {"encode": 0, "decode": 0, "ef_encode": 0, "select": 0,
 # (7 such clusters at once), faster than the portable 8 at the MLP's width
 # (chip_smoke.py times both; PERF.md); and the largest sample one cluster
 # holds in shared memory (2^18 f32: 64 KB a CTA at 16, 128 KB at 8).
-# GRID_BLOCKS blocks cover a vector above it.
+# At most GRID_BLOCKS blocks (four of 256 threads on each of the H100's
+# 132 SMs: one wave) run each pass of the grid form above it.
 CLUSTER_CTAS = 16
 CLUSTER_MAX = 1 << 18
 GRID_BLOCKS = 528
@@ -147,14 +149,254 @@ def _on_kernel(shards) -> bool:
 
 
 def _select_cluster(a, b, c, n: int, stride: int, m: int, k: int, sweep,
-                    quantize, q, recon, r, stats) -> None:
+                    quantize, q, recon, r, stats, part=None) -> None:
     from ._build import lib
     status = lib().ef_encode_cluster_launch(
         _ptr(a), _ptr(b), _ptr(c), n, stride, m, k, int(sweep),
-        int(quantize), _ptr(q), _ptr(recon), _ptr(r), stats.data_ptr(),
+        int(quantize), _ptr(part), 0 if part is None else part.numel(),
+        _ptr(q), _ptr(recon), _ptr(r), stats.data_ptr(),
         stats.data_ptr() + 4, stats.data_ptr() + 8, CLUSTER_CTAS,
         torch.cuda.current_stream(a.device).cuda_stream)
     check_status(status, "ef_encode (cluster)")
+
+
+def kept_word(stats: torch.Tensor) -> torch.Tensor:
+    """The kept count inside ``stats`` (thresh, scale, kept): an int32
+    view of its third word."""
+    return stats[2:].view(torch.int32)
+
+
+def key_max(part: torch.Tensor) -> torch.Tensor:
+    """max |x| from int32 max keys (|x|'s bits: they order as the floats)."""
+    return part.max().reshape(1).view(torch.float32)[0]
+
+
+def _put(part: Optional[torch.Tensor], v: torch.Tensor) -> None:
+    """A plain pass's partials: the whole piece's value in block 0, the
+    identity (0) in the others."""
+    if part is not None:
+        part.zero_()
+        part[:1] = v.reshape(1).to(torch.int32)
+
+
+def grid_blocks(n: int) -> int:
+    """Blocks of a grid pass over n elements: one 16-byte chunk a thread
+    or more, at most GRID_BLOCKS (four blocks of 256 threads an SM)."""
+    return max(1, min(GRID_BLOCKS, -(-n // 1024)))
+
+
+def ef_pass1(a, b=None, c=None, *, blocks: int, off: int = 0,
+             stride: int = 1, sample=None, x=None, part_max=None,
+             part_kept=None, zero=None) -> None:
+    """Pass 1 of the grid form over one piece (all operands on one device),
+    one launch: the select's input ``sample[i] = x[off + i * stride]``
+    (``sample`` None: none), x stored into ``x``, per-block max keys of
+    |x| into ``part_max`` and counts of ``|x| >= 0`` into ``part_kept``
+    (int32, ``blocks`` each), ``zero``'s kept word set to 0; each skipped
+    where None.  x = ``(a - b) + c`` as ``ef_encode`` forms it.  On CPU
+    tensors ``ref.reference_ef_pass1``, its value in block 0's partial."""
+    bufs = [t for t in (a, b, c, sample, x, part_max, part_kept, zero)
+            if t is not None]
+    m = 0 if sample is None else sample.numel()
+    if not use_kernel(*bufs):
+        xv, smp, mx, k0 = ref.reference_ef_pass1(
+            a, b, c, off=off, stride=stride, m=m,
+            count=part_kept is not None)
+        for dst, v in ((x, xv), (sample, smp)):
+            if dst is not None:
+                dst.copy_(v)
+        _put(part_max, mx.reshape(1).view(torch.int32))
+        _put(part_kept, k0)
+        if zero is not None:
+            kept_word(zero).zero_()
+        return
+    from ._build import lib
+    status = lib().ef_encode_pass1_launch(
+        _ptr(a), _ptr(b), _ptr(c), a.numel(), off, stride, m, _ptr(sample),
+        _ptr(x), _ptr(part_max), _ptr(part_kept),
+        None if zero is None else zero.data_ptr() + 8, blocks,
+        _stream(a.device))
+    check_status(status, "ef_encode (pass 1)")
+
+
+def ef_select(sample: torch.Tensor, ks: int, stats: torch.Tensor, *,
+              exact: bool, part_max=None) -> None:
+    """The grid form's select, one cluster launch over ``sample`` (the
+    gathered select's input, stride 1): the ks-th largest |sample| floored
+    at THRESH_FLOOR into ``stats[0]`` and, where ``part_max`` is given,
+    the scale of their max into ``stats[1]``.  On CPU tensors
+    ``ref.reference_ef_select`` (``exact``: its torch.topk, else a
+    sort)."""
+    m = sample.numel()
+    if not 1 <= ks <= m or m > CLUSTER_MAX:
+        raise ValueError(f"k = {ks} outside 1..{m}, or {m} > CLUSTER_MAX")
+    if not use_kernel(*(t for t in (sample, stats, part_max)
+                        if t is not None)):
+        t, s = ref.reference_ef_select(
+            sample, ks, None if part_max is None else key_max(part_max),
+            exact=exact)
+        stats[0] = t
+        if s is not None:
+            stats[1] = s
+        return
+    _select_cluster(sample, None, None, m, 1, m, ks, False,
+                    part_max is not None, None, None, None, stats, part_max)
+
+
+def ef_reduce(stats: torch.Tensor, *, part_max=None, part_kept=None,
+              thresh: bool = False) -> None:
+    """One block: the scale from the max keys ``part_max`` into
+    ``stats[1]``, the sum of ``part_kept`` into its kept word, the
+    threshold 0 into ``stats[0]`` with ``thresh``; each where given."""
+    if not use_kernel(*(t for t in (stats, part_max, part_kept)
+                        if t is not None)):
+        if thresh:
+            stats[0] = 0.0
+        if part_max is not None:
+            stats[1] = ref.reference_int8_scale(key_max(part_max))
+        if part_kept is not None:
+            kept_word(stats)[0] = part_kept.sum()
+        return
+    from ._build import lib
+    p = stats.data_ptr()
+    status = lib().ef_encode_reduce_launch(
+        _ptr(part_max), 0 if part_max is None else part_max.numel(),
+        _ptr(part_kept), 0 if part_kept is None else part_kept.numel(),
+        p if thresh else None, None if part_max is None else p + 4,
+        None if part_kept is None else p + 8, _stream(stats.device))
+    check_status(status, "ef_encode (reduce)")
+
+
+def ef_pass2(x: torch.Tensor, ts: torch.Tensor, *, blocks: int,
+             quantize: bool, out: torch.Tensor, r: torch.Tensor,
+             part_kept=None, kept=None) -> None:
+    """Pass 2 of the grid form over one piece, one launch: from x (which
+    may be ``r`` itself) at the threshold ``ts[0]`` and, with
+    ``quantize``, the scale ``ts[1]``: q (int8) or the masked recon into
+    ``out``, the residual into ``r``, and the count of ``|x| >= ts[0]``
+    per block into ``part_kept`` or added to ``kept``'s kept word.  On
+    CPU tensors ``ref.reference_ef_pass2``."""
+    if not use_kernel(*(t for t in (x, ts, out, r, part_kept, kept)
+                        if t is not None)):
+        o, rr, kd = ref.reference_ef_pass2(x, ts[0],
+                                           ts[1] if quantize else None)
+        out.copy_(o)
+        r.copy_(rr)
+        _put(part_kept, kd)
+        if kept is not None:
+            kept_word(kept)[0] += kd
+        return
+    from ._build import lib
+    q, recon = (out, None) if quantize else (None, out)
+    status = lib().ef_encode_pass2_launch(
+        x.data_ptr(), x.numel(), ts.data_ptr(), int(quantize), _ptr(q),
+        _ptr(recon), r.data_ptr(), _ptr(part_kept),
+        None if kept is None else kept.data_ptr() + 8, blocks,
+        _stream(x.device))
+    check_status(status, "ef_encode (pass 2)")
+
+
+def _pass1_home(pieces, home: torch.device, dst, **kw) -> None:
+    """``ef_pass1`` over one piece's (a, b, c), its sample share and
+    partials ``dst`` (sample, part_max, part_kept; None: not written)
+    buffers on ``home``: written there directly where the piece lies on
+    ``home``, else on the piece's device and copied over.  ``kw``: the
+    rest of ``ef_pass1``'s arguments."""
+    dev = pieces[0].device
+    with psh.device_guard(dev):
+        bufs = dst if dev == home else tuple(
+            None if t is None else torch.empty_like(t, device=dev)
+            for t in dst)
+        ef_pass1(*pieces, sample=bufs[0], part_max=bufs[1],
+                 part_kept=bufs[2], **kw)
+    if dev != home:
+        with psh.device_guard(home):
+            for t, u in zip(dst, bufs):
+                if t is not None:
+                    t.copy_(u)
+
+
+def _ef_encode_grid(shards, home: torch.device, *, k, n_params, quantize):
+    """The grid form of ``ef_encode`` over one vector or a sharded one,
+    ``shards`` its (a, b, c) pieces in shard order (N/D each), each on its
+    own device: a pass 1 a piece, the select (or, for the int8 codec, the
+    reduce) on ``home``, a pass 2 a piece, and for a sharded top-k encode
+    the kept partials summed on ``home`` (one vector: pass 2 adds them into
+    the counter pass 1 zeroed).  Each piece's sample share and partials go
+    straight into the home device's buffers where the piece lies there.
+    Returns ``(outs, residuals, stats, launches)``."""
+    D = len(shards)
+    S = shards[0][0].numel()
+    n = S * D
+    topk = k is not None
+    if topk:
+        stride, m, ks = sample_plan(n, k, n_params)
+        if not 1 <= ks <= m or m > CLUSTER_MAX:
+            raise ValueError(f"k = {k} outside 1..{m}, or {m} > "
+                             f"CLUSTER_MAX")
+        plan = ref.shard_samples(n, D, stride)
+    else:
+        stride, m, plan = 1, 0, [(0, 0)] * D
+    G = grid_blocks(S)
+    # pass 2 reads x back from the residual's buffer (4 bytes an element,
+    # not a, b and c again); where x is a itself, from a
+    store = shards[0][1] is not None or shards[0][2] is not None
+    f32 = torch.float32
+    stats = torch.empty(3, dtype=f32, device=home)   # thresh, scale, kept
+    home = stats.device          # with its index, as the pieces' devices
+    sample = torch.empty(m, dtype=f32, device=home)
+    # per-block partials of every piece: max keys, then kept counts
+    part = torch.empty(2 * D * G, dtype=torch.int32, device=home)
+    pmax, pkept = part[:D * G], part[D * G:]
+    one = D == 1 and topk      # pass 2 adds kept into the zeroed counter
+    outs, rs, xs, start = [], [], [], 0
+    for d, (pa, pb, pc) in enumerate(shards):
+        dev, (off, md) = pa.device, plan[d]
+        sl = slice(d * G, (d + 1) * G)
+        dst = (sample[start:start + md] if md else None,
+               pmax[sl] if quantize else None,
+               None if topk else pkept[sl])
+        start += md
+        with psh.device_guard(dev):
+            out = torch.empty(S, dtype=torch.int8 if quantize else f32,
+                              device=dev)
+            r = torch.empty(S, dtype=f32, device=dev)
+        _pass1_home((pa, pb, pc), home, dst, blocks=G, off=off,
+                    stride=stride, x=r if store else None,
+                    zero=stats if one else None)
+        outs.append(out)
+        rs.append(r)
+        xs.append(r if store else pa)
+    with psh.device_guard(home):
+        if topk:
+            ef_select(sample, ks, stats, exact=n_params <= SAMPLE_CAP,
+                      part_max=pmax if quantize else None)
+        else:
+            ef_reduce(stats, part_max=pmax if quantize else None,
+                      part_kept=pkept, thresh=True)
+    # the last piece first: on a device that holds several, the x that its
+    # pass 1 wrote last is still in L2 (pass 2 walks each piece from its end)
+    for d in reversed(range(D)):
+        x, out, r = xs[d], outs[d], rs[d]
+        dev, sl = x.device, slice(d * G, (d + 1) * G)
+        with psh.device_guard(dev):
+            # only thresh and scale, 8 bytes, travel to another device
+            ts = stats if dev == home else stats[:2].to(dev)
+            pk = None
+            if topk and not one:
+                pk = pkept[sl] if dev == home else torch.empty(
+                    G, dtype=torch.int32, device=dev)
+            ef_pass2(x, ts, blocks=G, quantize=quantize, out=out, r=r,
+                     part_kept=pk, kept=stats if one else None)
+        if pk is not None and dev != home:
+            with psh.device_guard(home):
+                pkept[sl].copy_(pk)
+    launches = 2 * D + 1
+    if topk and not one:
+        with psh.device_guard(home):
+            ef_reduce(stats, part_kept=pkept)
+        launches += 1
+    return outs, rs, stats, launches
 
 
 def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -171,72 +413,62 @@ def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     masked to ``|x| >= thresh``; thresh, scale and kept (int32) are 0-d
     tensors on x's device.  One launch when the sample is x itself and
     fits one cluster (N <= ``CLUSTER_MAX``, the FL paths' widths);
-    otherwise a cluster select over the sample, then two passes over x.
+    otherwise the grid form, three launches: a pass over x (the sample,
+    the max keys, x stored into the residual's buffer where b or c is
+    given), the cluster select and scale over the sample (the int8 codec:
+    a one-block reduce), a pass writing the outputs and the kept count.
 
     ``Sharded`` a (b and c, where given, on its mesh) takes the sharded
-    form: each shard's share of the select's input ``x[::stride]``
-    (``ref.shard_samples``) copied out on its device, concatenated on the
-    home device and selected there by one cluster launch (stride 1 over
-    the m sampled elements; ``sample_plan`` keeps m within
-    ``CLUSTER_MAX``); the threshold copied to each device, each shard's
-    per-block max and kept count (stats), all shards' partials copied to
-    each device, and each shard's sweep reducing all of them, so every
-    shard has the same scale and kept count.  q or recon and the residual
-    come back ``Sharded``, thresh, scale and kept on the home device
-    (written by shard 0's sweep), equal bit for bit to this function on
-    the gathered vectors at the same width.  One launch on the home
-    device and 3 a shard (2 with ``k`` None), counted under
-    ``LAUNCHES["ef_encode_sharded"]``.  A mesh of one device takes the
-    unsharded form on its one piece (its launches and counter)."""
+    form, the grid form's pieces split apart: each shard's pass 1 on its
+    device (its share of the select's input ``x[::stride]``,
+    ``ref.shard_samples``, and its partials written into the home
+    device's buffers, copied there from another device), one select and
+    scale on the home device (``sample_plan`` keeps the sample within
+    ``CLUSTER_MAX``), the threshold and scale (8 bytes) copied to each
+    device, each shard's pass 2 counting its kept partials, and (top-k)
+    one sum of all shards' kept partials on the home device.  q or recon
+    and the residual come back ``Sharded``, thresh, scale and kept on the
+    home device, equal bit for bit to this function on the gathered
+    vectors at the same width.  2D + 2 launches (2D + 1 with ``k`` None),
+    counted under ``LAUNCHES["ef_encode_sharded"]``.  A mesh of one device
+    takes the unsharded form on its one piece (its launches and counter).
+    On CPU tensors every form runs the plain versions of its launches
+    (the one-launch form ``ref.reference_ef_encode``)."""
     if isinstance(a, psh.Sharded):
         return _ef_encode_sharded(a, b, c, k=k, n_params=n_params,
                                   quantize=quantize)
     parts = [t for t in (a, b, c) if t is not None]
-    if not use_kernel(*parts):
-        return ref.reference_ef_encode(a, b, c, k=k, n_params=n_params,
-                                       quantize=quantize)
+    on_card = use_kernel(*parts)
     n = a.numel()
-    for t, name in zip((a, b, c), "abc"):
-        if t is not None:
-            check_cuda_tensor(t, name, torch.float32, n)
-    if k is None:
-        stride, m, ks = 1, n, 0
-    else:
-        stride, m, ks = sample_plan(n, k, n_params)
-        if not 1 <= ks <= m:
-            raise ValueError(f"k = {k} outside 1..{m}")
-    dev = a.device
-    out = torch.empty(n, dtype=torch.int8 if quantize else torch.float32,
-                      device=dev)
-    r = torch.empty(n, dtype=torch.float32, device=dev)
-    # thresh, scale (f32) and kept (int32) in one allocation
-    stats = torch.empty(3, dtype=torch.float32, device=dev)
-    q, recon = (out, None) if quantize else (None, out)
+    if on_card:
+        for t, name in zip((a, b, c), "abc"):
+            if t is not None:
+                check_cuda_tensor(t, name, torch.float32, n)
+    stride, m, ks = (1, n, 0) if k is None else sample_plan(n, k, n_params)
     if stride == 1 and m <= CLUSTER_MAX:
+        if not on_card:
+            return ref.reference_ef_encode(a, b, c, k=k, n_params=n_params,
+                                           quantize=quantize)
+        if k is not None and not 1 <= ks <= m:
+            raise ValueError(f"k = {k} outside 1..{m}")
+        dev = a.device
+        out = torch.empty(n, dtype=torch.int8 if quantize else torch.float32,
+                          device=dev)
+        r = torch.empty(n, dtype=torch.float32, device=dev)
+        # thresh, scale (f32) and kept (int32) in one allocation
+        stats = torch.empty(3, dtype=torch.float32, device=dev)
+        q, recon = (out, None) if quantize else (None, out)
         _select_cluster(a, b, c, n, 1, m, ks, True, quantize, q, recon, r,
                         stats)
-        LAUNCHES["ef_encode"] += 1
+        launches = 1
     else:
-        from ._build import lib
-        if ks:
-            _select_cluster(a, b, c, n, stride, m, ks, False, quantize,
-                            None, None, None, stats)
-        blocks = min(GRID_BLOCKS, -(-n // 256))
-        part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
-        t_in = stats.data_ptr() if ks else None
-        status = lib().ef_encode_stats_launch(
-            _ptr(a), _ptr(b), _ptr(c), n, t_in, part.data_ptr(), blocks,
-            _stream(dev))
-        check_status(status, "ef_encode (grid stats)")
-        status = lib().ef_encode_sweep_launch(
-            _ptr(a), _ptr(b), _ptr(c), n, t_in, part.data_ptr(), blocks,
-            blocks, blocks, int(quantize), _ptr(q), _ptr(recon),
-            r.data_ptr(), stats.data_ptr(), stats.data_ptr() + 4,
-            stats.data_ptr() + 8, _stream(dev))
-        check_status(status, "ef_encode (grid sweep)")
-        LAUNCHES["ef_encode"] += 3 if ks else 2
-    kept = stats[2:].view(torch.int32)[0]
-    return out, r, stats[0], (stats[1] if quantize else None), kept
+        (out,), (r,), stats, launches = _ef_encode_grid(
+            [(a, b, c)], a.device, k=k, n_params=n_params,
+            quantize=quantize)
+    if on_card:
+        LAUNCHES["ef_encode"] += launches
+    return (out, r, stats[0], stats[1] if quantize else None,
+            kept_word(stats)[0])
 
 
 def _shard_parts(a, b, c):
@@ -252,121 +484,69 @@ def _shard_parts(a, b, c):
     return shards, S
 
 
-def _sharded_select(shards, S: int, mesh, k: int, n_params: int,
-                    stats: torch.Tensor) -> int:
-    """The sharded form's select: each shard's share of x[::stride] copied
-    out on its device, the shares concatenated on the home device in
-    shard order, one cluster launch selecting over them into
-    ``stats[0]``.  Returns the launches made."""
-    from ._build import lib
+def _sharded_select(shards, S: int, mesh, k: int, n_params: int) -> tuple:
+    """A sharded vector's select: each shard's share of x[::stride] (one
+    pass 1 launch a shard that holds some, sample only) written into one
+    buffer on the home device (copied there from another device), one
+    cluster launch selecting over it.  Returns the threshold (0-d, on the
+    home device) and the launches made."""
     n = S * len(shards)
     stride, m, ks = sample_plan(n, k, n_params)
     if not 1 <= ks <= m or m > CLUSTER_MAX:
         raise ValueError(f"k = {k} outside 1..{m}, or {m} > CLUSTER_MAX")
-    pieces = []
-    for (a, b, c), dev, (off, md) in zip(shards, mesh.devices,
-                                         ref.shard_samples(n, len(shards),
-                                                           stride)):
+    stats = torch.empty(3, dtype=torch.float32, device=mesh.home)
+    home = stats.device
+    sample = torch.empty(m, dtype=torch.float32, device=home)
+    start, launches = 0, 1
+    for pieces, (off, md) in zip(shards,
+                                 ref.shard_samples(n, len(shards), stride)):
         if not md:
             continue
-        with psh.device_guard(dev):
-            piece = torch.empty(md, dtype=torch.float32, device=dev)
-            status = lib().ef_encode_sample_launch(
-                _ptr(a), _ptr(b), _ptr(c), S, off, stride, md,
-                piece.data_ptr(), _stream(dev))
-            check_status(status, "ef_encode (sharded sample)")
-        pieces.append(piece)
-    home = mesh.home
+        _pass1_home(pieces, home, (sample[start:start + md], None, None),
+                    blocks=grid_blocks(S), off=off, stride=stride)
+        start += md
+        launches += 1
     with psh.device_guard(home):
-        sample = torch.cat([p.to(home) for p in pieces])
-        _select_cluster(sample, None, None, m, 1, m, ks, False, False,
-                        None, None, None, stats)
-    return len(pieces) + 1
+        ef_select(sample, ks, stats, exact=n_params <= SAMPLE_CAP)
+    return stats[0], launches
 
 
 def _ef_encode_sharded(a, b, c, *, k, n_params, quantize):
-    mesh, D = a.mesh, len(a.shards)
-    shards, S = _shard_parts(a, b, c)
-    if D == 1:
+    mesh = a.mesh
+    shards, _ = _shard_parts(a, b, c)
+    if len(shards) == 1:
         # nothing crosses devices: the unsharded encode on the one piece
         out, r, thresh, scale, kept = ef_encode(*shards[0], k=k,
                                                 n_params=n_params,
                                                 quantize=quantize)
         return (psh.Sharded([out], mesh), psh.Sharded([r], mesh), thresh,
                 scale, kept)
-    home = mesh.home
-    if not _on_kernel(shards):
-        pa, pb, pc = ([p[i] for p in shards] for i in range(3))
-        out, r, thresh, scale, kept = ref.reference_ef_encode_sharded(
-            pa, None if b is None else pb, None if c is None else pc, k=k,
-            n_params=n_params, quantize=quantize, home=home)
-        return (psh.Sharded(out, mesh), psh.Sharded(r, mesh), thresh, scale,
-                kept)
-    if a.shards[0].device != home:
-        raise ValueError("shard 0 must lie on the mesh's home device")
-    from ._build import lib
-    # thresh, scale (f32) and kept (int32) in one allocation
-    stats = torch.empty(3, dtype=torch.float32, device=home)
-    launches = 0
-    if k is not None:
-        launches += _sharded_select(shards, S, mesh, k, n_params, stats)
-    blocks = min(GRID_BLOCKS, -(-S // 256))
-    thr, parts = [], []
-    for (pa, pb, pc), dev in zip(shards, mesh.devices):
-        with psh.device_guard(dev):
-            t_in = None if k is None else stats[:1].to(dev)
-            part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
-            status = lib().ef_encode_stats_launch(
-                _ptr(pa), _ptr(pb), _ptr(pc), S, _ptr(t_in),
-                part.data_ptr(), blocks, _stream(dev))
-            check_status(status, "ef_encode (sharded stats)")
-        thr.append(t_in)
-        parts.append(part)
-    with psh.device_guard(home):
-        every = torch.cat([p.to(home) for p in parts])
-    outs, rs = [], []
-    for d, ((pa, pb, pc), dev) in enumerate(zip(shards, mesh.devices)):
-        with psh.device_guard(dev):
-            part = every.to(dev)
-            out = torch.empty(S, dtype=torch.int8 if quantize
-                              else torch.float32, device=dev)
-            r = torch.empty(S, dtype=torch.float32, device=dev)
-            q, recon = (out, None) if quantize else (None, out)
-            st = stats if d == 0 else None
-            status = lib().ef_encode_sweep_launch(
-                _ptr(pa), _ptr(pb), _ptr(pc), S, _ptr(thr[d]),
-                part.data_ptr(), D * blocks, blocks, blocks, int(quantize),
-                _ptr(q), _ptr(recon), r.data_ptr(), _ptr(st),
-                None if st is None else st.data_ptr() + 4,
-                None if st is None else st.data_ptr() + 8, _stream(dev))
-            check_status(status, "ef_encode (sharded sweep)")
-        outs.append(out)
-        rs.append(r)
-    LAUNCHES["ef_encode_sharded"] += launches + 2 * D
-    kept = stats[2:].view(torch.int32)[0]
+    on_card = _on_kernel(shards)
+    outs, rs, stats, launches = _ef_encode_grid(
+        shards, mesh.home, k=k, n_params=n_params, quantize=quantize)
+    if on_card:
+        LAUNCHES["ef_encode_sharded"] += launches
     return (psh.Sharded(outs, mesh), psh.Sharded(rs, mesh), stats[0],
-            stats[1] if quantize else None, kept)
+            stats[1] if quantize else None, kept_word(stats)[0])
 
 
 def topk_threshold(x: torch.Tensor, k: int, n_params: int) -> torch.Tensor:
     """0-d |x| threshold selecting ~the k largest coordinates of x (N,)
     f32: ``ef_encode``'s select alone, one cluster launch.  A ``Sharded``
     x over more than one device takes the sharded form's select (each
-    shard's share of the sample, counted under ``LAUNCHES["sample"]``,
-    then the one cluster launch on the home device) and returns the
-    threshold on the home device."""
+    shard's share of the sample written by a pass 1 launch, counted under
+    ``LAUNCHES["sample"]``, then the one cluster launch on the home
+    device) and returns the threshold on the home device."""
     if isinstance(x, psh.Sharded):
         shards, S = _shard_parts(x, None, None)
         if len(shards) == 1:
             return topk_threshold(shards[0][0], k, n_params)
-        if not _on_kernel(shards):
-            return ref.reference_topk_threshold_sharded(
-                x.shards, k, n_params, x.mesh.home)
-        stats = torch.empty(3, dtype=torch.float32, device=x.mesh.home)
-        LAUNCHES["sample"] += _sharded_select(shards, S, x.mesh, k,
-                                              n_params, stats) - 1
-        LAUNCHES["select"] += 1
-        return stats[0]
+        on_card = _on_kernel(shards)
+        t, launches = _sharded_select(shards, S, x.mesh, k, n_params)
+        if on_card:
+            LAUNCHES["sample"] += launches - 1
+            LAUNCHES["select"] += 1
+        return t
     if not use_kernel(x):
         return ref.reference_topk_threshold(x, k, n_params)
     n = x.numel()

@@ -703,8 +703,8 @@ def test_cuda_rwkv6_prefill_launches_wkv_once_per_layer(h100):
 
 # ef_encode's cases at small sizes, (N, n_params, k, quantize, draw) as in
 # chip_smoke.EF_CASES, and the launches each takes: one cluster launch where
-# the sample is x itself and fits one cluster; above it the select, then
-# two passes over x (the int8 codec skips the select)
+# the sample is x itself and fits one cluster; above it a pass over x, the
+# select (the int8 codec: a one-block reduce), a second pass
 EF_SMALL = [
     ((1000, 1000, 100, True, "parts"), 1),
     ((1000, 1000, 100, False, "parts"), 1),
@@ -718,7 +718,7 @@ EF_SMALL = [
     ((131_584, 131_484, 13_148, False, "parts"), 1),
     ((524_288, 524_188, 52_418, True, "parts"), 3),  # sampled at stride 4
     ((524_288, 524_188, 52_418, False, "parts"), 3),
-    ((524_288, 524_188, None, True, "parts"), 2),
+    ((524_288, 524_188, None, True, "parts"), 3),
     ((4096, 4000, 400, True, "ties"), 1),
     ((4096, 4000, 400, True, "zeros"), 1),
     ((4096, 4000, 400, True, "nonfinite"), 1),
@@ -774,6 +774,57 @@ def test_cuda_ef_encode_check_catches_faults(h100, fault):
                                                                **kw)) == []
     assert chip_smoke.ef_mismatch(
         got, chip_smoke.ef_plain_fault(fault, a, b, c, **kw))
+
+
+def _sharded_encode_case(dev, D, N, kw, seed=0):
+    """The sharded encode on a mesh of D repeating ``dev``: bit for bit
+    against the plain chain on the gathered vectors and the plain staged
+    version; returns its launches."""
+    from repro_torch.parallel import sharding as psh
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a, b, c = chip_smoke.shard_enc_inputs(g, N)
+    mesh = psh.agg_mesh(devices=(dev,) * D)
+    sh = [psh.split(t, mesh) for t in (a, b, c)]
+    n0 = topk_quant.LAUNCHES["ef_encode_sharded"]
+    got = chip_smoke._gathered(topk_quant.ef_encode(*sh, **kw))
+    launches = topk_quant.LAUNCHES["ef_encode_sharded"] - n0
+    outs, rs, *rest = ref.reference_ef_encode_sharded(
+        *(t.shards for t in sh), **kw, home=mesh.home)
+    torch.cuda.synchronize()
+    assert chip_smoke.ef_mismatch(got, ref.reference_ef_encode(
+        a, b, c, **kw)) == []
+    assert chip_smoke.ef_mismatch(got, (torch.cat(outs), torch.cat(rs),
+                                        *rest)) == []
+    assert chip_smoke.check_ef_stages(*(t.shards for t in sh), **kw) == []
+    return launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["topk_ef", "topk_ef+int8", "int8"])
+@pytest.mark.parametrize("D", [2, 3, 4])
+def test_cuda_sharded_ef_encode_matches_plain(h100, D, codec):
+    """The sharded grid form at D = 2, 3, 4 on one card, sampled at stride
+    D (and the exact path at 3 x 4,096): every output and every stage bit
+    for bit, 2D + 2 launches (2D + 1 for int8)."""
+    topk = codec != "int8"
+    for N, n_params in ((D << 17, D << 17), (3 * 4096, 3 * 4000)):
+        kw = dict(k=n_params // 10 if topk else None, n_params=n_params,
+                  quantize=codec != "topk_ef")
+        assert _sharded_encode_case(h100, D, N, kw) == \
+            2 * D + (2 if topk else 1)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_ef_encode_with_an_empty_sample_share(h100,
+                                                           monkeypatch):
+    """A stride above the shard's width leaves shards 1 and 3 of four with
+    no share of the sample: their pass 1 writes only partials."""
+    monkeypatch.setattr(ref, "SAMPLE_CAP", 2)
+    N = 1024
+    assert [m for _, m in ref.shard_samples(N, 4, N // 2)] == [1, 0, 1, 0]
+    for quantize in (True, False):
+        kw = dict(k=100, n_params=1000, quantize=quantize)
+        assert _sharded_encode_case(h100, 4, N, kw) == 10
 
 
 @pytest.mark.cuda

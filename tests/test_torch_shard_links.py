@@ -5,12 +5,18 @@ Meshes of D = 1, 2 and 4 repeat the one CPU device, so every piece is a
 separate tensor and every per-shard launch runs its plain version.  The
 JAX package here sees one device: its side is the unsharded path.
 
-* ``ef_encode``'s sharded form (``ref.reference_ef_encode_sharded`` on
-  the CPU) equals the unsharded encode of the gathered vectors bit for
+* ``ef_encode``'s sharded form (its stages' plain versions on the CPU)
+  equals the unsharded encode of the gathered vectors bit for
   bit in every output, at N = 1,024, 102,400 (exact select), 2^17 + 2,048
-  (the sampled path at stride 1) and 2^19 (stride 4), for the top-k,
-  top-k+int8 and int8 codecs, with b and c present and absent; so do the
-  sharded select (``topk_threshold``) and decode (``dequant_add``).
+  (the sampled path at stride 1) and 2^19 (stride 4), and at three
+  shards 3 x 4,096 and 3 x 2^17, for the top-k, top-k+int8 and int8
+  codecs, with b and c present and absent, and with shards that hold no
+  share of the sample; so do the sharded select (``topk_threshold``) and
+  decode (``dequant_add``).  The unsharded grid form equals the chain of
+  PyTorch ops and the staged plain version
+  (``ref.reference_ef_encode_sharded``); its launch plan, counted at the
+  stage wrappers, is 2D + 2 (2D + 1 for int8; one vector: 3) with no
+  ``torch.cat``.
 * The same inputs against JAX's ``ef_topk_encode`` and int8 codec within
   tests/test_torch_codec_fused.py's bounds (bit for bit but for the
   quantised residual, which XLA contracts into an FMA: one f32 spacing of
@@ -27,7 +33,8 @@ JAX package here sees one device: its side is the unsharded path.
   places them with ``to_mesh``.
 * ``snapshot_ef_norms`` equals the unsharded run's.
 * ``chip_smoke.check_shard_encode`` rehearsed, each of its controls
-  failing.
+  failing; ``chip_smoke.check_ef_stages`` (each stage against its plain
+  stage) at D = 1 to 4, and failing two faulty stages.
 """
 import itertools
 import sys
@@ -159,7 +166,8 @@ def test_one_shard_takes_the_unsharded_form(codec, monkeypatch):
     for name in ("reference_ef_encode_sharded",
                  "reference_topk_threshold_sharded"):
         monkeypatch.setattr(ref, name, sharded)
-    monkeypatch.setattr(topk_quant, "_sharded_select", sharded)
+    for name in ("_sharded_select", "_ef_encode_grid"):
+        monkeypatch.setattr(topk_quant, name, sharded)
     N = 102_400
     a, b, c = (torch.from_numpy(v) for v in _parts(N))
     kw = _kw(codec, N)
@@ -175,6 +183,155 @@ def test_one_shard_takes_the_unsharded_form(codec, monkeypatch):
         x = (a - b) + c
         assert _same(topk_quant.topk_threshold(psh.split(x, mesh), kw["k"],
                                                kw["n_params"]), want[2])
+
+
+# three shards: a width divisible by 3 on the exact path and at stride 3
+N_PARAMS_3 = {3 * 4096: 3 * 4000, 3 << 17: (3 << 17) - 5}
+
+
+@pytest.mark.parametrize("present", ["abc", "a"])
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("N", sorted(N_PARAMS_3))
+def test_three_shards_equal_unsharded_and_jax(N, codec, present):
+    """D = 3: the sharded encode bit for bit against the unsharded plain
+    encode of the gathered vectors, and against JAX's codec within
+    tests/test_torch_codec_fused.py's bounds."""
+    a, b, c = _parts(N)
+    if present == "a":
+        b = c = None
+    spec, n = ttr.CODECS[codec], N_PARAMS_3[N]
+    kw = dict(k=ttr.topk_k(n, FRAC) if spec.topk else None, n_params=n,
+              quantize=spec.quantize)
+    ts = [None if v is None else torch.from_numpy(v) for v in (a, b, c)]
+    want = ref.reference_ef_encode(*ts, **kw)
+    mesh = _mesh(3)
+    out, r, thresh, scale, kept = got = topk_quant.ef_encode(
+        *(None if t is None else psh.split(t, mesh) for t in ts), **kw)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    out, r = out.gather(), r.gather()
+    x = a if b is None else (a - b) + c
+    xj = jnp.asarray(x)
+    if spec.topk:
+        jthr = jtr.topk_threshold(xj, kw["k"], n)
+        assert _bits(thresh) == _bits(jthr)
+        assert int(kept) == int(jtr._kept_count(xj, jthr))
+        jd, _, jres, _ = jtr.ef_topk_encode(xj, n_params=n, frac=FRAC,
+                                            quantize=spec.quantize)
+        if not spec.quantize:
+            assert np.array_equal(_bits(out), _bits(jd))
+            assert np.array_equal(_bits(r), _bits(jres))
+            return
+        jq, js = np.asarray(jd[0]), np.asarray(jd[1])
+    else:
+        js = np.asarray(jtr._int8_scale(xj))
+        jq, jres = (np.asarray(v) for v in jtq.topk_quant_encode(xj, 0.0, js))
+    assert np.array_equal(out.numpy(), jq)
+    assert _bits(scale) == _bits(js)
+    assert _spacing_bound(r.numpy(), np.asarray(jres), jq, js)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_a_shard_with_no_share_of_the_sample(codec, monkeypatch):
+    """A stride above the shard's width (SAMPLE_CAP cut to 2: stride 512
+    over shards of 256) leaves shards 1 and 3 of four no share of the
+    sample; their pass 1 writes only partials, and every output still
+    equals the unsharded plain encode's."""
+    monkeypatch.setattr(ref, "SAMPLE_CAP", 2)
+    N = 1024
+    assert [m for _, m in ref.shard_samples(N, 4, N // 2)] == [1, 0, 1, 0]
+    spec = ttr.CODECS[codec]
+    kw = dict(k=100 if spec.topk else None, n_params=1000,
+              quantize=spec.quantize)
+    a, b, c = (torch.from_numpy(v) for v in _parts(N))
+    want = ref.reference_ef_encode(a, b, c, **kw)
+    mesh = _mesh(4)
+    got = topk_quant.ef_encode(*(psh.split(t, mesh) for t in (a, b, c)),
+                               **kw)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    staged = ref.reference_ef_encode_sharded(
+        *(psh.split(t, mesh).shards for t in (a, b, c)), **kw,
+        home=mesh.home)
+    for g, w in zip(got, (torch.cat(staged[0]), torch.cat(staged[1]),
+                          *staged[2:])):
+        assert _same(g, w)
+
+
+@pytest.mark.parametrize("present", ["abc", "a"])
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("N", [3 << 17, 1 << 19])
+def test_grid_form_equals_the_chain(N, codec, present):
+    """One vector above one cluster's size takes the grid form (its plain
+    stages on the CPU): bit for bit the chain of PyTorch ops
+    (``ref.reference_ef_encode``) and the staged plain version."""
+    spec = ttr.CODECS[codec]
+    kw = dict(k=ttr.topk_k(N, FRAC) if spec.topk else None, n_params=N,
+              quantize=spec.quantize)
+    a, b, c = (torch.from_numpy(v) for v in _parts(N))
+    if present == "a":
+        b = c = None
+    got = topk_quant.ef_encode(a, b, c, **kw)
+    for g, w in zip(got, ref.reference_ef_encode(a, b, c, **kw)):
+        assert _same(g, w)
+    outs, rs, *rest = ref.reference_ef_encode_sharded(
+        [a], *(None if t is None else [t] for t in (b, c)), **kw,
+        home=a.device)
+    for g, w in zip(got, (outs[0], rs[0], *rest)):
+        assert _same(g, w)
+
+
+@pytest.mark.parametrize("present", ["abc", "a"])
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_grid_form_launch_plan(D, codec, present, monkeypatch):
+    """The grid form's launches, counted at the stage wrappers: a pass 1
+    and a pass 2 a shard, one select (or, int8, one reduce) and, sharded
+    top-k, one sum of the kept partials: 2D + 2 (2D + 1 for int8); one
+    vector (2^19, stride 4): 3.  Pass 2 reads x back from the residual's
+    buffer where b or c is given, else a itself; no torch.cat on a
+    one-device mesh."""
+    N = 3 << 17 if D == 3 else 1 << 19
+    spec = ttr.CODECS[codec]
+    kw = dict(k=ttr.topk_k(N, FRAC) if spec.topk else None, n_params=N,
+              quantize=spec.quantize)
+    calls = []
+    for name in ("ef_pass1", "ef_select", "ef_reduce", "ef_pass2"):
+        real = getattr(topk_quant, name)
+
+        def counted(*args, _real=real, _name=name, **k):
+            calls.append((_name, k.get("x"), args[0]))
+            return _real(*args, **k)
+        monkeypatch.setattr(topk_quant, name, counted)
+
+    def no_cat(*args, **k):
+        raise AssertionError("torch.cat in the sharded encode")
+    a, b, c = (torch.from_numpy(v) for v in _parts(N))
+    if present == "a":
+        b = c = None
+    want = ref.reference_ef_encode(a, b, c, **kw)
+    mesh = _mesh(D)
+    ins = [None if t is None else psh.split(t, mesh) for t in (a, b, c)]
+    if D == 1:
+        ins = [None if t is None else t.shards[0] for t in ins]
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = topk_quant.ef_encode(*ins, **kw)
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    names = [n for n, _, _ in calls]
+    sel = "ef_select" if spec.topk else "ef_reduce"
+    if D == 1:
+        assert names == ["ef_pass1", sel, "ef_pass2"]
+    else:
+        assert names == ["ef_pass1"] * D + [sel] + ["ef_pass2"] * D + (
+            ["ef_reduce"] if spec.topk else [])
+    stored = [x is not None for n, x, _ in calls if n == "ef_pass1"]
+    assert stored == [present == "abc"] * D
+    # pass 2 runs the last piece first
+    read = [x for n, _, x in calls if n == "ef_pass2"][::-1]
+    pieces = [ins[0]] if D == 1 else ins[0].shards
+    assert all((x is p) != (present == "abc") for x, p in zip(read, pieces))
 
 
 def test_shard_samples_are_the_strided_sample():
@@ -426,10 +583,61 @@ def test_chip_smoke_shard_encode_rehearsed():
     assert len(rec["decode"]) == 2 * 3
 
 
-@pytest.mark.parametrize("fault", [0, 1])
+def test_chip_smoke_shard_enc_controls_rehearsed():
+    """run_shard's controls: check_shard_encode fails under each fault."""
+    cs = _chip_smoke()
+    assert cs.shard_enc_controls(torch.device("cpu")) == dict.fromkeys(
+        cs.SHARD_ENC_FAULTS, True)
+
+
+@pytest.mark.parametrize("fault", [0, 1, 2])
 def test_chip_smoke_shard_encode_faults_fail(fault):
     cs = _chip_smoke()
     with pytest.raises(AssertionError, match="sharded ef_encode"):
         cs.check_shard_encode(torch.device("cpu"),
                               sizes=((4096, 4000, 400),),
                               fault=cs.SHARD_ENC_FAULTS[fault])
+
+
+@pytest.mark.parametrize("present", ["abc", "a"])
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_chip_smoke_ef_stages_rehearsed(D, codec, present):
+    """chip_smoke.check_ef_stages: each stage wrapper alone against its
+    plain stage, on pieces of a sampled vector (stride 4; 3 x 2^17 at
+    stride 3) and, int8, the exact one."""
+    cs = _chip_smoke()
+    N = 3 << 17 if D == 3 else 1 << 19
+    spec = ttr.CODECS[codec]
+    kw = dict(k=ttr.topk_k(N, FRAC) if spec.topk else None, n_params=N,
+              quantize=spec.quantize)
+    ps = [torch.from_numpy(v).chunk(D) for v in _parts(N)]
+    if present == "a":
+        ps[1] = ps[2] = None
+    assert cs.check_ef_stages(*ps, **kw) == []
+
+
+def test_chip_smoke_ef_stages_catch_a_faulty_stage(monkeypatch):
+    """check_ef_stages fails a pass 1 whose sample share starts one element
+    late, and a pass 2 whose kept partials are off by one."""
+    cs = _chip_smoke()
+    N, D = 1 << 19, 2
+    kw = dict(k=ttr.topk_k(N, FRAC), n_params=N, quantize=True)
+    ps = [torch.from_numpy(v).chunk(D) for v in _parts(N)]
+    real1, real2 = topk_quant.ef_pass1, topk_quant.ef_pass2
+
+    def late(*args, off=0, sample=None, **k):
+        real1(*args, off=off, sample=sample, **k)
+        if sample is not None:
+            real1(*args, off=off + 1, sample=sample[:-1], **k)
+
+    def off_by_one(*args, part_kept=None, **k):
+        real2(*args, part_kept=part_kept, **k)
+        part_kept[0] += 1
+    monkeypatch.setattr(topk_quant, "ef_pass1", late)
+    bad = cs.check_ef_stages(*ps, **kw)
+    assert any("sample" in b for b in bad)
+    monkeypatch.setattr(topk_quant, "ef_pass1", real1)
+    monkeypatch.setattr(topk_quant, "ef_pass2", off_by_one)
+    bad = cs.check_ef_stages(*ps, **kw)
+    assert any("kept" in b for b in bad)
