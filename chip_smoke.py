@@ -159,7 +159,8 @@ follow the numerics).
    ``B7_SIZES`` (256 x 16,777,216: 17.2 GB of rows; the main path's MLP
    padded for D = 4 at W = 30 and W = 1), bit for bit equal to the
    unsharded kernel on the same data and to the plain sharded version,
-   each ``B7_FAULTS`` control failing (checked at small sizes in the
+   one launch a device (one on this card) covering D pieces, each
+   ``B7_FAULTS`` control failing (checked at small sizes in the
    tests); timed with L2 flushed, D = 1 in turns with the unsharded
    kernel and ``torch.addmv``/``torch.mv``, D > 1 with the unsharded
    kernel, beside the byte bound.  ``check_shard_encode``: ef_encode's
@@ -173,15 +174,21 @@ follow the numerics).
    pass 1 and a pass 2 a shard, the select and the kept partials' sum;
    2D + 1 for int8; one shard: the unsharded form's launches), each
    ``SHARD_ENC_FAULTS`` control
-   failing; B4 per shard (``dequant_add`` on ``Sharded`` q and base) bit
-   for bit; both timed with L2 flushed in turns with the unsharded form.
-   Then each ``SHARD_RUNS`` run at MNIST
+   failing.  ``check_shard_decode``: B4's sharded forms at the same
+   widths and meshes, ``dequant_add`` on ``Sharded`` q and base and a
+   merge's 30 encoded responses landed in a sharded row buffer (the
+   sharded server's ``_set_rows``: ``dequant_add_rows`` over the pieces),
+   bit for bit against the unsharded forms, one launch a device covering
+   D pieces, the ``SHARD_DEC_FAULTS`` control failing.  Each timed with
+   L2 flushed in turns with the unsharded form (and B4 with ``torch.add``
+   on the whole vectors).  Then each ``SHARD_RUNS`` run at MNIST
    width (phase 4's setup, ``SHARD_ROUNDS`` rounds) unsharded and at
    ``server_mesh`` 1, 2 and 4, counters at 0 before each run: every
    sharded history equals the unsharded one in every field, accuracy
    bits included (the topology's root and leaves), every link vector
    after the run is ``Sharded`` in D pieces of N/D, each merge kernel,
-   ``dequant_add_rows`` and B4 launch D times the unsharded run's, every
+   ``dequant_add_rows`` and B4 launch as often as in the unsharded run
+   (once a device of this card's mesh) over D times its pieces, every
    encode at D > 1 takes the sharded form and at D = 1 the unsharded one
    on its one piece (``shard_enc_launches``), and B5 never;
    then ``SHARD_RESUME`` stopped at its first snapshot and resumed in
@@ -757,8 +764,18 @@ def launch_counters():
             "wkv": rwkv6_kernel.LAUNCHES}
 
 
+def piece_counters():
+    """Counter key -> the PIECES dict of a kernel whose wrapper takes
+    pieces (the merges, B5, B4 and the rows): the pieces its launches
+    covered, one a launch unsharded, every piece a device holds sharded."""
+    from repro_torch.kernels import fedavg_agg, server_opt, topk_quant
+    return {**{k: fedavg_agg.PIECES for k in fedavg_agg.PIECES},
+            **{k: server_opt.PIECES for k in server_opt.PIECES},
+            **{k: topk_quant.PIECES for k in topk_quant.PIECES}}
+
+
 def zero_counters():
-    for c in launch_counters().values():
+    for c in (*launch_counters().values(), *piece_counters().values()):
         for k in c:
             c[k] = 0
 
@@ -3132,8 +3149,8 @@ def run_resume(device, report, weights0, rounds=RESUME_ROUNDS,
 # ---------------------------------------------------------------------------
 # Phase 9, the sharded substrate (B7): the aggregation server's row buffer
 # and vectors split along N over a mesh that repeats the one card
-# (agg_mesh(devices=...)), each shard merged by its own launch of B1, B2
-# or merge_opt_flat
+# (agg_mesh(devices=...)), the card's pieces merged by one launch of B1,
+# B2 or merge_opt_flat
 
 # (W, N) of the B7 checks: benchmarks/agg_shard_bench.py's largest cell
 # (mlp_16m, 256 rows: 17.2 GB of rows), the main path's MLP padded for
@@ -3144,9 +3161,10 @@ B7_FORMS = ("mix", "agg", "merge_mom", "merge_adam", "opt_mom", "opt_adam")
 B7_S = 0.4                      # the mix's server scale
 # controls: a faulty wrapper's result must fail the check
 B7_FAULTS = ("shards written back one block off",
-             "a shard's server term dropped")
-# kernels-line record -> (form, the launch counter of the kernel it runs
-# per shard, the TPU function it replaces)
+             "a shard's server term dropped",
+             "a device's group covers only its first piece")
+# kernels-line record -> (form, the counter of the kernel it launches a
+# device, the TPU function it replaces)
 B7_RECORDS = {
     "fedavg_mix_flat_sharded": ("mix", "mix", "fedavg_agg.py:234"),
     "fedavg_agg_flat_sharded": ("agg", "agg", "fedavg_agg.py:268"),
@@ -3174,12 +3192,14 @@ SHARD_RUNS = {
                      "transport": "topk_ef+int8", "transport_frac": 0.1},
 }
 SHARD_RESUME = ("raw/sync", 2)   # killed at its first snapshot, resumed
-# launch counters that a sharded run multiplies by D (one per shard per
-# merge or decode), and those it leaves as the unsharded run has them; a
-# sharded run over D > 1 devices encodes only through ef_encode's sharded
-# form, over one device through the unsharded form (shard_enc_launches)
-PER_SHARD = ("agg", "mix", "merge_mom", "merge_adam", "decode_rows",
-             "decode")
+# counters of the kernels a sharded run launches once a device per merge
+# or decode, over every piece the device holds: its launches are the
+# distinct devices times the unsharded run's, its pieces D times; the
+# counters it leaves as the unsharded run has them; a sharded run over
+# D > 1 devices encodes only through ef_encode's sharded form, over one
+# device through the unsharded form (shard_enc_launches)
+GROUPED = ("agg", "mix", "merge_mom", "merge_adam", "decode_rows",
+           "decode")
 UNSHARDED = ("encode", "select", "sample", "mom", "adam")
 
 
@@ -3212,6 +3232,13 @@ SHARD_ENC_FAULTS = ("a shard's sample offset one element off",
                     "the last shard's partials left out of the reduction",
                     "a shard's kept partials left out of the total")
 N_TIMED_SHARD = 20
+# check_shard_decode: a merge's decodes into a sharded row buffer (the main
+# path's 30 workers); controls: a faulty grouped decode must fail the check
+SHARD_DEC_W = 30
+# (one for each form: the fault applies to the form it names)
+SHARD_DEC_FAULTS = {"decode": "a device's B4 covers only its first piece",
+                    "rows": "a device's row decode covers only its first "
+                            "piece"}
 
 
 def b7_inputs(dev, W, N, seed):
@@ -3296,13 +3323,28 @@ def b7_plain(form, o, D):
     return out if adam else out[:2]
 
 
+def first_pieces_only(sh):
+    """What a grouped launch that covered only each device's first piece
+    would leave in the ``Sharded`` ``sh``: the device's other pieces never
+    written (zeros stand for what they held)."""
+    from repro_torch.parallel import sharding as psh
+    pieces = list(sh.shards)
+    for _, idx in psh.device_groups(sh.mesh):
+        for i in idx[1:]:
+            pieces[i] = torch.zeros_like(pieces[i])
+    return psh.Sharded(pieces, sh.mesh)
+
+
 def b7_fault(fault, form, out, o_sh):
     """What a faulty wrapper would return: shard pieces written back one
-    block off, or the last shard's mix taken without its server term."""
+    block off, the last shard's mix taken without its server term, or a
+    device's launch over its first piece only."""
     from repro_torch.core.flatbuf import BLOCK
     from repro_torch.kernels import fedavg_agg as fa
     from repro_torch.parallel import sharding as psh
     first = out[0]
+    if fault == B7_FAULTS[2]:
+        return tuple(first_pieces_only(x) for x in out)
     pieces = list(first.shards)
     if fault == B7_FAULTS[0]:
         pieces = [p.roll(BLOCK) for p in pieces]
@@ -3349,10 +3391,15 @@ def check_b7(dev, sizes=B7_SIZES, meshes=B7_MESHES, fault=None):
     turns with the unsharded kernel and the one-call library form, D > 1
     with the unsharded kernel), L2 flushed.  With ``fault`` the B7 result
     is altered as a faulty wrapper would leave it: the check must fail.
-    Returns the record: cases, errors and timings."""
+    On the card each call must make one launch a device of the mesh (one
+    here) covering D pieces.  Returns the record: cases, errors, launches
+    and pieces, and timings."""
     from repro_torch.kernels import fedavg_agg
     from repro_torch.parallel import sharding as psh
-    timer = Timer(dev) if dev.type == "cuda" and fault is None else None
+    on_card = dev.type == "cuda"
+    timer = Timer(dev) if on_card and fault is None else None
+    ctr = {form: c for form, c, _ in B7_RECORDS.values()}
+    launched, covered = launch_counters(), piece_counters()
     rec = {"cases": 0, "err": {f: 0.0 for f in B7_FORMS}, "by_case": []}
     for i, (W, N) in enumerate(sizes):
         o = b7_inputs(dev, W, N, seed=100 + i)
@@ -3372,8 +3419,18 @@ def check_b7(dev, sizes=B7_SIZES, meshes=B7_MESHES, fault=None):
                 raise AssertionError(f"B7 fedavg_mix_flat_sharded W = {W} "
                                      f"N = {N} D = {D} differs from the "
                                      f"unsharded kernel")
+            n_dev = len(psh.device_groups(mesh))
             for form in B7_FORMS:
+                k = ctr[form]
+                before = launched[k][k], covered[k][k]
                 got = b7_call(form, o_sh, mesh)
+                counts = (launched[k][k] - before[0],
+                          covered[k][k] - before[1])
+                if on_card and counts != (n_dev, D):
+                    raise AssertionError(
+                        f"B7 {form} W = {W} N = {N} D = {D}: {counts[0]} "
+                        f"launches over {counts[1]} pieces, {n_dev} over "
+                        f"{D} expected")
                 if fault is not None:
                     got = b7_fault(fault, form, got, o_sh)
                 plain = b7_plain(form, o, D)
@@ -3401,6 +3458,7 @@ def check_b7(dev, sizes=B7_SIZES, meshes=B7_MESHES, fault=None):
                 n_bytes, flops = _b7_bound(form, W, N)
                 b_ms, b_by = bound_ms(n_bytes, flops)
                 case = {"form": form, "W": W, "N": N, "D": D, "ms": ms,
+                        "launches": counts[0], "pieces": counts[1],
                         "unsharded_ms": ums,
                         "library_ms": lib_ms.get(form),
                         "plain_ms": timer(lambda: b7_plain(form, o, D),
@@ -3580,9 +3638,8 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
     sharded version's, at the largest D each launch alone against its
     plain stage (``check_ef_stages``), and on the card 2D + 2 launches
     (2D + 1 for int8; at D = 1 the unsharded form's, under its own
-    counter).  Then B4 per shard (``dequant_add`` on a ``Sharded`` q and
-    base: one launch a shard) bit for bit against the unsharded B4.  On
-    the card each is timed, L2 flushed, in turns with the unsharded form.
+    counter).  On the card each is timed, L2 flushed, in turns with the
+    unsharded form.
     With ``fault`` (top-k+int8 at the first size, D = 2) the sharded
     result is replaced by what a faulty encode would return: the check
     must fail.  Returns the record."""
@@ -3591,7 +3648,7 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
     on_card = dev.type == "cuda"
     timer = Timer(dev) if on_card and fault is None else None
     g = torch.Generator(device=dev).manual_seed(27)
-    rec = {"cases": 0, "err": 0.0, "by_case": [], "decode": []}
+    rec = {"cases": 0, "err": 0.0, "by_case": []}
     if fault is not None:
         sizes, meshes = sizes[:1], (2,)
     ctr = topk_quant.LAUNCHES
@@ -3673,42 +3730,154 @@ def check_shard_encode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
                       f"version in every output; {launches} launch(es)")
                 del sh, got, plain
             del whole
-        # B4 per shard on this width's int8 payload
-        q = torch.randint(-127, 128, (N,), device=dev, generator=g,
-                          dtype=torch.int8)
-        scale = 0.01 * torch.rand((), device=dev, generator=g)
-        whole = topk_quant.dequant_add(q, scale, a)
-        for D in meshes if fault is None else ():
-            mesh = psh.agg_mesh(devices=(dev,) * D)
-            q_sh, a_sh = psh.split(q, mesh), psh.split(a, mesh)
-            before = ctr["decode"]
-            got = topk_quant.dequant_add(q_sh, scale, a_sh)
-            launches = ctr["decode"] - before
-            if not same_bits(got.gather(), whole) or (on_card
-                                                      and launches != D):
-                raise AssertionError(f"sharded dequant_add N = {N} D = {D}:"
-                                     f" differs from the unsharded B4, or "
-                                     f"{launches} launches for {D} shards")
-            case = {"N": N, "D": D, "launches": launches, "equal": True}
-            if timer is not None:
-                ms, ums, turns = timer.turns(
-                    lambda: topk_quant.dequant_add(q_sh, scale, a_sh),
-                    lambda: topk_quant.dequant_add(q, scale, a),
-                    N_TIMED_SHARD)
-                b_ms, b_by = bound_ms(N + 4 * N + 4 * N + 4, 2 * N)
-                case.update(ms=ms, unsharded_ms=ums, turns=turns,
-                            plain_ms=timer(lambda: ref.reference_dequant_add(
-                                q, scale, a), N_TIMED_SHARD),
-                            bound_ms=b_ms, bound_by=b_by)
-                print(f"time sharded dequant_add N = {N} D = {D}: "
-                      f"{ms:.6f} ms, unsharded {ums:.6f} ms, bound "
-                      f"{b_ms:.6f} ms ({b_by})")
-            rec["decode"].append(case)
-        del a, b, c, q, whole
+        del a, b, c
         if on_card:
             torch.cuda.empty_cache()
     rec["ok"] = True
     return rec
+
+
+def shard_dec_inputs(g, N, W):
+    """B4's sharded forms' inputs at width N: an int8 payload, its scale
+    and base (the B4 call), and a merge's W payloads and scales over one
+    dispatch base (the rows)."""
+    dev = g.device
+    qs = [torch.randint(-127, 128, (N,), device=dev, generator=g,
+                        dtype=torch.int8) for _ in range(W)]
+    scales = [0.01 * torch.rand((), device=dev, generator=g)
+              for _ in range(W)]
+    return qs, scales, torch.randn(N, device=dev, generator=g)
+
+
+def shard_dec_time(timer, kern, unsh, lib, n_bytes, flops, plain):
+    """kern in turns with the unsharded form and the library call (or
+    None), the plain version and the bound: the case's fields."""
+    ms, ums, lms, turns = _turns3(timer, kern, unsh, lib, N_TIMED_SHARD)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    return dict(ms=ms, unsharded_ms=ums, library_ms=lms, turns=turns,
+                plain_ms=timer(plain, N_TIMED_SHARD), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_shard_decode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
+                       W=SHARD_DEC_W, fault=None):
+    """B4's sharded forms on ``dev`` at each width of ``sizes`` and each D
+    of ``meshes`` (a mesh repeating ``dev``): ``dequant_add`` on
+    ``Sharded`` q and base, bit for bit against the unsharded B4, and a
+    merge's W encoded responses landed in a sharded row buffer
+    (``ParamBundle._set_rows``, the sharded server's path: one
+    ``dequant_add_rows`` launch a device over its pieces), bit for bit
+    against the unsharded ``dequant_add_rows`` and the plain version; on
+    the card each call one launch a device (one here) covering D pieces.
+    On the card each is timed, L2 flushed, in turns with the unsharded form
+    and, for B4, ``torch.add`` on the whole vectors (at the first D, in
+    turns there).  With ``fault`` (the first size, D = 2) the sharded
+    results are replaced by what a faulty wrapper would leave: the check
+    must fail.  Returns the record."""
+    from repro_torch.core import flatbuf
+    from repro_torch.kernels import ref, topk_quant
+    from repro_torch.parallel import sharding as psh
+    on_card = dev.type == "cuda"
+    timer = Timer(dev) if on_card and fault is None else None
+    g = torch.Generator(device=dev).manual_seed(29)
+    rec = {"decode": [], "rows": []}
+    if fault is not None:
+        sizes, meshes = sizes[:1], (2,)
+    launched, covered = topk_quant.LAUNCHES, topk_quant.PIECES
+    for N, _, _ in sizes:
+        qs, scales, base = shard_dec_inputs(g, N, W)
+        whole = topk_quant.dequant_add(qs[0], scales[0], base)
+        rows = torch.empty(W, N, device=dev)
+        topk_quant.dequant_add_rows(qs, scales, [base] * W, rows)
+        plain = ref.reference_dequant_add_rows(qs, scales, [base] * W,
+                                               torch.empty_like(rows))
+        if not same_bits(rows, plain):
+            raise AssertionError(f"dequant_add_rows N = {N}: differs from "
+                                 f"its plain version")
+        scale_f = float(scales[0])
+        lib_ms = {}
+        for D in meshes:
+            mesh = psh.agg_mesh(devices=(dev,) * D)
+            n_dev = len(psh.device_groups(mesh))
+            q_sh, b_sh = psh.split(qs[0], mesh), psh.split(base, mesh)
+            bundle = flatbuf.ParamBundle(
+                {"w": torch.empty(N, device="meta")}, mesh=mesh)
+            vecs = [flatbuf.EncodedVec(psh.split(q, mesh), s, b_sh)
+                    for q, s in zip(qs, scales)]
+            rows_sh = psh.split(torch.empty(W, N, device=dev), mesh)
+            for kind, call, want in (
+                    ("decode", lambda: topk_quant.dequant_add(
+                        q_sh, scales[0], b_sh), whole),
+                    ("rows", lambda: bundle._set_rows(rows_sh, vecs),
+                     rows)):
+                key = "decode_rows" if kind == "rows" else kind
+                before = launched[key], covered[key]
+                got = call()
+                counts = (launched[key] - before[0],
+                          covered[key] - before[1])
+                if fault == SHARD_DEC_FAULTS[kind]:
+                    got = first_pieces_only(got)
+                if not same_bits(got.gather(), want) or (
+                        on_card and counts != (n_dev, D)):
+                    raise AssertionError(
+                        f"sharded {kind} N = {N} D = {D}: differs from the "
+                        f"unsharded form, or {counts[0]} launches over "
+                        f"{counts[1]} pieces where {n_dev} over {D}")
+                case = {"N": N, "D": D, "launches": counts[0],
+                        "pieces": counts[1], "equal": True}
+                print(f"check sharded {kind} N = {N} D = {D}: equal to the "
+                      f"unsharded form; {counts[0]} launch(es) over "
+                      f"{counts[1]} pieces")
+                if timer is not None and kind == "decode":
+                    case.update(shard_dec_time(
+                        timer, call,
+                        lambda: topk_quant.dequant_add(qs[0], scales[0],
+                                                       base),
+                        None if lib_ms else (lambda: torch.add(
+                            base, qs[0], alpha=scale_f)),
+                        9 * N + 4, 2 * N, lambda: ref.reference_dequant_add(
+                            qs[0], scales[0], base)))
+                elif timer is not None:
+                    case.update(W=W, **shard_dec_time(
+                        timer, call,
+                        lambda: topk_quant.dequant_add_rows(
+                            qs, scales, [base] * W, rows),
+                        None, W * N * 5 + 4 * N + 4 * W, 2 * W * N,
+                        lambda: ref.reference_dequant_add_rows(
+                            qs, scales, [base] * W, plain)))
+                if timer is not None:
+                    if case["library_ms"] is not None:
+                        lib_ms[kind] = case["library_ms"]
+                    case["library_ms"] = lib_ms.get(kind)
+                    print(f"time sharded {kind} N = {N} D = {D}: "
+                          f"{case['ms']:.6f} ms, unsharded "
+                          f"{case['unsharded_ms']:.6f} ms, library "
+                          f"{case['library_ms']} ms, bound "
+                          f"{case['bound_ms']:.6f} ms ({case['bound_by']})")
+                rec[kind].append(case)
+            del q_sh, b_sh, vecs, rows_sh
+        del qs, scales, base, whole, rows, plain
+        if on_card:
+            torch.cuda.empty_cache()
+    rec["ok"] = True
+    return rec
+
+
+def shard_dec_controls(dev) -> dict:
+    """Each SHARD_DEC_FAULTS control on ``dev``: check_shard_decode given
+    the fault must fail.  Returns fault -> caught."""
+    out = {}
+    for fault in SHARD_DEC_FAULTS.values():
+        try:
+            check_shard_decode(dev, fault=fault)
+            out[fault] = False
+        except AssertionError:
+            out[fault] = True
+        print(f"check sharded B4 control ({fault}): caught {out[fault]}")
+        if not out[fault]:
+            raise AssertionError(f"sharded B4: the check does not catch "
+                                 f"{fault}")
+    return out
 
 
 def shard_enc_controls(dev) -> dict:
@@ -3807,18 +3976,19 @@ def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
     (the topology's root and leaves), and after it every link vector of
     its transports must be a ``Sharded`` of D pieces of N/D elements.  On
     the card each merge kernel's launches, ``dequant_add_rows``' and B4's
-    must be D times the unsharded run's (one per shard per merge or
-    decode), every encode at D > 1 must take the sharded form and at
-    D = 1 the unsharded one (``shard_enc_launches``), and the standalone
-    B5's 0.  Returns
-    the run's record."""
+    must be the mesh's distinct devices times the unsharded run's (one a
+    device per merge or decode: as many as unsharded on one card) and
+    their pieces D times the unsharded run's, every encode at D > 1 must
+    take the sharded form and at D = 1 the unsharded one
+    (``shard_enc_launches``), and the standalone B5's 0.  Returns the
+    run's record."""
     from repro_torch.core import run_fl
     from repro_torch.core import topology as ttop
     from repro_torch.parallel import sharding as psh
     kw = dict(SHARD_RUNS[key])
     topo = kw.pop("topology", None)
     dev = next(iter(setup.weights0.values())).device
-    counters = launch_counters()
+    counters, covered = launch_counters(), piece_counters()
 
     def call(mesh, D=None):
         zero_counters()
@@ -3840,18 +4010,22 @@ def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: counters[k][k] for k in counters}
+        pieces = {k: covered[k][k] for k in covered}
         n_vec = None if D is None else check_shard_local(made, D)
-        return _hex_histories(hists), launches, wall, n_vec
+        return _hex_histories(hists), launches, pieces, wall, n_vec
 
-    base, base_l, base_wall, _ = call(None)
+    base, base_l, base_p, base_wall, _ = call(None)
     rec = {"rounds": rounds, "histories": base, "launches": {"0": base_l},
-           "wall_s": {"0": base_wall}, "equal": {}, "link_vectors": {}}
-    if dev.type == "cuda" and not any(base_l[k] for k in PER_SHARD[:4]):
+           "pieces": {"0": base_p}, "wall_s": {"0": base_wall},
+           "equal": {}, "link_vectors": {}}
+    if dev.type == "cuda" and not any(base_l[k] for k in GROUPED[:4]):
         raise AssertionError(f"shard {key}: no merge kernel launched")
     for D in meshes:
         mesh = 1 if D == 1 else psh.agg_mesh(devices=(dev,) * D)
-        hist, launches, wall, n_vec = call(mesh, D)
+        n_dev = 1 if D == 1 else len(psh.device_groups(mesh))
+        hist, launches, pieces, wall, n_vec = call(mesh, D)
         rec["launches"][str(D)] = launches
+        rec["pieces"][str(D)] = pieces
         rec["wall_s"][str(D)] = wall
         rec["link_vectors"][str(D)] = n_vec
         if hist != base:
@@ -3860,11 +4034,13 @@ def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
         rec["equal"][str(D)] = True
         if dev.type != "cuda":
             continue
-        for k in PER_SHARD:
-            if launches[k] != D * base_l[k]:
-                raise AssertionError(f"shard {key} D = {D}: {launches[k]} "
-                                     f"{k} launches, {D} x {base_l[k]} "
-                                     f"expected")
+        for k in GROUPED:
+            if (launches[k], pieces[k]) != (n_dev * base_l[k],
+                                            D * base_p[k]):
+                raise AssertionError(
+                    f"shard {key} D = {D}: {launches[k]} {k} launches over "
+                    f"{pieces[k]} pieces, {n_dev} x {base_l[k]} over "
+                    f"{D} x {base_p[k]} expected")
         for k in UNSHARDED:
             if launches[k] != base_l[k]:
                 raise AssertionError(f"shard {key} D = {D}: {launches[k]} "
@@ -3915,20 +4091,28 @@ def shard_resume(setup, key=SHARD_RESUME[0], D=SHARD_RESUME[1],
 
 
 def run_shard(dev, setups, report):
-    """Phase 9: B7 at full size (check_b7), then every SHARD_RUNS run at
-    MNIST width (shard_run) and one sharded split and resume.  Returns the
-    B7 records of the kernels line.  A run with a server mesh merges only
-    through B7 (its merge kernels launch D times the unsharded run's,
-    which shard_run holds), so a record's launches are its kernel's
-    counter summed over the sharded runs."""
+    """Phase 9: B7 at full size (check_b7), the sharded encode and B4's
+    sharded forms, then every SHARD_RUNS run at MNIST width (shard_run)
+    and one sharded split and resume.  Returns the B7 and sharded codec
+    records of the kernels line.  A run with a server mesh merges only
+    through B7 (its merge kernels launch once a device and cover D times
+    the unsharded run's pieces, which shard_run holds), so a record's
+    launches and pieces are its kernel's counters summed over the sharded
+    runs."""
     rec = check_b7(dev)
     enc = check_shard_encode(dev)
     enc["controls"] = shard_enc_controls(dev)
+    dec = check_shard_decode(dev)
+    dec["controls"] = shard_dec_controls(dev)
     setup = setups.get(RUNS["raw/sync"], dev)
     runs = {key: shard_run(key, setup) for key in SHARD_RUNS}
     resume = shard_resume(setup, want=runs[SHARD_RESUME[0]]["histories"])
-    report["shard"] = {"b7": rec, "encode": enc, "runs": runs,
-                       "resume": resume}
+    report["shard"] = {"b7": rec, "encode": enc, "decode": dec,
+                       "runs": runs, "resume": resume}
+
+    def summed(what, ctr):
+        return sum(r[what][str(D)][ctr] for r in runs.values()
+                   for D in B7_MESHES)
     records = {}
     big = max(W * N for W, N in B7_SIZES)
     for name, (form, ctr, tpu) in B7_RECORDS.items():
@@ -3942,8 +4126,8 @@ def run_shard(dev, setups, report):
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "wrapper": "src/repro_torch/kernels/fedavg_agg.py",
             "replaces": f"src/repro/kernels/{tpu}",
-            "launches": sum(r["launches"][str(D)][ctr]
-                            for r in runs.values() for D in B7_MESHES),
+            "launches": summed("launches", ctr),
+            "pieces": summed("pieces", ctr),
             "max_abs_err": rec["err"][form],
             **{k: head[k] for k in ("W", "N", "D", "ms", "unsharded_ms",
                                     "plain_ms", "bound_ms", "bound_by",
@@ -3955,7 +4139,6 @@ def run_shard(dev, setups, report):
     D0 = max(B7_MESHES)
     head = next(c for c in enc["by_case"] if c["N"] == N0 and c["D"] == D0
                 and c["form"] == "topk_ef+int8")
-    dec = next(c for c in enc["decode"] if c["N"] == N0 and c["D"] == D0)
     src = "src/repro_torch/kernels/csrc/topk_quant.cu"
     wrapper = "src/repro_torch/kernels/topk_quant.py"
     keys = ("N", "D", "ms", "unsharded_ms", "plain_ms", "bound_ms",
@@ -3964,22 +4147,27 @@ def run_shard(dev, setups, report):
         "name": "ef_encode_sharded", "route": "cuda", "ok": True,
         "source": src, "wrapper": wrapper,
         "replaces": "src/repro/kernels/topk_quant.py:60",
-        "launches": sum(r["launches"][str(D)]["ef_encode_sharded"]
-                        for r in runs.values() for D in B7_MESHES),
+        "launches": summed("launches", "ef_encode_sharded"),
         "max_abs_err": enc["err"], "library_ms": None,
         **{k: head[k] for k in keys}, "form": head["form"],
         "by_case": enc["by_case"]}
-    records["dequant_add_sharded"] = {
-        "name": "dequant_add_sharded", "route": "cuda", "ok": True,
-        "source": src, "wrapper": wrapper,
-        "replaces": "src/repro/kernels/topk_quant.py:89",
-        "launches": sum(r["launches"][str(D)]["decode"]
-                        for r in runs.values() for D in B7_MESHES),
-        "max_abs_err": 0.0, "library_ms": None,
-        **{k: dec[k] for k in keys}, "by_case": enc["decode"]}
+    # B4's sharded forms, their headlines likewise
+    for name, kind, ctr in (("dequant_add_sharded", "decode", "decode"),
+                            ("dequant_add_rows_sharded", "rows",
+                             "decode_rows")):
+        head = next(c for c in dec[kind] if c["N"] == N0 and c["D"] == D0)
+        records[name] = {
+            "name": name, "route": "cuda", "ok": True, "source": src,
+            "wrapper": wrapper,
+            "replaces": "src/repro/kernels/topk_quant.py:89",
+            "launches": summed("launches", ctr),
+            "pieces": summed("pieces", ctr), "max_abs_err": 0.0,
+            **{k: head[k] for k in keys + ("library_ms",)},
+            "by_case": dec[kind]}
     for name in ("fedavg_mix_flat_sharded", "fedavg_agg_flat_sharded",
                  "merge_opt_flat_sharded_mom", "merge_opt_flat_sharded_adam",
-                 "ef_encode_sharded", "dequant_add_sharded"):
+                 "ef_encode_sharded", "dequant_add_sharded",
+                 "dequant_add_rows_sharded"):
         if records[name]["launches"] < 1:
             raise AssertionError(f"{name} never launched in phase 9's runs")
     return records

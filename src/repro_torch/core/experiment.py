@@ -10,7 +10,7 @@ and the test set move to the device once, at setup.
 ``server_mesh`` shards the aggregation substrate over a 1-D ``agg`` mesh
 (``parallel.sharding.agg_mesh``): the packed server model, the ``(W, N)``
 row buffer and the server optimizer's state split along the packed
-parameter axis, and every merge runs one kernel launch per shard.  Every
+parameter axis, and every merge runs one kernel launch a device.  Every
 element is merged by the same arithmetic at any mesh size, so a sharded
 run equals the unsharded one bit for bit.
 """

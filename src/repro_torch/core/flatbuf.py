@@ -26,13 +26,14 @@ merge writes.
 
 Sharded substrate: with ``mesh=`` (a 1-D ``parallel.sharding.agg_mesh``)
 the bundle pads N to ``BLOCK * n_shards`` and the flat state holds its
-row buffer and server mirror as ``Sharded`` pieces, one a device, and
-merges through the sharded kernels (one launch per shard: B7).  The
+row buffer and server mirror as ``Sharded`` pieces, one a mesh entry,
+and merges through the sharded kernels (one launch a device over the
+pieces it holds: B7).  The
 transport's link vectors and decoded responses are ``Sharded`` over the
 same mesh (``core/transport.py``), an ``EncodedVec`` holds ``Sharded`` q
 and base, and ``_set_rows`` lands each shard's own piece in its rows (an
-encoded merge decoded by one ``dequant_add_rows`` a shard, from pieces
-already on that shard's device); a whole vector (``bundle.pack``) is
+encoded merge decoded by one ``dequant_add_rows`` launch a device, from
+pieces already on that device); a whole vector (``bundle.pack``) is
 sliced there instead.  ``unpack`` gathers the shards on the home device.
 Every element is computed by the same arithmetic as unsharded, so a
 sharded merge equals the unsharded one bit for bit at any mesh size.
@@ -178,8 +179,8 @@ class ParamBundle:
         ``dequant_add_rows``; in a merge that mixes both kinds (an auto
         transport's links resolve codecs apart) each encoded one is
         decoded by ``dequant_add`` first.  Sharded ``rows`` take each
-        shard's slice of every vector (one ``dequant_add_rows`` a shard
-        for an encoded merge)."""
+        shard's slice of every vector (for an encoded merge one
+        ``dequant_add_rows_pieces`` a device, over the pieces it holds)."""
         if isinstance(rows, psh.Sharded):
             self._set_sharded_rows(rows, vecs)
             return rows
@@ -202,21 +203,24 @@ class ParamBundle:
         if not encoded:
             vecs = [topk_quant.dequant_add(v.q, v.scale, v.base)
                     if isinstance(v, EncodedVec) else v for v in vecs]
-        for d, (piece, dev) in enumerate(zip(rows.shards,
-                                             rows.mesh.devices)):
-            lo, hi = self.shard_bounds(d)
+        for dev, idx in psh.device_groups(rows.mesh):
+            spans = [(d, *self.shard_bounds(d)) for d in idx]
             if encoded:
                 with psh.device_guard(dev):
-                    topk_quant.dequant_add_rows(
-                        [shard_piece(v.q, d, lo, hi, dev) for v in vecs],
+                    topk_quant.dequant_add_rows_pieces(
+                        [[shard_piece(v.q, *sp, dev) for sp in spans]
+                         for v in vecs],
                         [v.scale.to(dev) for v in vecs],
-                        [shard_piece(v.base, d, lo, hi, dev) for v in vecs],
-                        piece)
+                        [[shard_piece(v.base, *sp, dev) for sp in spans]
+                         for v in vecs],
+                        [rows.shards[d] for d in idx])
                 continue
-            if n:
-                torch.stack([shard_piece(v, d, lo, hi, dev) for v in vecs],
-                            out=piece[:n])
-            piece[n:].zero_()
+            for d, lo, hi in spans:
+                piece = rows.shards[d]
+                if n:
+                    torch.stack([shard_piece(v, d, lo, hi, dev)
+                                 for v in vecs], out=piece[:n])
+                piece[n:].zero_()
 
     def unpack(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(padded_size,) or (n_params,) buffer -> dict of new tensors at
@@ -268,7 +272,8 @@ def fused_merge(server_flat, rows, wvec, mesh=None):
     """One pass ``wvec[0]*server + wvec[1:] @ rows``, written into
     ``server_flat`` in place and returned: callers treat ``server_flat``
     as consumed.  With ``mesh`` (``server_flat`` then ``Sharded``) the
-    pass runs per shard and returns the ``Sharded`` result."""
+    pass runs once a device over its pieces and returns the ``Sharded``
+    result."""
     if mesh is not None:
         return fedavg_agg.fedavg_mix_wvec_sharded(
             rows, _weights_on(wvec, mesh.home), server_flat, mesh=mesh,
@@ -283,7 +288,7 @@ def fused_merge_opt(rows, w, server, prev, m, v, scalars, *, adam: bool,
     else ``fused_merge``, written into ``server`` in place, which may also
     be ``prev``) and the server optimizer's step on its result, ``m`` and
     ``v`` updated in place.  Returns the stepped vector (``Sharded`` with
-    ``mesh``: one launch per shard)."""
+    ``mesh``: one launch a device)."""
     if mesh is not None:
         new, _, _ = fedavg_agg.merge_opt_flat_sharded(
             rows, _weights_on(w, mesh.home), server, prev, m, v, scalars,
@@ -299,7 +304,7 @@ def fused_weighted_sum(rows, w, mesh=None):
     """One pass ``w @ rows`` into a new vector, with no server term: the
     alpha >= 1 replace path must not read the server buffer at all
     (``0 * server`` would turn a non-finite server model into NaN instead
-    of replacing it).  With ``mesh``: one launch per shard, ``Sharded``
+    of replacing it).  With ``mesh``: one launch a device, ``Sharded``
     result."""
     if mesh is not None:
         return fedavg_agg.fedavg_agg_flat_sharded(

@@ -33,7 +33,7 @@ re-create them.
 
 Sharded substrate (``mesh=``, a 1-D ``parallel.sharding.agg_mesh``): the
 packed merge state shards along the parameter axis over the mesh and
-every merge runs one kernel launch per shard; the transport resolves the
+every merge runs one kernel launch a device; the transport resolves the
 same mesh-aware bundle, and its link vectors are ``Sharded`` over the
 same mesh (shard-local, as the JAX package's are).
 """

@@ -18,7 +18,7 @@ the fused merge against.  State lives as packed ``(N,)`` vectors over the
 same :class:`~repro_torch.core.flatbuf.ParamBundle` and updates in place;
 on a sharded flat state (``mesh=``) ``prev``, ``m`` and ``v`` are
 ``Sharded`` like the server mirror, and a merge is one ``merge_opt_flat``
-launch per shard.
+launch a device over the pieces it holds.
 
 ================  =============================================  ==========================
 name              update rule (d = merged - prev)                degenerate == plain FedAvg

@@ -8,12 +8,37 @@ Dispatch rule, one for every wrapper in this package:
 
 There is no override: a CUDA tensor never reaches the plain version, and
 a kernel that fails to build or launch raises.
+
+The merge, step and decode kernels take *pieces*: equal-width operands on
+one device, one launch over all of them (``csrc/fedavg_agg.cu``).  One
+piece is an unsharded call; a sharded wrapper passes every piece a device
+holds.  Their counters count launches (``LAUNCHES``) and the pieces those
+launches cover (``PIECES``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence
 
 import torch
+
+# pieces one launch of a grouped entry covers (kMax in csrc/pieces.cuh)
+GROUP_PIECES = 32
+
+
+def group_launches(n: int) -> int:
+    """Launches a grouped entry makes for n pieces."""
+    return -(-n // GROUP_PIECES)
+
+
+def pointer_table(*operands: Optional[Sequence[torch.Tensor]]):
+    """The host array a grouped entry reads: piece by piece, each
+    operand's data pointer in the given order; an operand that is None
+    (or a None piece) is a null pointer."""
+    n = max(len(op) for op in operands if op is not None)
+    ptrs = [None if op is None or op[i] is None else op[i].data_ptr()
+            for i in range(n) for op in operands]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -32,14 +32,16 @@ _F = ctypes.c_float
 _C = ctypes.c_int
 # C entry point -> argument types; every one returns cudaError_t as int
 SIGNATURES = {
-    "fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
-    "fedavg_mix_launch": (_P, _P, _P, _P, _I64, _I64, _P),
-    # rows, w, server, prev, m, v, out, m_out, v_out; adam; 4 scalars; W,
-    # N; stream
-    "fedavg_merge_opt_launch": (_P,) * 9 + (_C,) + (_F,) * 4
+    # the grouped entries take ops, a host array of card pointers piece by
+    # piece, and n, the number of pieces; then w; W, N; stream
+    "fedavg_agg_launch": (_P, _C, _P, _I64, _I64, _P),
+    "fedavg_mix_launch": (_P, _C, _P, _I64, _I64, _P),
+    # ops, n; w; adam; 4 scalars; W, N; stream
+    "fedavg_merge_opt_launch": (_P, _C, _P, _C) + (_F,) * 4
     + (_I64, _I64, _P),
     "topk_quant_encode_launch": (_P, _P, _P, _P, _P, _I64, _P),
-    "dequant_add_launch": (_P, _P, _P, _P, _I64, _P),
+    # ops (q, base, out a piece), n; scale; N; stream
+    "dequant_add_launch": (_P, _C, _P, _I64, _P),
     # ctas, dynamic shared memory, int* clusters
     "ef_cluster_max_active": (_C, _I64, _P),
     # a, b, c; N, stride, m, k; sweep, quantize; part, n_part; q, recon,
@@ -54,11 +56,13 @@ SIGNATURES = {
     "ef_encode_pass2_launch": (_P, _I64, _P, _C) + (_P,) * 5 + (_C, _P),
     # part_max, n_max, part_kept, n_kept; thresh, scale, kept; stream
     "ef_encode_reduce_launch": (_P, _I64, _P, _I64) + (_P,) * 3 + (_P,),
-    # host arrays of q, scale and base pointers; n_dec, n_zero; rows; N;
+    # host arrays of q, scale and base pointers (q and base a decode's
+    # pieces); n_dec, n_zero; host array of the pieces' rows, n_pieces; N;
     # stream
-    "dequant_add_rows_launch": (_P, _P, _P, _C, _C, _P, _I64, _P),
-    "server_opt_mom_launch": (_P,) * 5 + (_F,) * 4 + (_I64, _P),
-    "server_opt_adam_launch": (_P,) * 7 + (_F,) * 4 + (_I64, _P),
+    "dequant_add_rows_launch": (_P, _P, _P, _C, _C, _P, _C, _I64, _P),
+    # ops, n; 4 scalars; N; stream
+    "server_opt_mom_launch": (_P, _C) + (_F,) * 4 + (_I64, _P),
+    "server_opt_adam_launch": (_P, _C) + (_F,) * 4 + (_I64, _P),
     # q, k, v, o; B, S, T, H, Kv, D; 12 strides; causal, window; scale,
     # softcap; dtype; stream
     "flash_attention_launch": (_P,) * 4 + (_I64,) * 6 + (_I64,) * 12

@@ -8,7 +8,27 @@
 // and, fused behind either, server_opt_step_flat (_opt_mom_kernel,
 // _opt_adam_kernel) -> fedavg_merge_opt_launch: merged = one of the two
 // sums, then d = merged - prev and the momentum or adam step, writing new,
-// m' and v'.  merged never goes to memory.
+// m' and v'.  merged never goes to memory.  The shard_map wrappers of the
+// same file (fedavg_mix_flat_sharded, fedavg_agg_flat_sharded,
+// server_opt_step_flat_sharded: B7) are these entries over pieces.
+//
+// Pieces.  Every entry takes n pieces of equal width N, all on one device:
+// one piece is the unsharded call; a device of a sharded server's mesh
+// passes every piece it holds (on one card that repeats in the mesh, all
+// D of them), so a sharded merge costs one launch a device, not one a
+// shard.  Each piece's operand pointers travel in a __grid_constant__
+// table (pieces.cuh: up to 32 pieces of 8 pointers, 2,048 bytes of
+// parameters, inside the classic 4 KB), so nothing is copied to the device
+// or allocated; a device with more pieces takes a launch every 32.
+// blockIdx.y picks the piece and blockIdx.x the block within it: at
+// W = 30, N = 4 x 25,600 on one card one launch has the unsharded launch's
+// 400 blocks, where one launch a shard had 100 (of 64 threads, on 132
+// SMs), four times over, each paying its ~5 us of launch and ramp.  The
+// weights are one vector a device (the pieces share them).  Tensor cores
+// and TMA do not help here: the merge is a W-term f32 reduction at ~2W
+// flops per 4W bytes, bound by bytes, and at 17.2 GB of rows the body
+// runs at ~91% of the byte bound; what the sharded form lost was launches
+// and an under-filled grid, which the table removes.
 //
 // One kernel body, merge<ServerTerm, Opt, V>, serves every form:
 //   ServerTerm  kNone (the aggregate: the server is never read) or kScaled
@@ -44,9 +64,10 @@
 // so each form rounds exactly like its plain PyTorch version (ref.py):
 // acc = acc + w[r] * row[r], then s * server + acc, then the step.
 //
-// Aliasing: out may be server and prev (both the same buffer: the in-place
-// merge, as the TPU kernel aliases its server buffer), m_out may be m and
-// v_out may be v; nothing else.  Those pointers are not __restrict__, and
+// Aliasing, within a piece (pieces never overlap): out may be server and
+// prev (both the same buffer: the in-place merge, as the TPU kernel
+// aliases its server buffer), m_out may be m and v_out may be v; nothing
+// else.  Those pointers are not __restrict__, and
 // each thread reads all of its element's inputs before it writes any
 // output.  The aggregate forms never read a server buffer at all (the
 // alpha >= 1 replace path must not turn a non-finite server model into
@@ -55,6 +76,7 @@
 
 #include <type_traits>
 
+#include "pieces.cuh"
 #include "server_opt_step.cuh"
 
 namespace {
@@ -107,21 +129,28 @@ __device__ __forceinline__ void step(const Opt s, float4 p, float4 g,
   step(s, p.w, g.w, m.w, v.w, o.w, mo.w, vo.w);
 }
 
-// rows: (W, n) of V; w: the row weights, after the server scale w[0] in
-// the kScaled form; the other operands (n,) of V.
-template <ServerTerm S, class Opt, class V>
+// A piece's operands, in this order in the pointer table; null where the
+// form takes none.
+enum Operand { kRows, kServer, kPrev, kM, kV, kOut, kMOut, kVOut, kOperands };
+
+using pieces::operand;
+
+// Piece blockIdx.y of the table g: rows (W, n) of V; w: the row weights,
+// after the server scale w[0] in the kScaled form, shared by the pieces;
+// the other operands (n,) of V.
+template <ServerTerm S, class Opt, class V, class T>
 __global__ void __launch_bounds__(kThreads)
-    merge(const V* __restrict__ rows, const float* __restrict__ w,
-          const V* server, const V* prev, const V* m, const V* v, V* out,
-          V* m_out, V* v_out, const Opt opt, int W, long long n) {
+    merge(const __grid_constant__ T g, const float* __restrict__ w,
+          const Opt opt, int W, long long n) {
   constexpr bool kScaled = S == ServerTerm::kScaled;
   constexpr bool kStep = !std::is_same<Opt, NoOpt>::value;
   constexpr bool kAdam = std::is_same<Opt, Adam>::value;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const V* __restrict__ rows = operand<const V>(g, kRows);
   // the server value first, in flight with the first rows
   V sv = zero<V>();
-  if constexpr (kScaled) sv = __ldcs(&server[i]);
+  if constexpr (kScaled) sv = __ldcs(&operand<const V>(g, kServer)[i]);
   const float* __restrict__ wr = kScaled ? w + 1 : w;
   V acc = zero<V>();
   for (int r0 = 0; r0 < W; r0 += kGroup) {
@@ -134,18 +163,20 @@ __global__ void __launch_bounds__(kThreads)
       if (r0 + u < W) acc = madd(acc, __ldg(&wr[r0 + u]), x[u]);
   }
   if constexpr (kScaled) acc = madd(acc, __ldg(&w[0]), sv);
+  V* out = operand<V>(g, kOut);
   if constexpr (!kStep) {
     out[i] = acc;
   } else {
     // the step's operands only now (see above); every input of this
     // element is read before any output is written
-    const V pv = __ldcs(&prev[i]), mv = __ldcs(&m[i]);
+    const V pv = __ldcs(&operand<const V>(g, kPrev)[i]);
+    const V mv = __ldcs(&operand<const V>(g, kM)[i]);
     V vv = zero<V>();
-    if constexpr (kAdam) vv = __ldcs(&v[i]);
+    if constexpr (kAdam) vv = __ldcs(&operand<const V>(g, kV)[i]);
     V o, mo, vo;
     step(opt, pv, acc, mv, vv, o, mo, vo);
-    m_out[i] = mo;
-    if constexpr (kAdam) v_out[i] = vo;
+    operand<V>(g, kMOut)[i] = mo;
+    if constexpr (kAdam) operand<V>(g, kVOut)[i] = vo;
     out[i] = o;
   }
 }
@@ -154,82 +185,71 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
-template <class V>
-inline V* as(const float* p) {
-  return reinterpret_cast<V*>(const_cast<float*>(p));
-}
-
-// One launch of the form (S, Opt); a null pointer is an operand the form
-// does not take.
+// The launches of the form (S, Opt) over n pieces of width N: ops is a host
+// array of n * kOperands card pointers, piece-major in Operand order, null
+// where the form takes none.  float4 when N % 4 == 0 and every pointer of
+// every piece is 16-byte aligned.
 template <ServerTerm S, class Opt>
-int launch(const float* rows, const float* w, const float* server,
-           const float* prev, const float* m, const float* v, float* out,
-           float* m_out, float* v_out, const Opt opt, long long W,
-           long long N, cudaStream_t stream) {
-  if (N <= 0) return (int)cudaSuccess;
-  const void* ptrs[] = {rows, server, prev, m, v, out, m_out, v_out};
+int launch(const void* const* ops, int n, const float* w, const Opt opt,
+           long long W, long long N, cudaStream_t stream) {
+  if (N <= 0 || n <= 0) return n < 0 ? (int)cudaErrorInvalidValue : 0;
   bool vec = N % 4 == 0;
-  for (const void* p : ptrs) vec = vec && aligned16(p);
-  if (vec) {
-    const long long n4 = N / 4;
-    merge<S, Opt, float4>
-        <<<(unsigned)((n4 + kThreads - 1) / kThreads), kThreads, 0,
-           stream>>>(as<const float4>(rows), w, as<const float4>(server),
-                     as<const float4>(prev), as<const float4>(m),
-                     as<const float4>(v), as<float4>(out), as<float4>(m_out),
-                     as<float4>(v_out), opt, (int)W, n4);
-  } else {
-    merge<S, Opt, float><<<(unsigned)((N + kThreads - 1) / kThreads),
-                           kThreads, 0, stream>>>(
-        rows, w, server, prev, m, v, out, m_out, v_out, opt, (int)W, N);
-  }
-  return (int)cudaGetLastError();
+  for (long long k = 0; k < (long long)n * kOperands; ++k)
+    vec = vec && aligned16(ops[k]);
+  const long long len = vec ? N / 4 : N;
+  const unsigned gx = (unsigned)((len + kThreads - 1) / kThreads);
+  return pieces::each<kOperands>(ops, n, [&](const auto& t, int count) {
+    using T = std::decay_t<decltype(t)>;
+    const dim3 grid(gx, count);
+    if (vec) {
+      merge<S, Opt, float4, T><<<grid, kThreads, 0, stream>>>(t, w, opt,
+                                                              (int)W, len);
+    } else {
+      merge<S, Opt, float, T><<<grid, kThreads, 0, stream>>>(t, w, opt,
+                                                             (int)W, len);
+    }
+  });
 }
 
 }  // namespace
 
-// rows: (W, N) contiguous f32; w: (W,) f32; out: (N,) f32, all on the card.
-extern "C" int fedavg_agg_launch(const float* rows, const float* w,
-                                 float* out, long long W, long long N,
+// Every entry: ops, a host array of n * 8 card pointers, piece by piece
+// (rows, server, prev, m, v, out, m_out, v_out; null where the form takes
+// none), n pieces of (W, N) rows and (N,) vectors, contiguous f32, all on
+// the card of the stream; w on the same card.
+
+// out = w @ rows: rows and out of each piece; w: (W,).
+extern "C" int fedavg_agg_launch(const void* const* ops, int n,
+                                 const float* w, long long W, long long N,
                                  cudaStream_t stream) {
-  return launch<ServerTerm::kNone>(rows, w, nullptr, nullptr, nullptr,
-                                   nullptr, out, nullptr, nullptr, NoOpt{}, W,
-                                   N, stream);
+  return launch<ServerTerm::kNone>(ops, n, w, NoOpt{}, W, N, stream);
 }
 
-// rows: (W, N); w: (W + 1,); server, out: (N,); out may equal server.
-extern "C" int fedavg_mix_launch(const float* rows, const float* w,
-                                 const float* server, float* out, long long W,
-                                 long long N, cudaStream_t stream) {
-  return launch<ServerTerm::kScaled>(rows, w, server, nullptr, nullptr,
-                                     nullptr, out, nullptr, nullptr, NoOpt{},
-                                     W, N, stream);
+// out = w[0] * server + w[1:] @ rows: rows, server and out of each piece
+// (out may equal server); w: (W + 1,).
+extern "C" int fedavg_mix_launch(const void* const* ops, int n,
+                                 const float* w, long long W, long long N,
+                                 cudaStream_t stream) {
+  return launch<ServerTerm::kScaled>(ops, n, w, NoOpt{}, W, N, stream);
 }
 
-// The merge and the optimizer step in one launch.  server null: the
-// aggregate (w: (W,)); else the mix (w: (W + 1,), server scale first).
-// prev, m, out, m_out: (N,); adam != 0 adds v, v_out (else both null).
-// Scalars s0..s3: am, bm, cd, lr (momentum) or b1, b2, lr, tau (adam).
-// out may equal server and prev, m_out m, v_out v.
-extern "C" int fedavg_merge_opt_launch(
-    const float* rows, const float* w, const float* server, const float* prev,
-    const float* m, const float* v, float* out, float* m_out, float* v_out,
-    int adam, float s0, float s1, float s2, float s3, long long W,
-    long long N, cudaStream_t stream) {
+// The merge and the optimizer step in one pass.  server null in every
+// piece: the aggregate (w: (W,)); else the mix (w: (W + 1,), server scale
+// first).  prev, m, out, m_out of each piece; adam != 0 adds v and v_out
+// (else both null).  Scalars s0..s3: am, bm, cd, lr (momentum) or b1, b2,
+// lr, tau (adam).  out may equal server and prev, m_out m, v_out v.
+extern "C" int fedavg_merge_opt_launch(const void* const* ops, int n,
+                                       const float* w, int adam, float s0,
+                                       float s1, float s2, float s3,
+                                       long long W, long long N,
+                                       cudaStream_t stream) {
+  const bool mix = n > 0 && ops[kServer] != nullptr;
   if (adam) {
     const Adam opt{s0, s1, s2, s3};
-    return server ? launch<ServerTerm::kScaled>(rows, w, server, prev, m, v,
-                                                out, m_out, v_out, opt, W, N,
-                                                stream)
-                  : launch<ServerTerm::kNone>(rows, w, nullptr, prev, m, v,
-                                              out, m_out, v_out, opt, W, N,
-                                              stream);
+    return mix ? launch<ServerTerm::kScaled>(ops, n, w, opt, W, N, stream)
+               : launch<ServerTerm::kNone>(ops, n, w, opt, W, N, stream);
   }
   const Mom opt{s0, s1, s2, s3};
-  return server ? launch<ServerTerm::kScaled>(rows, w, server, prev, m,
-                                              nullptr, out, m_out, nullptr,
-                                              opt, W, N, stream)
-                : launch<ServerTerm::kNone>(rows, w, nullptr, prev, m,
-                                            nullptr, out, m_out, nullptr, opt,
-                                            W, N, stream);
+  return mix ? launch<ServerTerm::kScaled>(ops, n, w, opt, W, N, stream)
+             : launch<ServerTerm::kNone>(ops, n, w, opt, W, N, stream);
 }

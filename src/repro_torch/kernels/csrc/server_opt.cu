@@ -30,8 +30,17 @@
 // m' and v' may be written over m and v (the optimizer's state updates in
 // place): those pointers are not __restrict__, and each thread reads its
 // own element before writing it.  new must not alias any input.
+//
+// Pieces, as in fedavg_agg.cu: each entry takes n pieces of equal width N
+// on one device (one piece: the unsharded step; every piece a device holds:
+// server_opt_step_flat_sharded, B7), their pointers in a __grid_constant__
+// table (pieces.cuh: up to 32 pieces of 7 pointers, 1,792 bytes of
+// parameters), blockIdx.y the piece: one launch a device, not one a shard.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "pieces.cuh"
 #include "server_opt_step.cuh"
 
 namespace {
@@ -43,120 +52,92 @@ using server_opt_step::mom_one;
 
 constexpr int kThreads = 256;
 
-__global__ void mom_vec4(const Mom s, const float4* __restrict__ prev,
-                         const float4* __restrict__ merged, const float4* m,
-                         float4* __restrict__ new_out, float4* m_out,
-                         long long n4) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4 p = prev[i], g = merged[i], mm = m[i];
-  float4 o, mo;
-  mom_one(s, p.x, g.x, mm.x, &o.x, &mo.x);
-  mom_one(s, p.y, g.y, mm.y, &o.y, &mo.y);
-  mom_one(s, p.z, g.z, mm.z, &o.z, &mo.z);
-  mom_one(s, p.w, g.w, mm.w, &o.w, &mo.w);
-  m_out[i] = mo;
-  new_out[i] = o;
+// A piece's operands, in this order in the pointer table (v and v_out null
+// in the momentum form).
+enum Operand { kPrev, kMerged, kM, kV, kNew, kMOut, kVOut, kOperands };
+
+using pieces::operand;
+
+__device__ __forceinline__ void one(const Mom s, float p, float g, float m,
+                                    float, float& o, float& mo, float&) {
+  mom_one(s, p, g, m, &o, &mo);
 }
 
-__global__ void mom_scalar(const Mom s, const float* __restrict__ prev,
-                           const float* __restrict__ merged, const float* m,
-                           float* __restrict__ new_out, float* m_out,
-                           long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+__device__ __forceinline__ void one(const Adam s, float p, float g, float m,
+                                    float v, float& o, float& mo, float& vo) {
+  adam_one(s, p, g, m, v, &o, &mo, &vo);
+}
+
+template <class Opt>
+__device__ __forceinline__ void one(const Opt s, float4 p, float4 g, float4 m,
+                                    float4 v, float4& o, float4& mo,
+                                    float4& vo) {
+  one(s, p.x, g.x, m.x, v.x, o.x, mo.x, vo.x);
+  one(s, p.y, g.y, m.y, v.y, o.y, mo.y, vo.y);
+  one(s, p.z, g.z, m.z, v.z, o.z, mo.z, vo.z);
+  one(s, p.w, g.w, m.w, v.w, o.w, mo.w, vo.w);
+}
+
+// Piece blockIdx.y of the table g: n elements of V a vector.
+template <class Opt, class V, class T>
+__global__ void opt_step(const __grid_constant__ T g, const Opt s,
+                         long long n) {
+  constexpr bool kAdam = std::is_same<Opt, Adam>::value;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float o, mo;
-  mom_one(s, prev[i], merged[i], m[i], &o, &mo);
-  m_out[i] = mo;
-  new_out[i] = o;
-}
-
-__global__ void adam_vec4(const Adam s, const float4* __restrict__ prev,
-                          const float4* __restrict__ merged, const float4* m,
-                          const float4* v, float4* __restrict__ new_out,
-                          float4* m_out, float4* v_out, long long n4) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4 p = prev[i], g = merged[i], mm = m[i], vv = v[i];
-  float4 o, mo, vo;
-  adam_one(s, p.x, g.x, mm.x, vv.x, &o.x, &mo.x, &vo.x);
-  adam_one(s, p.y, g.y, mm.y, vv.y, &o.y, &mo.y, &vo.y);
-  adam_one(s, p.z, g.z, mm.z, vv.z, &o.z, &mo.z, &vo.z);
-  adam_one(s, p.w, g.w, mm.w, vv.w, &o.w, &mo.w, &vo.w);
-  m_out[i] = mo;
-  v_out[i] = vo;
-  new_out[i] = o;
-}
-
-__global__ void adam_scalar(const Adam s, const float* __restrict__ prev,
-                            const float* __restrict__ merged, const float* m,
-                            const float* v, float* __restrict__ new_out,
-                            float* m_out, float* v_out, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float o, mo, vo;
-  adam_one(s, prev[i], merged[i], m[i], v[i], &o, &mo, &vo);
-  m_out[i] = mo;
-  v_out[i] = vo;
-  new_out[i] = o;
-}
-
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+  const V pv = operand<const V>(g, kPrev)[i];
+  const V gv = operand<const V>(g, kMerged)[i];
+  const V mv = operand<const V>(g, kM)[i];
+  V vv{}, o, mo, vo;
+  if constexpr (kAdam) vv = operand<const V>(g, kV)[i];
+  one(s, pv, gv, mv, vv, o, mo, vo);
+  operand<V>(g, kMOut)[i] = mo;
+  if constexpr (kAdam) operand<V>(g, kVOut)[i] = vo;
+  operand<V>(g, kNew)[i] = o;
 }
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
-}  // namespace
-
-// prev, merged, m, new_out, m_out: (N,) f32 on the card; m_out may equal m.
-extern "C" int server_opt_mom_launch(const float* prev, const float* merged,
-                                     const float* m, float* new_out,
-                                     float* m_out, float am, float bm,
-                                     float cd, float lr, long long N,
-                                     cudaStream_t stream) {
-  if (N <= 0) return (int)cudaSuccess;
-  const Mom s{am, bm, cd, lr};
-  if (N % 4 == 0 && aligned16(prev) && aligned16(merged) && aligned16(m) &&
-      aligned16(new_out) && aligned16(m_out)) {
-    const long long n4 = N / 4;
-    mom_vec4<<<blocks_for(n4), kThreads, 0, stream>>>(
-        s, reinterpret_cast<const float4*>(prev),
-        reinterpret_cast<const float4*>(merged),
-        reinterpret_cast<const float4*>(m),
-        reinterpret_cast<float4*>(new_out), reinterpret_cast<float4*>(m_out),
-        n4);
-  } else {
-    mom_scalar<<<blocks_for(N), kThreads, 0, stream>>>(s, prev, merged, m,
-                                                        new_out, m_out, N);
-  }
-  return (int)cudaGetLastError();
+// The launches of one form over n pieces of width N: ops is a host array of
+// n * kOperands card pointers, piece-major in Operand order.  float4 when
+// N % 4 == 0 and every pointer is 16-byte aligned.
+template <class Opt>
+int launch(const void* const* ops, int n, const Opt s, long long N,
+           cudaStream_t stream) {
+  if (N <= 0 || n <= 0) return n < 0 ? (int)cudaErrorInvalidValue : 0;
+  bool vec = N % 4 == 0;
+  for (long long k = 0; k < (long long)n * kOperands; ++k)
+    vec = vec && aligned16(ops[k]);
+  const long long len = vec ? N / 4 : N;
+  const unsigned gx = (unsigned)((len + kThreads - 1) / kThreads);
+  return pieces::each<kOperands>(ops, n, [&](const auto& t, int count) {
+    using T = std::decay_t<decltype(t)>;
+    const dim3 grid(gx, count);
+    if (vec) {
+      opt_step<Opt, float4, T><<<grid, kThreads, 0, stream>>>(t, s, len);
+    } else {
+      opt_step<Opt, float, T><<<grid, kThreads, 0, stream>>>(t, s, len);
+    }
+  });
 }
 
-// As above plus v, v_out: (N,) f32; v_out may equal v.
-extern "C" int server_opt_adam_launch(const float* prev, const float* merged,
-                                      const float* m, const float* v,
-                                      float* new_out, float* m_out,
-                                      float* v_out, float b1, float b2,
-                                      float lr, float tau, long long N,
+}  // namespace
+
+// ops: a host array of n * 7 card pointers, piece by piece (prev, merged,
+// m, v, new_out, m_out, v_out), each (N,) f32 on the stream's card; v and
+// v_out null; m_out may equal m.
+extern "C" int server_opt_mom_launch(const void* const* ops, int n, float am,
+                                     float bm, float cd, float lr,
+                                     long long N, cudaStream_t stream) {
+  return launch(ops, n, Mom{am, bm, cd, lr}, N, stream);
+}
+
+// As above with v and v_out; v_out may equal v.
+extern "C" int server_opt_adam_launch(const void* const* ops, int n,
+                                      float b1, float b2, float lr,
+                                      float tau, long long N,
                                       cudaStream_t stream) {
-  if (N <= 0) return (int)cudaSuccess;
-  const Adam s{b1, b2, lr, tau};
-  if (N % 4 == 0 && aligned16(prev) && aligned16(merged) && aligned16(m) &&
-      aligned16(v) && aligned16(new_out) && aligned16(m_out) &&
-      aligned16(v_out)) {
-    const long long n4 = N / 4;
-    adam_vec4<<<blocks_for(n4), kThreads, 0, stream>>>(
-        s, reinterpret_cast<const float4*>(prev),
-        reinterpret_cast<const float4*>(merged),
-        reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(v),
-        reinterpret_cast<float4*>(new_out), reinterpret_cast<float4*>(m_out),
-        reinterpret_cast<float4*>(v_out), n4);
-  } else {
-    adam_scalar<<<blocks_for(N), kThreads, 0, stream>>>(
-        s, prev, merged, m, v, new_out, m_out, v_out, N);
-  }
-  return (int)cudaGetLastError();
+  return launch(ops, n, Adam{b1, b2, lr, tau}, N, stream);
 }

@@ -18,6 +18,12 @@
 //   dequant_add_rows_launch: one merge's W decodes base_i + q_i * scale_i
 //       straight into rows 0..W-1 of the server's row buffer, with the
 //       stale rows after them zeroed, in one launch.
+// Both decodes take pieces (a sharded server's vectors and row buffer,
+// N/D elements a piece): every piece a device holds in one launch, the
+// piece in blockIdx.y (dequant_add) or blockIdx.z (the rows), its pointers
+// among the kernel's parameters; one piece is the unsharded call.  On a
+// mesh that repeats one card that is one launch where one a shard ran D in
+// series, each at the launch floor (~6 us) with a quarter of the grid.
 //
 // Bound on the card: bytes.  Encode reads 4 bytes and writes 5 per element,
 // decode reads 5 and writes 4, with a handful of flops each.  The single
@@ -94,6 +100,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "pieces.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -118,13 +128,21 @@ __global__ void encode_kernel(const float* __restrict__ x,
   r[i] = __fsub_rn(xv, __fmul_rn((float)qi, s));
 }
 
-__global__ void decode_kernel(const int8_t* __restrict__ q,
-                              const float* __restrict__ scale,
-                              const float* __restrict__ base,
-                              float* __restrict__ out, long long n) {
+// A decode launch's pieces (dequant_add on a device's pieces of a sharded
+// vector; one piece unsharded): q, base and out of each in the pointer
+// table (pieces.cuh: up to 32 pieces of 3 pointers, 768 bytes), blockIdx.y
+// the piece, one scale for all.
+template <class T>
+__global__ void decode_kernel(const __grid_constant__ T g,
+                              const float* __restrict__ scale, long long n) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = __fadd_rn(base[i], __fmul_rn((float)q[i], *scale));
+  const int8_t* q = pieces::operand<const int8_t>(g, 0);
+  const float* base = pieces::operand<const float>(g, 1);
+  float* out = pieces::operand<float>(g, 2);
+  // read-only loads (what __restrict__ pointer arguments would give)
+  out[i] = __fadd_rn(__ldg(&base[i]), __fmul_rn((float)__ldg(&q[i]),
+                                                __ldg(scale)));
 }
 
 inline unsigned blocks_for(long long n) {
@@ -692,30 +710,37 @@ __global__ void __launch_bounds__(kSelThreads)
 
 // ---- one merge's decodes into the row buffer --------------------------------
 
-constexpr int kRowsMax = 128;    // decodes a launch: 3 KB of parameters
+// (decode, piece) pairs a launch: a merge's W decodes into the rows of one
+// piece (unsharded) or of every piece a device holds (a sharded server's
+// row buffer: piece j of decode i into piece j's row i), 3,344 bytes of
+// parameters with the pieces' row pointers
+constexpr int kRowsMax = 128;
 
 struct RowsArgs {
-  const int8_t* q[kRowsMax];
-  const float* scale[kRowsMax];
+  const int8_t* q[kRowsMax];     // pair e = piece * n_dec + row
   const float* base[kRowsMax];
-  float4* rows;        // this launch's first row
-  long long n4;        // float4s a row
-  int n_dec;           // rows decoded; the grid's rows after them are zeroed
+  const float* scale[kRowsMax];  // by row: one scale a decode
+  float4* rows[pieces::kMax];    // each piece's first row of this launch
+  long long n4;                  // float4s a row
+  int n_dec;  // rows decoded; the grid's rows after them are zeroed
 };
 
+// row blockIdx.y of piece blockIdx.z
 __global__ void __launch_bounds__(kThreads)
     dequant_rows(const __grid_constant__ RowsArgs p) {
   const int row = blockIdx.y;
-  float4* out = p.rows + row * p.n4;
+  const int piece = blockIdx.z;
+  float4* out = p.rows[piece] + row * p.n4;
   const long long step = (long long)gridDim.x * blockDim.x;
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (row >= p.n_dec) {
     for (; i < p.n4; i += step) out[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
+  const int e = piece * p.n_dec + row;
   const float s = *p.scale[row];
-  const char4* q = reinterpret_cast<const char4*>(p.q[row]);
-  const float4* b = reinterpret_cast<const float4*>(p.base[row]);
+  const char4* q = reinterpret_cast<const char4*>(p.q[e]);
+  const float4* b = reinterpret_cast<const float4*>(p.base[e]);
   for (; i < p.n4; i += step) {
     const char4 qq = q[i];
     const float4 bb = b[i];
@@ -785,14 +810,18 @@ extern "C" int topk_quant_encode_launch(const float* x, const float* thresh,
   return (int)cudaGetLastError();
 }
 
-// q: (N,) int8; scale: 0-d f32; base, out: (N,) f32, all on the card.
-extern "C" int dequant_add_launch(const int8_t* q, const float* scale,
-                                  const float* base, float* out, long long N,
+// ops: a host array of n * 3 card pointers, piece by piece (q (N,) int8,
+// base (N,) f32, out (N,) f32); scale: 0-d f32; all on the stream's card.
+// One launch every pieces::kMax pieces.
+extern "C" int dequant_add_launch(const void* const* ops, int n,
+                                  const float* scale, long long N,
                                   cudaStream_t stream) {
-  if (N <= 0) return (int)cudaSuccess;
-  decode_kernel<<<blocks_for(N), kThreads, 0, stream>>>(q, scale, base, out,
-                                                         N);
-  return (int)cudaGetLastError();
+  if (N <= 0 || n <= 0) return n < 0 ? (int)cudaErrorInvalidValue : 0;
+  return pieces::each<3>(ops, n, [&](const auto& t, int count) {
+    using T = std::decay_t<decltype(t)>;
+    decode_kernel<T><<<dim3(blocks_for(N), count), kThreads, 0, stream>>>(
+        t, scale, N);
+  });
 }
 
 
@@ -899,43 +928,60 @@ extern "C" int ef_encode_reduce_launch(const unsigned* part_max,
   return (int)cudaGetLastError();
 }
 
-// rows: (>= n_dec + n_zero, N) f32 on the card, N % 4 == 0, 16-byte
-// aligned; qs, scales, bases: host arrays of n_dec card pointers (q (N,)
-// int8 4-byte aligned, scale 0-d f32, base (N,) f32 16-byte aligned).
-// Writes rows[i] = base_i + q_i * scale_i and zeroes the n_zero rows after
-// them: one launch for every kRowsMax decodes (the zeroing rides on the
-// last).
+// rows: a host array of n_pieces card pointers, each piece's row buffer
+// (>= n_dec + n_zero, N) f32, N % 4 == 0, 16-byte aligned; qs, bases: host
+// arrays of n_dec * n_pieces card pointers, decode by decode and within
+// one its pieces (q (N,) int8 4-byte aligned, base (N,) f32 16-byte
+// aligned); scales: a host array of n_dec card pointers (0-d f32).
+// Writes piece j's row i = base_ij + q_ij * scale_i and zeroes each
+// piece's n_zero rows after them: one launch for every kRowsMax pairs of
+// pieces::kMax pieces (the zeroing rides on the last).
 extern "C" int dequant_add_rows_launch(const void* const* qs,
                                        const void* const* scales,
                                        const void* const* bases, int n_dec,
-                                       int n_zero, float* rows, long long N,
+                                       int n_zero, const void* const* rows,
+                                       int n_pieces, long long N,
                                        cudaStream_t stream) {
-  if (N <= 0 || N % 4 || n_dec < 0 || n_zero < 0 || !aligned16(rows))
+  if (N <= 0 || N % 4 || n_dec < 0 || n_zero < 0 || n_pieces < 1)
     return (int)cudaErrorInvalidValue;
   const long long n4 = N / 4;
   const unsigned gx = (unsigned)((n4 + kThreads - 1) / kThreads);
-  int start = 0;
-  do {
-    const int dec = n_dec - start < kRowsMax ? n_dec - start : kRowsMax;
-    const bool last = start + dec >= n_dec;
-    const int height = dec + (last ? n_zero : 0);
-    if (height == 0) break;
-    if (height > 65535) return (int)cudaErrorInvalidValue;
-    RowsArgs p;
-    for (int i = 0; i < dec; ++i) {
-      p.q[i] = static_cast<const int8_t*>(qs[start + i]);
-      p.scale[i] = static_cast<const float*>(scales[start + i]);
-      p.base[i] = static_cast<const float*>(bases[start + i]);
-      if ((reinterpret_cast<uintptr_t>(p.q[i]) & 3) || !aligned16(p.base[i]))
-        return (int)cudaErrorInvalidValue;
-    }
-    p.rows = reinterpret_cast<float4*>(rows) + start * n4;
-    p.n4 = n4;
-    p.n_dec = dec;
-    dequant_rows<<<dim3(gx, height), kThreads, 0, stream>>>(p);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    start += dec;
-  } while (start < n_dec);
+  for (int first = 0; first < n_pieces; first += pieces::kMax) {
+    const int np = n_pieces - first < pieces::kMax ? n_pieces - first
+                                                   : pieces::kMax;
+    const int per = kRowsMax / np;   // decodes a launch
+    int start = 0;
+    do {
+      const int dec = n_dec - start < per ? n_dec - start : per;
+      const bool last = start + dec >= n_dec;
+      const int height = dec + (last ? n_zero : 0);
+      if (height == 0) break;
+      if (height > 65535) return (int)cudaErrorInvalidValue;
+      RowsArgs p;
+      for (int j = 0; j < np; ++j) {
+        p.rows[j] = static_cast<float4*>(const_cast<void*>(rows[first + j]))
+                    + start * n4;
+        if (!aligned16(p.rows[j])) return (int)cudaErrorInvalidValue;
+      }
+      for (int i = 0; i < dec; ++i) {
+        p.scale[i] = static_cast<const float*>(scales[start + i]);
+        for (int j = 0; j < np; ++j) {
+          const long long src = (long long)(start + i) * n_pieces + first + j;
+          const int e = j * dec + i;
+          p.q[e] = static_cast<const int8_t*>(qs[src]);
+          p.base[e] = static_cast<const float*>(bases[src]);
+          if ((reinterpret_cast<uintptr_t>(p.q[e]) & 3) ||
+              !aligned16(p.base[e]))
+            return (int)cudaErrorInvalidValue;
+        }
+      }
+      p.n4 = n4;
+      p.n_dec = dec;
+      dequant_rows<<<dim3(gx, height, np), kThreads, 0, stream>>>(p);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+      start += dec;
+    } while (start < n_dec);
+  }
   return (int)cudaSuccess;
 }

@@ -11,59 +11,95 @@ same launch.  On a CUDA tensor they launch ``csrc/fedavg_agg.cu``; on a
 CPU tensor they run the plain versions in ``ref.py``.  See the CUDA source
 for the design and its bound.
 
+Each has a form over *pieces* (``fedavg_agg_pieces``, ``fedavg_mix_pieces``,
+``merge_opt_pieces``): equal-width operands on one device, merged by one
+launch (one every ``GROUP_PIECES``); the unsharded wrappers are its one-piece
+case.
+
 Sharded variants (``*_sharded``, the JAX package's ``shard_map``
 wrappers): the same kernels over a 1-D aggregation mesh
 (``parallel.sharding.agg_mesh``), every buffer split along N.  Each
-wrapper launches its kernel once per shard, on that shard's device and
-under its device guard; the packed layout keeps every worker's lane of a
-parameter on one device, so no shard reads another's data.  ``gather=True``
-returns the whole ``(N,)`` result on the home device (the reference's one
-``all_gather``); by default the result stays sharded.  Each per-shard
-launch counts in its kernel's own counter (``LAUNCHES`` here, B5's in
-``server_opt.LAUNCHES``), so a merge over D shards counts D launches.
+wrapper launches its kernel once a device, over every piece that device
+holds (``parallel.sharding.device_groups``), under its device guard; the
+packed layout keeps every worker's lane of a parameter on one device, so
+no piece reads another's data.  On a mesh of distinct devices that is one
+launch a piece; on one that repeats a card, one launch for all of the
+card's pieces.  ``gather=True`` returns the whole ``(N,)`` result on the
+home device (the reference's one ``all_gather``); by default the result
+stays sharded.  Launches count in their kernel's counter (``LAUNCHES`` here,
+B5's in ``server_opt.LAUNCHES``), the pieces they cover in ``PIECES``, so a
+merge over D pieces on one card counts one launch and D pieces.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.parallel import sharding as psh
 
-from . import (check_cuda_tensor, check_status, output_tensor, ref,
-               use_kernel)
-from .server_opt import server_opt_step_flat
+from . import (check_cuda_tensor, check_status, group_launches,
+               output_tensor, pointer_table, ref, use_kernel)
+from .server_opt import server_opt_step_flat, server_opt_step_pieces
 
-# kernel launches by wrapper (merge_opt_flat by optimizer form): a run
-# shows it went through the kernels
+# kernel launches by wrapper (merge_opt_flat by optimizer form), and the
+# pieces those launches covered: a run shows it went through the kernels
 LAUNCHES = {"agg": 0, "mix": 0, "merge_mom": 0, "merge_adam": 0}
+PIECES = dict(LAUNCHES)
+
+Pieces = Sequence[torch.Tensor]
 
 
-def _check_rows(stacked: torch.Tensor, weights: torch.Tensor, n_w: int):
-    if stacked.dim() != 2:
-        raise ValueError(f"stacked must be (W, N), got {tuple(stacked.shape)}")
-    W, N = stacked.shape
-    check_cuda_tensor(stacked, "stacked", torch.float32, W * N)
+def _count(key: str, n: int) -> None:
+    LAUNCHES[key] += group_launches(n)
+    PIECES[key] += n
+
+
+def _check_pieces(rows: Pieces, weights: torch.Tensor, n_w: int):
+    """(W, N) of every row piece (all equal), each a contiguous f32
+    ``(W, N)`` tensor; ``weights`` ``n_w`` f32 values."""
+    if not rows or rows[0].dim() != 2:
+        raise ValueError(f"rows must be (W, N) pieces, got "
+                         f"{[tuple(r.shape) for r in rows]}")
+    W, N = rows[0].shape
+    for r in rows:
+        if r.shape != (W, N):
+            raise ValueError(f"row pieces differ in shape: "
+                             f"{tuple(r.shape)} and {(W, N)}")
+        check_cuda_tensor(r, "stacked", torch.float32, W * N)
     check_cuda_tensor(weights, "weights", torch.float32, n_w)
     return W, N
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fedavg_agg_pieces(rows: Pieces, weights: torch.Tensor
+                      ) -> List[torch.Tensor]:
+    """``weights @ r`` for each ``(W, N)`` piece ``r`` of ``rows`` (all on
+    one device, ``weights`` (W,) f32 there): new ``(N,)`` vectors, one
+    launch for all the pieces; never reads a server buffer."""
+    if not use_kernel(*rows, weights):
+        return [ref.reference_fedavg(r, weights) for r in rows]
+    from ._build import lib
+    W, N = _check_pieces(rows, weights, rows[0].shape[0])
+    outs = [torch.empty(N, dtype=torch.float32, device=r.device)
+            for r in rows]
+    status = lib().fedavg_agg_launch(
+        pointer_table(rows, None, None, None, None, outs, None, None),
+        len(rows), weights.data_ptr(), W, N, _stream(rows[0]))
+    check_status(status, "fedavg_agg_flat")
+    _count("agg", len(rows))
+    return outs
 
 
 def fedavg_agg_flat(stacked: torch.Tensor, weights: torch.Tensor
                     ) -> torch.Tensor:
     """stacked: (W, N) f32 rows; weights: (W,) f32.  Returns the new (N,)
     vector ``weights @ stacked``; never reads a server buffer."""
-    if not use_kernel(stacked, weights):
-        return ref.reference_fedavg(stacked, weights)
-    from ._build import lib
-    W, N = _check_rows(stacked, weights, stacked.shape[0])
-    out = torch.empty(N, dtype=torch.float32, device=stacked.device)
-    status = lib().fedavg_agg_launch(
-        stacked.data_ptr(), weights.data_ptr(), out.data_ptr(), W, N,
-        torch.cuda.current_stream(stacked.device).cuda_stream)
-    check_status(status, "fedavg_agg_flat")
-    LAUNCHES["agg"] += 1
-    return out
+    return fedavg_agg_pieces([stacked], weights)[0]
 
 
 def fedavg_mix_flat(stacked: torch.Tensor, weights: torch.Tensor,
@@ -87,6 +123,42 @@ def _wvec(weights, server_scale, device: torch.device) -> torch.Tensor:
     return torch.cat([s, w])
 
 
+def _none(pieces: Optional[Sequence], n: int) -> list:
+    """One entry a piece: ``pieces``' own, or None for each."""
+    return [None] * n if pieces is None else list(pieces)
+
+
+def fedavg_mix_pieces(rows: Pieces, wvec: torch.Tensor, servers: Pieces,
+                      outs: Optional[Sequence] = None
+                      ) -> List[torch.Tensor]:
+    """``wvec[0] * s + wvec[1:] @ r`` for each piece pair (``r`` (W, N)
+    of ``rows``, ``s`` (N,) of ``servers``), one launch for all; ``outs``
+    None or one entry a piece, each that piece's server itself (in place)
+    or None (a new vector).  On the CPU each result is computed out of
+    place and copied into its ``out`` when one is given."""
+    outs = _none(outs, len(rows))
+    if not use_kernel(*rows, wvec, *servers):
+        res = [ref.reference_fedavg_mix(r, wvec[1:], s, wvec[0])
+               for r, s in zip(rows, servers)]
+        return [x if o is None else o.copy_(x) for x, o in zip(res, outs)]
+    from ._build import lib
+    W, N = _check_pieces(rows, wvec, rows[0].shape[0] + 1)
+    for i, (s, o) in enumerate(zip(servers, outs)):
+        check_cuda_tensor(s, "server", torch.float32, N)
+        if o is None:
+            outs[i] = torch.empty(N, dtype=torch.float32, device=s.device)
+        else:
+            check_cuda_tensor(o, "out", torch.float32, N)
+            if o.device != s.device:
+                raise ValueError("out must be on the server's device")
+    status = lib().fedavg_mix_launch(
+        pointer_table(rows, servers, None, None, None, outs, None, None),
+        len(rows), wvec.data_ptr(), W, N, _stream(rows[0]))
+    check_status(status, "fedavg_mix_wvec")
+    _count("mix", len(rows))
+    return outs
+
+
 def fedavg_mix_wvec(stacked: torch.Tensor, wvec: torch.Tensor,
                     server: torch.Tensor,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -96,25 +168,7 @@ def fedavg_mix_wvec(stacked: torch.Tensor, wvec: torch.Tensor,
     (N,) f32.  ``out`` may be ``server`` itself (in-place merge) or None
     for a new vector.  On the CPU the result is computed out of place and
     copied into ``out`` when one is given."""
-    if not use_kernel(stacked, wvec, server):
-        res = ref.reference_fedavg_mix(stacked, wvec[1:], server, wvec[0])
-        return res if out is None else out.copy_(res)
-    from ._build import lib
-    W, N = _check_rows(stacked, wvec, stacked.shape[0] + 1)
-    check_cuda_tensor(server, "server", torch.float32, N)
-    if out is None:
-        out = torch.empty(N, dtype=torch.float32, device=server.device)
-    else:
-        check_cuda_tensor(out, "out", torch.float32, N)
-        if out.device != server.device:
-            raise ValueError("out must be on the server's device")
-    status = lib().fedavg_mix_launch(
-        stacked.data_ptr(), wvec.data_ptr(), server.data_ptr(),
-        out.data_ptr(), W, N,
-        torch.cuda.current_stream(stacked.device).cuda_stream)
-    check_status(status, "fedavg_mix_wvec")
-    LAUNCHES["mix"] += 1
-    return out
+    return fedavg_mix_pieces([stacked], wvec, [server], [out])[0]
 
 
 def fedavg_delta_flat(server: torch.Tensor, deltas: torch.Tensor,
@@ -124,6 +178,70 @@ def fedavg_delta_flat(server: torch.Tensor, deltas: torch.Tensor,
     wvec = torch.cat([torch.ones(1, dtype=torch.float32,
                                  device=weights.device), weights.float()])
     return fedavg_mix_wvec(deltas, wvec, server, out=out)
+
+
+def _opt_scalars(scalars, adam: bool) -> np.ndarray:
+    sc = np.asarray(scalars, np.float32).reshape(-1)
+    if sc.size != (6 if adam else 4):
+        raise ValueError(f"expected {6 if adam else 4} scalars, got {sc.size}")
+    return sc
+
+
+def merge_opt_pieces(rows: Pieces, wvec: torch.Tensor,
+                     servers: Optional[Pieces], prevs: Pieces, ms: Pieces,
+                     vs: Optional[Pieces], scalars, *, adam: bool,
+                     outs: Optional[Sequence] = None,
+                     m_outs: Optional[Sequence] = None,
+                     v_outs: Optional[Sequence] = None):
+    """``merge_opt_flat`` for each piece (every operand a sequence of
+    pieces on one device, ``servers`` None for the aggregate and ``vs``
+    None unless ``adam``), one launch for all.  Returns ``(news, m's,
+    v's)``, lists of the pieces' results (``v's`` Nones unless ``adam``).
+    ``outs``/``m_outs``/``v_outs`` are None or one entry a piece, with
+    ``merge_opt_flat``'s aliasing rules a piece."""
+    sc = _opt_scalars(scalars, adam)
+    n = len(rows)
+    servers, vs = _none(servers, n), _none(vs if adam else None, n)
+    outs, m_outs, v_outs = (_none(outs, n), _none(m_outs, n),
+                            _none(v_outs if adam else None, n))
+    tensors = [t for t in (*rows, wvec, *servers, *prevs, *ms, *vs)
+               if t is not None]
+    if not use_kernel(*tensors):
+        news, mos, vos = [], [], []
+        for r, s, p, m, v, o, mo, vo in zip(rows, servers, prevs, ms, vs,
+                                            outs, m_outs, v_outs):
+            new, m1, v1 = ref.reference_merge_opt(r, wvec, s, p, m, v, sc,
+                                                  adam=adam)
+            news.append(new if o is None else o.copy_(new))
+            mos.append(m1 if mo is None else mo.copy_(m1))
+            vos.append(v1 if not adam or vo is None else vo.copy_(v1))
+        return news, mos, vos
+    from ._build import lib
+    mix = servers[0] is not None
+    W, N = _check_pieces(rows, wvec, rows[0].shape[0] + mix)
+    for i in range(n):
+        r, s, p, m, v = rows[i], servers[i], prevs[i], ms[i], vs[i]
+        for t, name in ((s, "server"), (p, "prev"), (m, "m"), (v, "v")):
+            if t is not None:
+                check_cuda_tensor(t, name, torch.float32, N)
+        if (s is not None) != mix:
+            raise ValueError("a server piece in some pieces only")
+        outs[i] = output_tensor(outs[i], p, "out", (r, wvec, m, v))
+        m_outs[i] = output_tensor(m_outs[i], m, "m_out",
+                                  (r, wvec, s, p, v, outs[i]))
+        if adam:
+            v_outs[i] = output_tensor(v_outs[i], v, "v_out",
+                                      (r, wvec, s, p, m, outs[i], m_outs[i]))
+    status = lib().fedavg_merge_opt_launch(
+        pointer_table(rows, servers if mix else None, prevs, ms,
+                      vs if adam else None, outs, m_outs,
+                      v_outs if adam else None),
+        n, wvec.data_ptr(), int(adam), *(float(x) for x in sc[:4]), W, N,
+        _stream(rows[0]))
+    form = "adam" if adam else "mom"
+    check_status(status, f"merge_opt_flat({form})")
+    _count(f"merge_{form}", n)
+    return outs, m_outs, v_outs if adam else [None] * n
 
 
 def merge_opt_flat(stacked: torch.Tensor, wvec: torch.Tensor,
@@ -144,49 +262,15 @@ def merge_opt_flat(stacked: torch.Tensor, wvec: torch.Tensor,
     ``m`` and ``v_out`` ``v``; nothing else may alias, and None gives a new
     vector.  On the CPU the results are computed out of place and copied
     into the outputs that were given."""
-    sc = np.asarray(scalars, np.float32).reshape(-1)
-    if sc.size != (6 if adam else 4):
-        raise ValueError(f"expected {6 if adam else 4} scalars, got {sc.size}")
-    tensors = [t for t in (stacked, wvec, server, prev, m, v if adam else None)
-               if t is not None]
-    if not use_kernel(*tensors):
-        new, mo, vo = ref.reference_merge_opt(stacked, wvec, server, prev, m,
-                                              v, sc, adam=adam)
-        if out is not None:
-            new = out.copy_(new)
-        if m_out is not None:
-            mo = m_out.copy_(mo)
-        if adam and v_out is not None:
-            vo = v_out.copy_(vo)
-        return new, mo, vo
-    from ._build import lib
-    W, N = _check_rows(stacked, wvec, stacked.shape[0] + (server is not None))
-    v = v if adam else None
-    for t, name in ((server, "server"), (prev, "prev"), (m, "m"), (v, "v")):
-        if t is not None:
-            check_cuda_tensor(t, name, torch.float32, N)
-    out = output_tensor(out, prev, "out", (stacked, wvec, m, v))
-    mo = output_tensor(m_out, m, "m_out",
-                       (stacked, wvec, server, prev, v, out))
-    vo = (output_tensor(v_out, v, "v_out",
-                        (stacked, wvec, server, prev, m, out, mo))
-          if adam else None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    status = lib().fedavg_merge_opt_launch(
-        stacked.data_ptr(), wvec.data_ptr(), ptr(server), prev.data_ptr(),
-        m.data_ptr(), ptr(v), out.data_ptr(), mo.data_ptr(), ptr(vo),
-        int(adam), *(float(x) for x in sc[:4]), W, N,
-        torch.cuda.current_stream(stacked.device).cuda_stream)
-    form = "adam" if adam else "mom"
-    check_status(status, f"merge_opt_flat({form})")
-    LAUNCHES[f"merge_{form}"] += 1
-    return out, mo, vo
+    news, mos, vos = merge_opt_pieces(
+        [stacked], wvec, None if server is None else [server], [prev], [m],
+        [v] if adam else None, scalars, adam=adam, outs=[out],
+        m_outs=[m_out], v_outs=[v_out])
+    return news[0], mos[0], vos[0]
 
 
 # ---------------------------------------------------------------------------
-# Sharded variants (B7): one launch per shard over a 1-D server mesh
+# Sharded variants (B7): one launch a device over a 1-D server mesh
 # ---------------------------------------------------------------------------
 
 def _check_shardable(N: int, mesh, axis: str) -> int:
@@ -198,16 +282,17 @@ def _check_shardable(N: int, mesh, axis: str) -> int:
     return D
 
 
-def _per_shard(launch, mesh, split=(), copy=(), outs=(), gather=False):
-    """``launch(*split_pieces, *copies, *out_pieces)`` once per shard of
-    ``mesh``, under that shard's device guard.  ``split`` are (.., N)
-    operands: a ``Sharded``'s own pieces, or a whole tensor split onto the
-    mesh (None stays None); ``copy`` are small operands (the weights)
-    copied to each device; ``outs`` are None or ``Sharded`` outputs
-    written in place.  An operand passed twice (an in-place output) is the
-    same pieces.  Returns each output of ``launch`` as a ``Sharded``
-    (None stays None), a single one gathered on the home device with
-    ``gather``."""
+def _per_device(launch, mesh, split=(), copy=(), outs=(), gather=False):
+    """``launch(*split_pieces, *copies, *out_pieces)`` once a device of
+    ``mesh`` (``psh.device_groups``), under that device's guard, with the
+    pieces it holds: ``split`` are (.., N) operands, a ``Sharded``'s own
+    pieces or a whole tensor split onto the mesh; ``copy`` are small
+    operands (the weights) copied to each device once; ``outs`` are None or
+    ``Sharded`` outputs written in place.  An operand that is None is None
+    in the call; an operand passed twice (an in-place output) is the same
+    pieces.  ``launch`` returns each piece's results, in order.  Returns
+    each output as a ``Sharded`` (None stays None), a single one gathered
+    on the home device with ``gather``."""
     if any(o is not None and not isinstance(o, psh.Sharded) for o in outs):
         raise ValueError("a sharded wrapper writes in place only into a "
                          "Sharded output")
@@ -215,7 +300,7 @@ def _per_shard(launch, mesh, split=(), copy=(), outs=(), gather=False):
 
     def pieces(x):
         if x is None:
-            return (None,) * len(mesh.devices)
+            return None
         if id(x) not in done:
             if isinstance(x, psh.Sharded):
                 if x.mesh != mesh:
@@ -226,14 +311,18 @@ def _per_shard(launch, mesh, split=(), copy=(), outs=(), gather=False):
                 done[id(x)] = psh.split(x, mesh).shards
         return done[id(x)]
 
+    def held(p, idx):
+        return None if p is None else [p[i] for i in idx]
+
     split, outs = [pieces(x) for x in split], [pieces(x) for x in outs]
-    copies = [{d: c.to(d) for d in set(mesh.devices)} for c in copy]
-    results = []
-    for i, dev in enumerate(mesh.devices):
+    results = [None] * len(mesh.devices)
+    for dev, idx in psh.device_groups(mesh):
         with psh.device_guard(dev):
-            r = launch(*(p[i] for p in split), *(c[dev] for c in copies),
-                       *(p[i] for p in outs))
-        results.append(r if isinstance(r, tuple) else (r,))
+            res = launch(*(held(p, idx) for p in split),
+                         *(c.to(dev) for c in copy),
+                         *(held(p, idx) for p in outs))
+        for i, r in zip(idx, res):
+            results[i] = r if isinstance(r, tuple) else (r,)
     res = tuple(None if col[0] is None else psh.Sharded(col, mesh)
                 for col in zip(*results))
     if len(res) > 1:
@@ -244,15 +333,17 @@ def _per_shard(launch, mesh, split=(), copy=(), outs=(), gather=False):
 def fedavg_mix_wvec_sharded(stacked, wvec: torch.Tensor, server, *, mesh,
                             axis: str = psh.AGG_AXIS, gather: bool = False,
                             out=None):
-    """``fedavg_mix_wvec`` per shard: ``stacked`` (W, N) and ``server``
-    (N,) are ``Sharded`` (or whole, then split); ``wvec`` (W + 1,) is
-    copied to each device.  ``out`` may be ``server`` (a ``Sharded``: the
-    in-place merge) or None.  Returns the ``Sharded`` result, or the whole
-    one on the home device with ``gather``."""
+    """``fedavg_mix_wvec`` over the mesh, one launch a device:
+    ``stacked`` (W, N) and ``server`` (N,) are ``Sharded`` (or whole, then
+    split); ``wvec`` (W + 1,) is copied to each device.  ``out`` may be
+    ``server`` (a ``Sharded``: the in-place merge) or None.  Returns the
+    ``Sharded`` result, or the whole one on the home device with
+    ``gather``."""
     _check_shardable(stacked.shape[-1], mesh, axis)
-    return _per_shard(lambda r, s, w, o: fedavg_mix_wvec(r, w, s, out=o),
-                      mesh, split=(stacked, server), copy=(wvec,),
-                      outs=(out,), gather=gather)
+    return _per_device(
+        lambda r, s, w, o: fedavg_mix_pieces(r, w, s, outs=o),
+        mesh, split=(stacked, server), copy=(wvec,), outs=(out,),
+        gather=gather)
 
 
 def fedavg_mix_flat_sharded(stacked, weights, server, server_scale, *,
@@ -260,7 +351,7 @@ def fedavg_mix_flat_sharded(stacked, weights, server, server_scale, *,
                             gather: bool = False):
     """``server_scale * server + weights @ stacked`` over a 1-D server
     mesh: each device runs B1 on its (W, N/D) rows and (N/D,) server
-    slice (the JAX package's form and its ``shard_map`` wrapper)."""
+    slices (the JAX package's form and its ``shard_map`` wrapper)."""
     return fedavg_mix_wvec_sharded(
         stacked, _wvec(weights, server_scale, mesh.home), server, mesh=mesh,
         axis=axis, gather=gather)
@@ -270,46 +361,47 @@ def fedavg_agg_flat_sharded(stacked, weights, *, mesh,
                             axis: str = psh.AGG_AXIS, gather: bool = False):
     """Sharded ``weights @ stacked`` (no server term: the alpha >= 1
     replace path must not read the server buffer; see
-    ``flatbuf.fused_weighted_sum``), one B2 launch per shard."""
+    ``flatbuf.fused_weighted_sum``), one B2 launch a device."""
     _check_shardable(stacked.shape[-1], mesh, axis)
     w = torch.as_tensor(weights, dtype=torch.float32).reshape(-1)
-    return _per_shard(fedavg_agg_flat, mesh, split=(stacked,), copy=(w,),
-                      gather=gather)
+    return _per_device(fedavg_agg_pieces, mesh, split=(stacked,),
+                       copy=(w,), gather=gather)
 
 
 def merge_opt_flat_sharded(stacked, wvec: torch.Tensor, server, prev, m, v,
                            scalars, *, adam: bool, mesh,
                            axis: str = psh.AGG_AXIS, out=None, m_out=None,
                            v_out=None):
-    """``merge_opt_flat`` per shard: the merge and the server optimizer's
-    step in one launch on each device's slices; the aliasing rules of
-    ``merge_opt_flat`` hold per shard (``out`` may be ``server`` and
-    ``prev``, ``m_out`` ``m``, ``v_out`` ``v``).  Returns ``(new, m',
+    """``merge_opt_flat`` over the mesh: the merge and the server
+    optimizer's step in one launch a device over its pieces; the aliasing
+    rules of ``merge_opt_flat`` hold a piece (``out`` may be ``server``
+    and ``prev``, ``m_out`` ``m``, ``v_out`` ``v``).  Returns ``(new, m',
     v')`` as ``Sharded`` vectors, ``v'`` None when ``adam`` is False."""
     _check_shardable(stacked.shape[-1], mesh, axis)
 
     def launch(r, s, p, m_, v_, w, o, mo, vo):
-        return merge_opt_flat(r, w, s, p, m_, v_, scalars, adam=adam, out=o,
-                              m_out=mo, v_out=vo)
-    return _per_shard(launch, mesh,
-                      split=(stacked, server, prev, m, v if adam else None),
-                      copy=(wvec,),
-                      outs=(out, m_out, v_out if adam else None))
+        return list(zip(*merge_opt_pieces(r, w, s, p, m_, v_, scalars,
+                                          adam=adam, outs=o, m_outs=mo,
+                                          v_outs=vo)))
+    return _per_device(launch, mesh,
+                       split=(stacked, server, prev, m, v if adam else None),
+                       copy=(wvec,),
+                       outs=(out, m_out, v_out if adam else None))
 
 
 def server_opt_step_flat_sharded(prev, merged, m, v, scalars, *,
                                  adam: bool, mesh, axis: str = psh.AGG_AXIS,
                                  m_out=None, v_out=None):
     """Sharded optimizer step: every buffer is split along N and the
-    update is elementwise, so each device runs B5 on its own (N/D,)
-    slices, with no collective.  ``m_out``/``v_out`` may be ``m``/``v``
+    update is elementwise, so each device runs B5 once on its own (N/D,)
+    pieces, with no collective.  ``m_out``/``v_out`` may be ``m``/``v``
     (the state updates in place).  Returns ``(new, m', v')`` as
     ``Sharded`` vectors, ``v'`` None when ``adam`` is False."""
     _check_shardable(prev.shape[-1], mesh, axis)
 
     def launch(p, g, m_, v_, mo, vo):
-        return server_opt_step_flat(p, g, m_, v_, scalars, adam=adam,
-                                    m_out=mo, v_out=vo)
-    return _per_shard(launch, mesh, split=(prev, merged, m,
-                                           v if adam else None),
-                      outs=(m_out, v_out if adam else None))
+        return list(zip(*server_opt_step_pieces(
+            p, g, m_, v_, scalars, adam=adam, m_outs=mo, v_outs=vo)))
+    return _per_device(launch, mesh, split=(prev, merged, m,
+                                            v if adam else None),
+                       outs=(m_out, v_out if adam else None))

@@ -16,20 +16,22 @@ row buffer in one launch.  On a CUDA tensor each launches
 sharded over a server mesh (``parallel.sharding.Sharded``, a sharded
 server's link vectors): each shard's pieces are encoded and decoded by
 launches on its own device, and only the select's input and O(blocks)
-partials cross devices (``ef_encode``'s docstring).  The cross-device
-copies are written for distinct devices, but every mesh tested so far
-repeats one device (one card, or the CPU).
+partials cross devices (``ef_encode``'s docstring).  A decode makes one
+launch a device over every piece it holds (``dequant_add`` on ``Sharded``
+operands, ``dequant_add_rows_pieces`` for a sharded row buffer).  The
+cross-device copies are written for distinct devices, but every mesh
+tested so far repeats one device (one card, or the CPU).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.parallel import sharding as psh
 
-from . import check_cuda_tensor, check_status, ref, use_kernel
+from . import (GROUP_PIECES, check_cuda_tensor, check_status,
+               group_launches, pointer_table, ref, use_kernel)
 from .ref import SAMPLE_CAP, THRESH_FLOOR, sample_plan  # noqa: F401
 
 # kernel launches by wrapper: a run shows it went through the kernels
@@ -39,6 +41,9 @@ from .ref import SAMPLE_CAP, THRESH_FLOOR, sample_plan  # noqa: F401
 # launches of a sharded topk_threshold)
 LAUNCHES = {"encode": 0, "decode": 0, "ef_encode": 0, "select": 0,
             "decode_rows": 0, "ef_encode_sharded": 0, "sample": 0}
+# the pieces the decodes' launches covered (one a call unsharded; every
+# piece a device holds of a sharded vector or row buffer)
+PIECES = {"decode": 0, "decode_rows": 0}
 
 # CTAs of ef_encode's cluster: 16, a non-portable size the H100 schedules
 # (7 such clusters at once), faster than the portable 8 at the MLP's width
@@ -90,30 +95,45 @@ def topk_quant_encode(x: torch.Tensor, thresh: Scalar, scale: Scalar
 def dequant_add(q: torch.Tensor, scale: Scalar, base: torch.Tensor
                 ) -> torch.Tensor:
     """One pass: ``base + q * scale`` with q (N,) int8 and base (N,) f32;
-    returns a new vector.  ``Sharded`` q and base (one mesh): one launch
-    a shard on its device, the scale copied there; a ``Sharded``
-    result."""
-    if isinstance(q, psh.Sharded):
-        out = []
-        for qd, bd, dev in zip(q.shards, _pieces_like(base, q),
-                               q.mesh.devices):
-            with psh.device_guard(dev):
-                out.append(dequant_add(qd, _scalar_to(scale, dev), bd))
-        return psh.Sharded(out, q.mesh)
-    if not use_kernel(q, base):
-        return ref.reference_dequant_add(q, scale, base)
+    returns a new vector.  ``Sharded`` q and base (one mesh): one launch a
+    device over the pieces it holds, the scale copied there once; a
+    ``Sharded`` result."""
+    if not isinstance(q, psh.Sharded):
+        return dequant_add_pieces([q], scale, [base])[0]
+    bases, out = _pieces_like(base, q), [None] * len(q.shards)
+    for dev, idx in psh.device_groups(q.mesh):
+        with psh.device_guard(dev):
+            res = dequant_add_pieces([q.shards[i] for i in idx],
+                                     _scalar_to(scale, dev),
+                                     [bases[i] for i in idx])
+        for i, r in zip(idx, res):
+            out[i] = r
+    return psh.Sharded(out, q.mesh)
+
+
+def dequant_add_pieces(qs: Sequence[torch.Tensor], scale: Scalar,
+                       bases: Sequence[torch.Tensor]) -> list:
+    """``b + q * scale`` for each piece pair (q (N,) int8 of ``qs``, b (N,)
+    f32 of ``bases``, all on one device, one scale): new vectors, one
+    launch for all."""
+    if not use_kernel(*qs, *bases):
+        return [ref.reference_dequant_add(q, scale, b)
+                for q, b in zip(qs, bases)]
     from ._build import lib
-    n = base.numel()
-    check_cuda_tensor(q, "q", torch.int8, n)
-    check_cuda_tensor(base, "base", torch.float32, n)
-    s = _scalar_on(scale, base)
-    out = torch.empty(n, dtype=torch.float32, device=base.device)
-    status = lib().dequant_add_launch(
-        q.data_ptr(), s.data_ptr(), base.data_ptr(), out.data_ptr(), n,
-        torch.cuda.current_stream(base.device).cuda_stream)
+    n = bases[0].numel()
+    for q, b in zip(qs, bases):
+        check_cuda_tensor(q, "q", torch.int8, n)
+        check_cuda_tensor(b, "base", torch.float32, n)
+    s = _scalar_on(scale, bases[0])
+    outs = [torch.empty(n, dtype=torch.float32, device=b.device)
+            for b in bases]
+    status = lib().dequant_add_launch(pointer_table(qs, bases, outs),
+                                      len(qs), s.data_ptr(), n,
+                                      _stream(bases[0].device))
     check_status(status, "dequant_add")
-    LAUNCHES["decode"] += 1
-    return out
+    LAUNCHES["decode"] += group_launches(len(qs))
+    PIECES["decode"] += len(qs)
+    return outs
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -561,10 +581,6 @@ def topk_threshold(x: torch.Tensor, k: int, n_params: int) -> torch.Tensor:
     return stats[0]
 
 
-def _ptrs(ts: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
-
-
 def dequant_add_rows(qs: Sequence[torch.Tensor],
                      scales: Sequence[torch.Tensor],
                      bases: Sequence[torch.Tensor],
@@ -574,31 +590,66 @@ def dequant_add_rows(qs: Sequence[torch.Tensor],
     a 0-d f32 tensor, base (N,) f32) for i < n, and rows n.. zeroed.  One
     launch up to 128 decodes (their pointers travel as kernel
     parameters); returns ``rows``."""
-    n = len(qs)
+    return dequant_add_rows_pieces([[q] for q in qs], scales,
+                                   [[b] for b in bases], [rows])[0]
+
+
+def rows_launches(n_dec: int, n_zero: int, n_pieces: int) -> int:
+    """Launches of ``dequant_add_rows_launch``: one for every 128
+    (decode, piece) pairs of up to 32 pieces, at least one that zeroes."""
+    launches = 0
+    for first in range(0, n_pieces, GROUP_PIECES):
+        per = 128 // min(GROUP_PIECES, n_pieces - first)
+        launches += max(1, -(-n_dec // per)) if n_dec or n_zero else 0
+    return launches
+
+
+def dequant_add_rows_pieces(qs: Sequence[Sequence[torch.Tensor]],
+                            scales: Sequence[torch.Tensor],
+                            bases: Sequence[Sequence[torch.Tensor]],
+                            rows: Sequence[torch.Tensor]) -> list:
+    """``dequant_add_rows`` into the row buffers of pieces on one device
+    (a sharded server's rows: the pieces that device holds), in place:
+    piece j's ``rows[j][i] = bases[i][j] + qs[i][j] * scales[i]`` for each
+    decode i < n, rows n.. of every piece zeroed.  ``qs[i]``/``bases[i]``
+    are decode i's pieces, one a row buffer; ``scales[i]`` its 0-d scale
+    on the device.  One launch for all the pieces (a launch every 128
+    (decode, piece) pairs); returns ``rows``."""
+    n, P = len(qs), len(rows)
     if not (len(scales) == len(bases) == n):
         raise ValueError("qs, scales and bases differ in length")
-    if rows.dim() != 2 or rows.shape[0] < n:
-        raise ValueError(f"rows {tuple(rows.shape)} cannot take {n} rows")
-    if not use_kernel(rows, *qs, *scales, *bases):
-        return ref.reference_dequant_add_rows(qs, scales, bases, rows)
-    cap, N = rows.shape
-    check_cuda_tensor(rows, "rows", torch.float32, cap * N)
-    for q, s, b in zip(qs, scales, bases):
+    if any(len(x) != P for x in (*qs, *bases)):
+        raise ValueError(f"a decode without one piece for each of the "
+                         f"{P} row buffers")
+    for r in rows:
+        if r.dim() != 2 or r.shape[0] < n or r.shape != rows[0].shape:
+            raise ValueError(f"rows {tuple(r.shape)} cannot take {n} rows")
+    flat_q = [q for x in qs for q in x]
+    flat_b = [b for x in bases for b in x]
+    if not use_kernel(*rows, *flat_q, *scales, *flat_b):
+        return [ref.reference_dequant_add_rows(
+            [x[j] for x in qs], scales, [x[j] for x in bases], r)
+            for j, r in enumerate(rows)]
+    cap, N = rows[0].shape
+    for r in rows:
+        check_cuda_tensor(r, "rows", torch.float32, cap * N)
+        if N % 4 or r.data_ptr() % 16:
+            raise ValueError(f"rows must start on 16 bytes with N % 4 == 0,"
+                             f" got N = {N}")
+    for q, b in zip(flat_q, flat_b):
         check_cuda_tensor(q, "q", torch.int8, N)
         check_cuda_tensor(b, "base", torch.float32, N)
-        check_cuda_tensor(s, "scale", torch.float32, 1)
         if q.data_ptr() % 4 or b.data_ptr() % 16:
             raise ValueError("q must start on 4 bytes and base on 16")
-    if N % 4 or rows.data_ptr() % 16:
-        raise ValueError(f"rows must start on 16 bytes with N % 4 == 0, "
-                         f"got N = {N}")
+    for s in scales:
+        check_cuda_tensor(s, "scale", torch.float32, 1)
     if n == 0 and cap == 0:
-        return rows
+        return list(rows)
     from ._build import lib
     status = lib().dequant_add_rows_launch(
-        _ptrs(qs), _ptrs(scales), _ptrs(bases), n, cap - n,
-        rows.data_ptr(), N, torch.cuda.current_stream(rows.device)
-        .cuda_stream)
+        pointer_table(flat_q), pointer_table(scales), pointer_table(flat_b),
+        n, cap - n, pointer_table(rows), P, N, _stream(rows[0].device))
     check_status(status, "dequant_add_rows")
-    LAUNCHES["decode_rows"] += max(1, -(-n // 128))
-    return rows
+    LAUNCHES["decode_rows"] += rows_launches(n, cap - n, P)
+    PIECES["decode_rows"] += P
+    return list(rows)

@@ -51,7 +51,7 @@ import math
 import os
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -217,10 +217,23 @@ class Sharded:
         return self._zip(other, torch.sub)
 
 
+def device_groups(mesh: AggMesh
+                  ) -> List[Tuple[torch.device, List[int]]]:
+    """The mesh's distinct devices in first-seen order, each with the
+    indices of the pieces it holds: ``(cuda:0, cuda:1, cuda:0, cuda:1)``
+    gives ``[(cuda:0, [0, 2]), (cuda:1, [1, 3])]``.  A sharded kernel
+    wrapper makes one launch a group, so a mesh that repeats a device
+    costs that device one launch, not one a piece."""
+    groups: "OrderedDict[torch.device, List[int]]" = OrderedDict()
+    for i, dev in enumerate(mesh.devices):
+        groups.setdefault(dev, []).append(i)
+    return list(groups.items())
+
+
 def device_guard(device: torch.device):
-    """The context a per-shard kernel launch runs in: the CUDA runtime
-    launches on the thread's current device, so each shard's launch makes
-    its own device current.  A no-op on the CPU."""
+    """The context a device's kernel launch runs in: the CUDA runtime
+    launches on the thread's current device, so each device's launch makes
+    that device current.  A no-op on the CPU."""
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()

@@ -1008,22 +1008,109 @@ def test_cuda_snapshot_round_trip_resumes_bit_for_bit(h100, case, tmp_path):
 def test_cuda_b7_matches_unsharded_and_plain(h100, W, N):
     """chip_smoke's ``check_b7`` at small sizes: every B7 form bit for bit
     against the unsharded kernel and the plain sharded version at D = 1,
-    2 and 4 (meshes repeating the card), one launch per shard."""
+    2 and 4 (meshes repeating the card), one launch covering the D
+    pieces."""
     from repro_torch.parallel import sharding as psh
     dev = torch.device("cuda", 0)
     rec = chip_smoke.check_b7(dev, [(W, N)], meshes=(1, 2, 4))
     torch.cuda.synchronize()
     assert rec["ok"] and rec["cases"] == 3 * len(chip_smoke.B7_FORMS)
-    # each form's B7 call launches its kernel once per shard
-    counters = chip_smoke.launch_counters()
+    # each form's B7 call launches its kernel once for the card's pieces
+    counters, pieces = (chip_smoke.launch_counters(),
+                        chip_smoke.piece_counters())
     o = chip_smoke.b7_inputs(dev, W, N, seed=0)
     for D in (1, 2, 4):
         o_sh = chip_smoke.b7_sharded(o, psh.agg_mesh(devices=(dev,) * D))
         mesh = o_sh["rows"].mesh
         for form, ctr, _ in chip_smoke.B7_RECORDS.values():
-            n0 = counters[ctr][ctr]
+            n0, p0 = counters[ctr][ctr], pieces[ctr][ctr]
             chip_smoke.b7_call(form, o_sh, mesh)
-            assert counters[ctr][ctr] - n0 == D, (form, D)
+            assert (counters[ctr][ctr] - n0, pieces[ctr][ctr] - p0) == \
+                (1, D), (form, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_cuda_grouped_forms_equal_unsharded_kernel(h100, D):
+    """Every grouped form at D pieces on the card (B7's six, B4 on
+    ``Sharded`` q and base, a merge's decodes into sharded rows) bit for
+    bit against the unsharded kernel on the whole vectors: one launch
+    over D pieces each."""
+    from repro_torch.core import flatbuf
+    from repro_torch.parallel import sharding as psh
+    dev = torch.device("cuda", 0)
+    mesh = psh.agg_mesh(devices=(dev,) * D)
+    W, N = 7, 4096 * D
+    o = chip_smoke.b7_inputs(dev, W, N, seed=D)
+    o_sh = chip_smoke.b7_sharded(o, mesh)
+    for form in chip_smoke.B7_FORMS:
+        got, want = (chip_smoke.b7_call(form, o_sh, mesh),
+                     chip_smoke.b7_call(form, o))
+        for g, u in zip(got, want):
+            assert torch.equal(g.gather(), u), form
+    g = torch.Generator(device=dev).manual_seed(D)
+    qs, scales, base = chip_smoke.shard_dec_inputs(g, N, W)
+    l0, p0 = dict(topk_quant.LAUNCHES), dict(topk_quant.PIECES)
+    got = topk_quant.dequant_add(psh.split(qs[0], mesh), scales[0],
+                                 psh.split(base, mesh))
+    assert chip_smoke.same_bits(got.gather(), topk_quant.dequant_add(
+        qs[0], scales[0], base))
+    bundle = flatbuf.ParamBundle({"w": torch.empty(N, device="meta")},
+                                 mesh=mesh)
+    b_sh = psh.split(base, mesh)
+    rows_sh = psh.split(torch.full((W + 2, N), float("nan"), device=dev),
+                        mesh)
+    bundle._set_rows(rows_sh, [flatbuf.EncodedVec(psh.split(q, mesh), s,
+                                                  b_sh)
+                               for q, s in zip(qs, scales)])
+    rows = torch.full((W + 2, N), float("nan"), device=dev)
+    topk_quant.dequant_add_rows(qs, scales, [base] * W, rows)
+    assert chip_smoke.same_bits(rows_sh.gather(), rows)
+    torch.cuda.synchronize()
+    for key in ("decode", "decode_rows"):
+        assert topk_quant.LAUNCHES[key] - l0[key] == 2, key  # with unsharded
+        assert topk_quant.PIECES[key] - p0[key] == D + 1, key
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_forms_split_above_the_table(h100):
+    """More pieces on one device than a launch's table holds (32): the
+    grouped entries take a launch every 32 pieces, the rows one every 128
+    (decode, piece) pairs, bit for bit as before."""
+    from repro_torch.kernels import GROUP_PIECES
+    from repro_torch.parallel import sharding as psh
+    dev = torch.device("cuda", 0)
+    D = GROUP_PIECES + 2
+    mesh = psh.agg_mesh(devices=(dev,) * D)
+    W, N = 5, 256 * D
+    o = chip_smoke.b7_inputs(dev, W, N, seed=1)
+    o_sh = chip_smoke.b7_sharded(o, mesh)
+    n0, p0 = fedavg_agg.LAUNCHES["mix"], fedavg_agg.PIECES["mix"]
+    got = chip_smoke.b7_call("mix", o_sh, mesh)[0]
+    assert (fedavg_agg.LAUNCHES["mix"] - n0,
+            fedavg_agg.PIECES["mix"] - p0) == (2, D)
+    assert torch.equal(got.gather(), chip_smoke.b7_call("mix", o)[0])
+    g = torch.Generator(device=dev).manual_seed(2)
+    qs, scales, base = chip_smoke.shard_dec_inputs(g, N, W)
+    rows = [torch.empty(W + 1, N // D, device=dev) for _ in range(D)]
+    q_sh = [psh.split(q, mesh).shards for q in qs]
+    b_sh = psh.split(base, mesh).shards
+    n0 = topk_quant.LAUNCHES["decode_rows"]
+    topk_quant.dequant_add_rows_pieces(q_sh, scales, [b_sh] * W, rows)
+    assert topk_quant.LAUNCHES["decode_rows"] - n0 == \
+        topk_quant.rows_launches(W, 1, D) == 3
+    want = torch.empty(W + 1, N, device=dev)
+    topk_quant.dequant_add_rows(qs, scales, [base] * W, want)
+    assert chip_smoke.same_bits(torch.cat(rows, dim=1), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(chip_smoke.SHARD_DEC_FAULTS.values()))
+def test_cuda_shard_decode_check_catches_faults(h100, fault):
+    with pytest.raises(AssertionError, match="sharded"):
+        chip_smoke.check_shard_decode(
+            torch.device("cuda", 0), sizes=((8192, 8192, 100),), W=5,
+            fault=fault)
 
 
 @pytest.mark.cuda

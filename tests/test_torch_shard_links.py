@@ -580,7 +580,11 @@ def test_chip_smoke_shard_encode_rehearsed():
                                 sizes=((4096, 4000, 400),
                                        (1 << 19, 1 << 19, 52_428)))
     assert rec["ok"] and rec["cases"] == 2 * 3 * len(cs.SHARD_ENC_FORMS)
-    assert len(rec["decode"]) == 2 * 3
+    # B4 per shard is check_shard_decode's, at the same widths and meshes
+    dec = cs.check_shard_decode(torch.device("cpu"),
+                                sizes=((4096, 4000, 400),
+                                       (1 << 19, 1 << 19, 52_428)), W=5)
+    assert dec["ok"] and len(dec["decode"]) == len(dec["rows"]) == 2 * 3
 
 
 def test_chip_smoke_shard_enc_controls_rehearsed():

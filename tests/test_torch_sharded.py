@@ -15,8 +15,8 @@ and its pure functions.
   and ``reference_server_opt_sharded`` (the two frameworks reduce in
   different orders), and bit for bit equal to the port's unsharded
   wrappers: every element is computed by the same operations whatever
-  the sharding.  The device guard is entered once per shard, with that
-  shard's device.
+  the sharding.  The device guard is entered once a device, with that
+  device.
 * Merges and runs: every sharded merge form (aggregate, mix, encoded
   rows, delta, window, server optimizers) equals the unsharded state bit
   for bit; the ``run_fl`` cases of the JAX package's sharded tiers
@@ -271,11 +271,15 @@ def test_sharded_merge_opt_in_place_equals_unsharded(d, adam, mix, mesh_of):
 
 
 @pytest.mark.parametrize("d", [2, 4])
-def test_device_guard_entered_once_per_shard(d, mesh_of, monkeypatch):
-    """Every per-shard launch runs inside ``device_guard`` of its own
-    shard's device: the CUDA runtime launches on the thread's current
-    device, so on D distinct cards a launch outside it would go wrong."""
+def test_device_guard_entered_once_per_device(d, mesh_of, monkeypatch):
+    """Every sharded launch runs inside ``device_guard`` of its device,
+    entered once a distinct device of the mesh (one launch over every
+    piece the device holds): the CUDA runtime launches on the thread's
+    current device, so on D distinct cards a launch outside it would go
+    wrong.  The CPU mesh repeats one device: one entry a call."""
     mesh = mesh_of(d)
+    devices = [dev for dev, _ in psh.device_groups(mesh)]
+    assert devices == [torch.device("cpu")]
     entered = []
     real = psh.device_guard
 
@@ -300,8 +304,8 @@ def test_device_guard_entered_once_per_shard(d, mesh_of, monkeypatch):
     for call in calls:
         entered.clear()
         call()
-        assert entered == list(mesh.devices)
-    # an encoded merge decodes each shard's rows under its guard too
+        assert entered == devices
+    # an encoded merge decodes each device's rows under its guard too
     t = _torch(_tree(1))
     st = flatbuf.FlatServerState(t, mesh=mesh)
     base = st.bundle.pack(t)
@@ -309,7 +313,7 @@ def test_device_guard_entered_once_per_shard(d, mesh_of, monkeypatch):
     enc = flatbuf.EncodedVec(q, torch.tensor(0.5), base)
     entered.clear()
     st.merge_rows(t, [enc, enc], [1.0, 1.0])
-    assert entered == list(mesh.devices) * 2        # decode, then merge
+    assert entered == devices * 2                   # decode, then merge
 
 
 def test_sharded_wrappers_refuse_an_indivisible_width(mesh_of):
