@@ -40,7 +40,16 @@ and prints no result):
    ``GRID_TIMED`` and at the pod width (also with x = a alone, the pod
    round's call); B4's redesign
    ``dequant_add_rows`` (one merge's decodes into the row buffer) bit for
-   bit at ``ROWS_W`` decodes with stale rows zeroed; the server-optimizer
+   bit at ``ROWS_W`` decodes with stale rows zeroed; B4's redesign around
+   its path (``check_decode_fused``): ``ef_encode`` writing the decode
+   ``b + q * scale`` itself (a quantised downlink's encode) and
+   ``dequant_mix`` (async_delta's decode and delta merge in one launch),
+   each at every ``DEC_SIZES`` width bit for bit against the chain it
+   replaces (the encode, then B4; B4, ``torch.stack``, B1) and its plain
+   version, launches under its own counter, each ``DEC_FAULTS`` control
+   (an FMA-contracted decode; the delta merge reading row 1 as the
+   decoded row) failing, both timed at ``DEC_TIMED`` in turns with the
+   chain (chain, new, new, chain); the server-optimizer
    step at N = 101,888, 29,184 (the
    padded MNIST CNN) and 1000 with the FedAvgM, FedDyn and FedAdam
    scalars, bit-exact, fresh and with its state written in place; flash
@@ -91,9 +100,12 @@ Every run of phases 4-6 starts with every launch counter at 0 and reads
 them after; the counters must show each kernel on the runs that use it
 (one fused merge and step per merge of a run with a server optimizer and
 none of B5 anywhere, one launch of B2 or B1 per other merge, one
-``ef_encode`` launch per encode and none of B3 or of the select alone,
-and one ``dequant_add_rows`` launch per merge whose responses waited
-encoded: sync, time_based and FedAsync async).  Every raw run is
+``ef_encode`` launch per encode (a quantised downlink's under
+``ef_encode_dec``, which writes its decode) and none of B3 or of the
+select alone, one ``dequant_add_rows`` launch per merge whose responses
+waited encoded: sync, time_based and FedAsync async, one ``dequant_mix``
+launch per async_delta merge of a quantised response and no B1 there,
+and no B4 launch on its own).  Every raw run is
 repeated on the CPU from the same initial weights (in ``CPU_WORKERS``
 worker processes, all submitted before phase 4's first card run so that
 they overlap the card's runs; ``CpuReruns``): every
@@ -181,16 +193,22 @@ follow the numerics).
    bit for bit against the unsharded forms, one launch a device covering
    D pieces, the ``SHARD_DEC_FAULTS`` control failing.  Each timed with
    L2 flushed in turns with the unsharded form (and B4 with ``torch.add``
-   on the whole vectors).  Then each ``SHARD_RUNS`` run at MNIST
+   on the whole vectors).  ``check_shard_fused``: B4's redesigns on
+   ``Sharded`` vectors at the same widths and meshes, the decoding
+   ``ef_encode`` (2D + 2 launches) and ``dequant_mix_sharded`` (one
+   launch a device over D pieces, in place), bit for bit against the
+   unsharded chains, timed at 102,400 and D = 4 in turns with the
+   sharded chains.  Then each ``SHARD_RUNS`` run at MNIST
    width (phase 4's setup, ``SHARD_ROUNDS`` rounds) unsharded and at
    ``server_mesh`` 1, 2 and 4, counters at 0 before each run: every
    sharded history equals the unsharded one in every field, accuracy
    bits included (the topology's root and leaves), every link vector
    after the run is ``Sharded`` in D pieces of N/D, each merge kernel,
-   ``dequant_add_rows`` and B4 launch as often as in the unsharded run
-   (once a device of this card's mesh) over D times its pieces, every
-   encode at D > 1 takes the sharded form and at D = 1 the unsharded one
-   on its one piece (``shard_enc_launches``), and B5 never;
+   ``dequant_add_rows``, ``dequant_mix`` and B4 launch as often as in the
+   unsharded run (once a device of this card's mesh) over D times its
+   pieces, every encode at D > 1 takes the sharded form and at D = 1 the
+   unsharded one on its one piece (``shard_enc_launches``; a quantised
+   downlink's under ``ef_encode_dec``), and B5 never;
    then ``SHARD_RESUME`` stopped at its first snapshot and resumed in
    this process, equal to the unsharded run.  Alone:
    ``chip_smoke.py --shard`` (report in
@@ -444,14 +462,18 @@ REQUIRED = {
     "fedavg_mix_flat": ("mix", ["raw/async", "raw/async_delta"]),
     # B3's redesign: every top-k+int8 encode, one launch each
     "ef_encode": ("ef_encode", TOPK_RUNS),
-    # B4's redesign: every merge whose responses waited encoded
+    # B4's redesigns: every merge whose responses waited encoded; every
+    # quantised downlink encode, which writes its decode itself (the
+    # symmetric codec); every async_delta merge of a quantised response,
+    # decoded and merged in one launch
     "dequant_add_rows": ("decode_rows", [
         "uplink_only/sync", "uplink_only/async", "uplink_only/time_based",
         "hetero/sync_topk/fedadam"]),
-    # B4 itself: the decodes whose vector is read besides the merge (the
-    # async delta merge) and the symmetric codec's downlink
-    "dequant_add": ("decode", ["uplink_only/async_delta",
-                               "hetero/sync_topk/fedadam"]),
+    "ef_encode_dec": ("ef_encode_dec", ["hetero/sync_topk/fedadam"]),
+    "dequant_mix": ("dequant_mix", ["uplink_only/async_delta"]),
+    # B4 itself: no run of phases 4-6 decodes alone any more (the fleet
+    # phase's chaos/1x2 does: its root decodes the leaves' pushes)
+    "dequant_add": ("decode", []),
     # B5 redesigned: every server-optimizer merge, the merge (B2's or B1's
     # form) and the step in one launch
     "merge_opt_flat_mom": ("merge_mom", ["hetero/sync/fedavgm",
@@ -506,6 +528,28 @@ EF_FAULTS = {"threshold one rank lower": "mlp topk+int8",
 # dequant_add_rows is held bit for bit at these numbers of decodes over N =
 # 101,888, with two stale rows beyond them (NaN) that must come back zero
 ROWS_W = (1, 30, 65)
+# B4's redesign around its path: its decode folded into the launches next
+# to it, ef_encode's decoded output (a quantised downlink's encode writes
+# the receiver's model, base + q * scale, from its own last pass) and
+# dequant_mix (async_delta's decode and delta merge of a quantised
+# response in one launch).  Each is held bit for bit against the chain it
+# replaces (the encode then B4; B4, torch.stack, B1) and its plain version
+# at these (N, n_params): a ragged width, the MLP's, the scalar path's
+# 101,890, 2^17 + 512 past the exact threshold's cap (sampled at stride 1,
+# one cluster) and, for the encode, 2^20 (the grid form); both at
+# DEC_TIMED, timed in turns against the chain.  The encode in the
+# top-k+int8 codec (frac 0.1) and the int8 codec (k None).
+DEC_SIZES = ((1000, 1000), (1001, 1001), (101_888, 101_770),
+             (101_890, 101_890), (131_584, 131_484), (1_048_576, 1_048_476))
+DEC_TIMED = (101_888, 16_777_216)
+DEC_FRAC = 0.1
+# the delta merge's weights: server + (new - base)
+DEC_WVEC = (1.0, 1.0, -1.0)
+# controls: the plain chain given each fault must disagree with the kernel
+# of each form named, on DEC_SIZES[2]
+DEC_FAULTS = {"an FMA-contracted decode": ("ef_encode_dec", "dequant_mix"),
+              "the delta merge reading row 1 as the decoded row":
+                  ("dequant_mix",)}
 # the run whose every encode and merge is recorded and replayed through
 # the plain versions on the card
 REPLAY_RUN = "uplink_only/sync"
@@ -752,9 +796,11 @@ def launch_counters():
     return {"agg": fedavg_agg.LAUNCHES, "mix": fedavg_agg.LAUNCHES,
             "merge_mom": fedavg_agg.LAUNCHES,
             "merge_adam": fedavg_agg.LAUNCHES,
+            "dequant_mix": fedavg_agg.LAUNCHES,
             "encode": topk_quant.LAUNCHES, "decode": topk_quant.LAUNCHES,
             "ef_encode": topk_quant.LAUNCHES,
             "ef_encode_sharded": topk_quant.LAUNCHES,
+            "ef_encode_dec": topk_quant.LAUNCHES,
             "select": topk_quant.LAUNCHES,
             "sample": topk_quant.LAUNCHES,
             "decode_rows": topk_quant.LAUNCHES,
@@ -1131,6 +1177,7 @@ def check_kernels(dev):
     records.update(time_merges(dev, timer, merge_rec,
                                errs["fedavg_mix_flat"]))
     records.update(check_codec_fused(dev, timer))
+    records.update(check_decode_fused(dev, timer))
     records["flash_attention"] = check_flash(dev, timer)
     records.update(check_wkv(dev, timer))
     # the comparison launches above do not count toward the paths' runs:
@@ -1518,6 +1565,247 @@ def check_codec_fused(dev, timer):
           f"{dec['plain_ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
     return {"ef_encode": enc, "ef_encode_grid": grid,
             "dequant_add_rows": dec}
+
+
+def dec_inputs(g, N):
+    """The new forms' inputs at width N on g's device: a downlink encode's
+    a (the server model) and b (the acked base), and a quantised response
+    for the delta merge: int8 q, a 0-d scale, its base and the server."""
+    dev = g.device
+    a, b, base, server = (torch.randn(N, device=dev, generator=g)
+                          for _ in range(4))
+    q = torch.randint(-127, 128, (N,), device=dev, generator=g,
+                      dtype=torch.int8)
+    return a, b, q, 0.01 * torch.rand((), device=dev, generator=g), base, \
+        server
+
+
+def dec_kw(N, n_params, codec):
+    """ef_encode's keywords for one of the two quantised codecs."""
+    from repro_torch.core import transport
+    k = transport.topk_k(n_params, DEC_FRAC) if codec == "topk_ef+int8" \
+        else None
+    return dict(k=k, n_params=n_params, quantize=True)
+
+
+def dec_chain(form, args, kw=None, out=None):
+    """The parent's route for one form: the encode then B4
+    (``ef_encode_dec``: the encode's outputs and the decode), or B4, the
+    stack of (new, base) and B1 into ``out`` (``dequant_mix``)."""
+    from repro_torch.kernels import fedavg_agg, topk_quant
+    if form == "ef_encode_dec":
+        a, b = args
+        enc = topk_quant.ef_encode(a, b, **kw)
+        return (*enc, topk_quant.dequant_add(enc[0], enc[3], b))
+    q, scale, base, server, w = args
+    new = topk_quant.dequant_add(q, scale, base)
+    return fedavg_agg.fedavg_mix_wvec(torch.stack([new, base]), w, server,
+                                      out=out)
+
+
+def dec_plain_fault(fault, form, args, kw=None):
+    """The plain chain of ``form`` given ``fault``: the decode as one
+    fused multiply-add (q * s + b in f64, rounded once to f32: what fmaf
+    gives but for double rounding), or the delta merge with its rows
+    swapped (row 1, the base, read as the decoded row)."""
+    from repro_torch.kernels import ref
+
+    def fma(q, s, b):
+        return (q.double() * s.double() + b.double()).float()
+    if form == "ef_encode_dec":
+        a, b = args
+        enc = ref.reference_ef_encode(a, b, **kw)
+        return (*enc, fma(enc[0], enc[3], b))
+    q, scale, base, server, w = args
+    new = fma(q, scale, base) if fault == "an FMA-contracted decode" \
+        else ref.reference_dequant_add(q, scale, base)
+    rows = [new, base]
+    if fault == "the delta merge reading row 1 as the decoded row":
+        rows.reverse()
+    return ref.reference_fedavg_mix(torch.stack(rows), w[1:], server, w[0])
+
+
+DEC_OUTPUTS = EF_OUTPUTS + ("decoded",)
+
+
+def dec_mismatch(got, want):
+    """The outputs on which two results of a form differ (one name,
+    "merged", for dequant_mix's one output)."""
+    if isinstance(got, torch.Tensor):
+        return [] if same_bits(got, want) else ["merged"]
+    return [n for n, g, w in zip(DEC_OUTPUTS, got, want)
+            if not same_bits(g, w)]
+
+
+def dec_bytes(form, N) -> tuple:
+    """A form's own bytes (each input read once, each output written
+    once) and operations.  The encode: a and b, then q, r, the decoded
+    vector and the three 0-d outputs; the merge: q, base and server, the
+    scale and three weights, then out."""
+    if form == "ef_encode_dec":
+        return 8 * N + N + 4 * N + 4 * N + 12, 10 * N
+    return N + 8 * N + 16 + 4 * N, 7 * N
+
+
+def dec_grid(N, kw) -> bool:
+    """Whether ef_encode takes its grid form (three launches) at N."""
+    from repro_torch.kernels import ref, topk_quant
+    if kw["k"] is None:
+        return N > topk_quant.CLUSTER_MAX
+    stride, m, _ = ref.sample_plan(N, kw["k"], kw["n_params"])
+    return stride > 1 or m > topk_quant.CLUSTER_MAX
+
+
+def check_decode_forms(dev, sizes=DEC_SIZES):
+    """``ef_encode`` with its decoded output (top-k+int8 and int8) and
+    ``dequant_mix`` at each width of ``sizes``, bit for bit against the
+    chain each replaces, run on ``dev`` (every output), and against their
+    plain versions; on the card each form's launches (one, three for the
+    encode's grid form; the merge fresh and in place) under its own
+    counter and none under the chain's; each DEC_FAULTS control, on
+    DEC_SIZES[2] where ``sizes`` has it, disagreeing.  Returns ``(checks,
+    controls)``."""
+    from repro_torch.kernels import fedavg_agg, ref, topk_quant
+    on_card = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(30)
+    w = torch.tensor(DEC_WVEC, dtype=torch.float32, device=dev)
+    checks, controls = [], {}
+    counters = (topk_quant.LAUNCHES, fedavg_agg.LAUNCHES)
+
+    def launched(before):
+        return {k: c[k] - b[k] for c, b in zip(counters, before)
+                for k in c if c[k] != b[k]}
+    for N, n_params in sizes:
+        a, b, q, scale, base, server = dec_inputs(g, N)
+        for codec in ("topk_ef+int8", "int8"):
+            kw = dec_kw(N, n_params, codec)
+            want = dec_chain("ef_encode_dec", (a, b), kw)
+            before = [dict(c) for c in counters]
+            dec = torch.empty(N, device=dev)
+            got = (*topk_quant.ef_encode(a, b, **kw, decoded=dec), dec)
+            moved = launched(before)
+            bad = dec_mismatch(got, want) + [
+                f"plain {n}" for n in dec_mismatch(
+                    got, ref.reference_ef_encode_decoded(
+                        a, b, k=kw["k"], n_params=n_params))]
+            checks.append({"form": "ef_encode_dec", "codec": codec, "N": N,
+                           "launches": moved, "mismatch": bad})
+            print(f"check ef_encode decoded {codec} N = {N}: launches "
+                  f"{moved}; outputs differing from the chain (encode, B4) "
+                  f"or the plain version: {bad or 'none'}")
+            if bad or (on_card and moved != {
+                    "ef_encode_dec": 3 if dec_grid(N, kw) else 1}):
+                raise AssertionError(f"ef_encode decoded {codec} N = {N}: "
+                                     f"{bad}, launches {moved}")
+        args = (q, scale, base, server, w)
+        want = dec_chain("dequant_mix", args)
+        before = [dict(c) for c in counters]
+        fresh = fedavg_agg.dequant_mix(q, scale, base, w, server)
+        srv = server.clone()
+        inplace = fedavg_agg.dequant_mix(q, scale, base, w, srv, out=srv)
+        moved = launched(before)
+        bad = [n for n, x in (("fresh", fresh), ("in place", inplace),
+                              ("plain", ref.reference_dequant_mix(
+                                  q, scale, base, server, w)))
+               if not same_bits(x, want)]
+        if inplace.data_ptr() != srv.data_ptr():
+            bad.append("not in place")
+        checks.append({"form": "dequant_mix", "N": N, "launches": moved,
+                       "mismatch": bad})
+        print(f"check dequant_mix N = {N}: launches {moved}; differing "
+              f"from the chain (B4, stack, B1): {bad or 'none'}")
+        if bad or (on_card and moved != {"dequant_mix": 2}):
+            raise AssertionError(f"dequant_mix N = {N}: {bad}, launches "
+                                 f"{moved}")
+        if N == DEC_SIZES[2][0]:
+            kw = dec_kw(N, n_params, "topk_ef+int8")
+            dec = torch.empty(N, device=dev)
+            mine = {"ef_encode_dec": (
+                        (*topk_quant.ef_encode(a, b, **kw, decoded=dec), dec),
+                        (a, b)),
+                    "dequant_mix": (fresh, args)}
+            for fault, forms in DEC_FAULTS.items():
+                for form in forms:
+                    got, fargs = mine[form]
+                    controls[f"{fault} ({form})"] = dec_mismatch(
+                        got, dec_plain_fault(fault, form, fargs, kw))
+        del a, b, q, base, server, want, fresh, srv, inplace
+    for name, bad in controls.items():
+        print(f"check B4 redesign control {name}: outputs differing: {bad}")
+        if not bad:
+            raise AssertionError(f"the decode check does not catch {name}")
+    return checks, controls
+
+
+def check_decode_fused(dev, timer):
+    """Phase 3's part for B4's redesign: ``check_decode_forms`` at
+    DEC_SIZES, then both forms timed at each DEC_TIMED width with L2
+    flushed, in turns with the chain each replaces (chain, new, new,
+    chain), beside the plain version and the byte bound.  Returns the two
+    records of the kernels line (headline: the MLP's width)."""
+    from repro_torch.kernels import fedavg_agg, ref, topk_quant
+    checks, controls = check_decode_forms(dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    w = torch.tensor(DEC_WVEC, dtype=torch.float32, device=dev)
+    records = {}
+    for form, src in (("ef_encode_dec", "topk_quant.cu"),
+                      ("dequant_mix", "fedavg_agg.cu")):
+        by_n = []
+        for N in DEC_TIMED:
+            a, b, q, scale, base, server = dec_inputs(g, N)
+            kw = dec_kw(N, 101_770 if N == 101_888 else N, "topk_ef+int8")
+            dec = torch.empty(N, device=dev)
+            srv = server.clone()
+            if form == "ef_encode_dec":
+                def kern():
+                    return topk_quant.ef_encode(a, b, **kw, decoded=dec)
+
+                def chain():
+                    return dec_chain(form, (a, b), kw)
+
+                def plain():
+                    return ref.reference_ef_encode_decoded(
+                        a, b, k=kw["k"], n_params=kw["n_params"])
+            else:
+                def kern():
+                    return fedavg_agg.dequant_mix(q, scale, base, w, srv,
+                                                  out=srv)
+
+                def chain():
+                    return dec_chain(form, (q, scale, base, srv, w),
+                                     out=srv)
+
+                def plain():
+                    return ref.reference_dequant_mix(q, scale, base, srv, w)
+            ms, chain_ms, turns = timer.turns(kern, chain)
+            n_bytes, flops = dec_bytes(form, N)
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            by_n.append({"N": N, "ms": ms, "chain_ms": chain_ms,
+                         "turns": {"new": turns["kernel"],
+                                   "chain": turns["library"]},
+                         "plain_ms": timer(plain), "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"time {form} N = {N}: kernel {ms:.6f} ms, the chain it "
+                  f"replaces {chain_ms:.6f} ms (chain, new, new, chain: "
+                  f"{turns['library'][0]:.6f}, {turns['kernel'][0]:.6f}, "
+                  f"{turns['kernel'][1]:.6f}, {turns['library'][1]:.6f}), "
+                  f"plain {by_n[-1]['plain_ms']:.6f} ms, bound "
+                  f"{b_ms:.6f} ms ({b_by})")
+            del a, b, q, base, server, dec, srv
+            torch.cuda.empty_cache()
+        head = by_n[0]
+        records[form] = {
+            "name": form, "route": "cuda", "ok": True,
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": "src/repro/kernels/topk_quant.py:89",
+            "launches": 0, "max_abs_err": 0.0,
+            **{k: head[k] for k in ("N", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "chain_ms")},
+            "library_ms": None, "by_n": by_n,
+            "checks": [c for c in checks if c["form"] == form],
+            "controls": {k: v for k, v in controls.items()
+                         if k.endswith(f"({form})")}}
+    return records
 
 
 # ef_encode's grid form is timed here, top-k+int8 on "parts" inputs (the
@@ -2022,21 +2310,34 @@ def drive(key, setup, report):
     if rounds != spec["rounds"]:
         raise AssertionError(f"{key}: {rounds} rounds, not {spec['rounds']}")
     # every encode is one fused launch (the FL paths' widths fit one
-    # cluster) and nothing else encodes; every merge whose responses
-    # waited encoded is one dequant_add_rows launch
+    # cluster) and nothing else encodes, a quantised downlink's under
+    # ef_encode_dec (it writes its decode too); every merge whose responses
+    # waited encoded is one dequant_add_rows launch, every async_delta
+    # merge of a quantised response one dequant_mix launch (no B1, no
+    # stack); and no decode runs alone
     run_kw = spec["run_kw"]
     topk = run_kw.get("transport", "raw") != "raw"
+    symmetric = topk and run_kw.get("transport_down") != "raw"
+    delta = topk and run_kw["mode"] == "async" and run_kw.get("async_delta")
     deferred = topk and (run_kw["mode"] == "sync" or not (
         run_kw.get("async_delta") or run_kw.get("async_latest_table", True)))
-    if (launches["ef_encode"] != encodes[0] or bool(encodes[0]) != topk
+    enc = launches["ef_encode"] + launches["ef_encode_dec"]
+    if (enc != encodes[0] or bool(encodes[0]) != topk
+            or bool(launches["ef_encode_dec"]) != symmetric
             or launches["encode"] or launches["select"]):
         raise AssertionError(f"{key}: {encodes[0]} encodes took "
-                             f"{launches['ef_encode']} ef_encode launches, "
-                             f"{launches['encode']} of B3, "
-                             f"{launches['select']} selects")
+                             f"{launches['ef_encode']} ef_encode and "
+                             f"{launches['ef_encode_dec']} decoding "
+                             f"ef_encode launches, {launches['encode']} of "
+                             f"B3, {launches['select']} selects")
     if launches["decode_rows"] != (merges if deferred else 0):
         raise AssertionError(f"{key}: {launches['decode_rows']} "
                              f"dequant_add_rows launches for {merges} merges")
+    if launches["dequant_mix"] != (merges if delta else 0) or \
+            launches["decode"] or (delta and launches["mix"]):
+        raise AssertionError(f"{key}: {launches['dequant_mix']} dequant_mix, "
+                             f"{launches['decode']} B4 and {launches['mix']} "
+                             f"B1 launches for {merges} merges")
     if not all(np.isfinite(p.accuracy) for p in h):
         raise AssertionError(f"{key}: non-finite accuracy")
     # a server-optimizer merge is one fused launch and B5 never launches;
@@ -2077,16 +2378,18 @@ def counted_encodes():
 def recorded_codec(encodes, merges):
     """While the block runs, ``topk_quant.ef_encode`` and
     ``dequant_add_rows`` append copies of their inputs and outputs to
-    ``encodes`` and ``merges``."""
+    ``encodes`` and ``merges`` (an encode's ``decoded`` output after its
+    other outputs, its keywords without it)."""
     from repro_torch.kernels import topk_quant
 
     def copy(ts):
         return [None if t is None else t.clone() for t in ts]
     real_enc, real_rows = topk_quant.ef_encode, topk_quant.dequant_add_rows
 
-    def enc(a, b=None, c=None, **kw):
-        out = real_enc(a, b, c, **kw)
-        encodes.append((copy((a, b, c)), kw, copy(out)))
+    def enc(a, b=None, c=None, *, decoded=None, **kw):
+        out = real_enc(a, b, c, decoded=decoded, **kw)
+        encodes.append((copy((a, b, c)), kw, copy(
+            out if decoded is None else (*out, decoded))))
         return out
 
     def rows_fn(qs, scales, bases, rows):
@@ -2115,7 +2418,10 @@ def replay_run(setups, report):
                    max_rounds=spec["rounds"], **spec["run_kw"])
     bad = []
     for i, (ins, kw, out) in enumerate(encodes):
-        diff = ef_mismatch(out, ref.reference_ef_encode(*ins, **kw))
+        diff = dec_mismatch(out, ref.reference_ef_encode(*ins, **kw)
+                            if len(out) == 5 else
+                            ref.reference_ef_encode_decoded(
+                                *ins, k=kw["k"], n_params=kw["n_params"]))
         if diff:
             bad.append(f"encode {i}: {diff}")
     for i, (qs, scales, bases, rows) in enumerate(merges):
@@ -2335,7 +2641,10 @@ FLEET_REQUIRED = {
     "ef_encode": ("ef_encode", ["lossy/uplink_only", "auto/edge",
                                 "auto/starved", "chaos/1x2"]),
     "dequant_add_rows": ("decode_rows", ["lossy/uplink_only"]),
-    "dequant_add": ("decode", ["auto/edge", "chaos/1x2"]),
+    # quantised downlinks: the auto codec's and the 1x2 fan-out's
+    "ef_encode_dec": ("ef_encode_dec", ["auto/edge", "chaos/1x2"]),
+    # the root's decode of the leaves' top-k+int8 pushes
+    "dequant_add": ("decode", ["chaos/1x2"]),
 }
 
 
@@ -2838,7 +3147,8 @@ RESUME_REQUIRED = {
     "ef_encode": ("ef_encode", ["uplink_only/sync", "topology/1x2"]),
     "dequant_add_rows": ("decode_rows", ["uplink_only/sync",
                                          "topology/1x2"]),
-    "dequant_add": ("decode", ["topology/1x2"]),
+    "ef_encode_dec": ("ef_encode_dec", ["topology/1x2", RESUME_CHAOS]),
+    "dequant_add": ("decode", [RESUME_CHAOS]),
     "merge_opt_flat_adam": ("merge_adam", ["hetero/sync/fedadam"]),
 }
 
@@ -3185,6 +3495,9 @@ SHARD_RUNS = {
     "uplink_only/sync": {**MODES["sync"], **TRANSPORTS["uplink_only"]},
     "uplink_only/async_delta": {**MODES["async_delta"],
                                 **TRANSPORTS["uplink_only"]},
+    # raw responses still take the delta merge's stack and B1, which the
+    # top-k run above no longer launches (its merge is dequant_mix)
+    "raw/async_delta": {**MODES["async_delta"], **TRANSPORTS["raw"]},
     "hetero/sync/fedavgm": {**SYNC, **DIRICHLET, **FEDAVGM},
     "hetero/sync/fedadam": {**SYNC, **DIRICHLET, **FEDADAM},
     "time_based/T0=0": {**MODES["time_based"], **TRANSPORTS["raw"]},
@@ -3199,7 +3512,7 @@ SHARD_RESUME = ("raw/sync", 2)   # killed at its first snapshot, resumed
 # D > 1 devices encodes only through ef_encode's sharded form, over one
 # device through the unsharded form (shard_enc_launches)
 GROUPED = ("agg", "mix", "merge_mom", "merge_adam", "decode_rows",
-           "decode")
+           "decode", "dequant_mix")
 UNSHARDED = ("encode", "select", "sample", "mom", "adam")
 
 
@@ -3863,6 +4176,134 @@ def check_shard_decode(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
     return rec
 
 
+def check_shard_fused(dev, sizes=SHARD_ENC_SIZES, meshes=B7_MESHES,
+                      timed=True):
+    """B4's redesigns on a sharded server's vectors at each width of
+    ``sizes`` and each D of ``meshes`` (a mesh repeating ``dev``): the
+    top-k+int8 ``ef_encode`` on ``Sharded`` a and b with a ``Sharded``
+    decoded output (a sharded server's downlink), every output bit for bit
+    against the unsharded chain (the encode, then B4) on the whole
+    vectors; ``dequant_mix_sharded`` (async_delta's delta merge on a
+    sharded server, in place) bit for bit against the unsharded chain (B4,
+    stack, B1).  On the card the encode takes its sharded form's 2D + 2
+    launches (D = 1: the unsharded form's, one or three) under
+    ``ef_encode_dec``, and the merge one launch a device over D pieces (a
+    launch every 32 pieces).  On the card with ``timed``, at the first
+    width and the largest D, each is timed with
+    L2 flushed in turns with the sharded chain the parent ran (the sharded
+    encode then B4 on the pieces; B4 on the pieces, a stack a piece, B1
+    over the pieces).  Returns the record."""
+    from repro_torch.kernels import fedavg_agg, group_launches, topk_quant
+    from repro_torch.parallel import sharding as psh
+    on_card = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(300)
+    w = torch.tensor(DEC_WVEC, dtype=torch.float32, device=dev)
+    rec = {"ef_encode_dec": [], "dequant_mix": []}
+    tl, fl = topk_quant.LAUNCHES, fedavg_agg.LAUNCHES
+    for N, n_params, _ in sizes:
+        a, b, q, scale, base, server = dec_inputs(g, N)
+        kw = dec_kw(N, n_params, "topk_ef+int8")
+        want_enc = dec_chain("ef_encode_dec", (a, b), kw)
+        want_mix = dec_chain("dequant_mix", (q, scale, base, server, w))
+        for D in meshes:
+            mesh = psh.agg_mesh(devices=(dev,) * D)
+            n_dev = sum(group_launches(len(idx))
+                        for _, idx in psh.device_groups(mesh))
+            a_sh, b_sh = psh.split(a, mesh), psh.split(b, mesh)
+            dec = b_sh.empty_like()
+            before = tl["ef_encode_dec"]
+            got = _gathered((*topk_quant.ef_encode(a_sh, b_sh, **kw,
+                                                   decoded=dec), dec))
+            enc_l = tl["ef_encode_dec"] - before
+            want_l = (3 if dec_grid(N, kw) else 1) if D == 1 else 2 * D + 2
+            bad = dec_mismatch(got, want_enc)
+            if bad or (on_card and enc_l != want_l):
+                raise AssertionError(f"sharded decoding ef_encode N = {N} "
+                                     f"D = {D}: {bad}, {enc_l} launches")
+            q_sh, base_sh = psh.split(q, mesh), psh.split(base, mesh)
+            srv = psh.split(server, mesh)
+            before = fl["dequant_mix"], fedavg_agg.PIECES["dequant_mix"]
+            out = fedavg_agg.dequant_mix_sharded(q_sh, scale, base_sh, w,
+                                                 srv, mesh=mesh, out=srv)
+            mix_l = (fl["dequant_mix"] - before[0],
+                     fedavg_agg.PIECES["dequant_mix"] - before[1])
+            in_place = all(o.data_ptr() == s_.data_ptr()
+                           for o, s_ in zip(out.shards, srv.shards))
+            if not same_bits(out.gather(), want_mix) or not in_place or (
+                    on_card and mix_l != (n_dev, D)):
+                raise AssertionError(
+                    f"dequant_mix_sharded N = {N} D = {D}: differs from the "
+                    f"chain, in place {in_place}, {mix_l[0]} launches over "
+                    f"{mix_l[1]} pieces where {n_dev} over {D}")
+            rec["ef_encode_dec"].append({"N": N, "D": D, "launches": enc_l,
+                                         "equal": True})
+            rec["dequant_mix"].append({"N": N, "D": D, "launches": mix_l[0],
+                                       "pieces": mix_l[1], "equal": True})
+            print(f"check sharded B4 redesigns N = {N} D = {D}: decoding "
+                  f"ef_encode ({enc_l} launches) and dequant_mix ({mix_l[0]} "
+                  f"launch(es) over {mix_l[1]} pieces) equal to the "
+                  f"unsharded chains")
+            if timed and on_card and N == sizes[0][0] and D == max(meshes):
+                rec["timed"] = time_shard_fused(
+                    Timer(dev), mesh, (a_sh, b_sh, dec, kw),
+                    (q_sh, scale, base_sh, srv, w), N, D)
+            del a_sh, b_sh, dec, q_sh, base_sh, srv, out, got
+        del a, b, q, base, server, want_enc, want_mix
+        if on_card:
+            torch.cuda.empty_cache()
+    rec["ok"] = True
+    return rec
+
+
+def time_shard_fused(timer, mesh, enc_args, mix_args, N, D):
+    """The sharded forms at one (N, D), L2 flushed, in turns with the
+    sharded chain the parent ran (chain, new, new, chain), beside the
+    plain version and the byte bound: {form: fields}."""
+    from repro_torch.kernels import fedavg_agg, ref, topk_quant
+    from repro_torch.parallel import sharding as psh
+    a_sh, b_sh, dec, kw = enc_args
+    q_sh, scale, base_sh, srv, w = mix_args
+    a, b = a_sh.gather(), b_sh.gather()
+    q, base = q_sh.gather(), base_sh.gather()
+
+    def enc_chain():
+        out = topk_quant.ef_encode(a_sh, b_sh, **kw)
+        return topk_quant.dequant_add(out[0], out[3], b_sh)
+
+    def mix_chain():
+        new = topk_quant.dequant_add(q_sh, scale, base_sh)
+        rows = psh.Sharded([torch.stack([n, bb]) for n, bb in
+                            zip(new.shards, base_sh.shards)], mesh)
+        return fedavg_agg.fedavg_mix_wvec_sharded(rows, w, srv, mesh=mesh,
+                                                  out=srv)
+    cases = {
+        "ef_encode_dec": (
+            lambda: topk_quant.ef_encode(a_sh, b_sh, **kw, decoded=dec),
+            enc_chain, lambda: ref.reference_ef_encode_decoded(
+                a, b, k=kw["k"], n_params=kw["n_params"])),
+        "dequant_mix": (
+            lambda: fedavg_agg.dequant_mix_sharded(
+                q_sh, scale, base_sh, w, srv, mesh=mesh, out=srv),
+            mix_chain, lambda: ref.reference_dequant_mix(
+                q, scale, base, srv.gather(), w))}
+    out = {}
+    for form, (kern, chain, plain) in cases.items():
+        ms, chain_ms, lib_ms, turns = _turns3(timer, kern, chain, None,
+                                              N_TIMED_SHARD)
+        n_bytes, flops = dec_bytes(form, N)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        out[form] = dict(N=N, D=D, ms=ms, chain_ms=chain_ms,
+                         turns={"new": turns["kernel"],
+                                "chain": turns["unsharded"]},
+                         plain_ms=timer(plain, N_TIMED_SHARD),
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"time sharded {form} N = {N} D = {D}: {ms:.6f} ms, the "
+              f"sharded chain it replaces {chain_ms:.6f} ms, plain "
+              f"{out[form]['plain_ms']:.6f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
+    return out
+
+
 def shard_dec_controls(dev) -> dict:
     """Each SHARD_DEC_FAULTS control on ``dev``: check_shard_decode given
     the fault must fail.  Returns fault -> caught."""
@@ -4052,6 +4493,13 @@ def shard_run(key, setup, rounds=SHARD_ROUNDS, epochs=EPOCHS,
                 f"shard {key} D = {D}: {launches['ef_encode']} unsharded "
                 f"and {launches['ef_encode_sharded']} sharded ef_encode "
                 f"launches, {want[0]} and {want[1]} expected")
+        # a quantised downlink's encode that writes its decode, in either
+        # form: the unsharded one at D = 1, the sharded one above
+        want = sum(shard_enc_launches(D, base_l["ef_encode_dec"]))
+        if launches["ef_encode_dec"] != want:
+            raise AssertionError(
+                f"shard {key} D = {D}: {launches['ef_encode_dec']} decoding "
+                f"ef_encode launches, {want} expected")
         if launches["mom"] or launches["adam"]:
             raise AssertionError(f"shard {key} D = {D}: B5 launched")
     print(f"shard {key}: D = {', '.join(map(str, meshes))} equal to the "
@@ -4104,11 +4552,12 @@ def run_shard(dev, setups, report):
     enc["controls"] = shard_enc_controls(dev)
     dec = check_shard_decode(dev)
     dec["controls"] = shard_dec_controls(dev)
+    fused = check_shard_fused(dev)
     setup = setups.get(RUNS["raw/sync"], dev)
     runs = {key: shard_run(key, setup) for key in SHARD_RUNS}
     resume = shard_resume(setup, want=runs[SHARD_RESUME[0]]["histories"])
     report["shard"] = {"b7": rec, "encode": enc, "decode": dec,
-                       "runs": runs, "resume": resume}
+                       "fused": fused, "runs": runs, "resume": resume}
 
     def summed(what, ctr):
         return sum(r[what][str(D)][ctr] for r in runs.values()
@@ -4164,10 +4613,29 @@ def run_shard(dev, setups, report):
             "pieces": summed("pieces", ctr), "max_abs_err": 0.0,
             **{k: head[k] for k in keys + ("library_ms",)},
             "by_case": dec[kind]}
+    # B4's redesigns on the sharded server: the downlink encode of the
+    # top-k+int8 1x2 run and async_delta's delta merge
+    src_of = {"ef_encode_dec": src,
+              "dequant_mix": "src/repro_torch/kernels/csrc/fedavg_agg.cu"}
+    for form in ("ef_encode_dec", "dequant_mix"):
+        name = f"{form}_sharded"
+        t = fused["timed"][form]
+        records[name] = {
+            "name": name, "route": "cuda", "ok": True,
+            "source": src_of[form], "wrapper": wrapper if form ==
+            "ef_encode_dec" else "src/repro_torch/kernels/fedavg_agg.py",
+            "replaces": "src/repro/kernels/topk_quant.py:89",
+            "launches": summed("launches", form), "max_abs_err": 0.0,
+            **({"pieces": summed("pieces", form)} if form == "dequant_mix"
+               else {}),
+            "library_ms": None, **t, "by_case": fused[form]}
+    # B4 alone on a sharded server: phase 9's runs no longer launch it
+    # (the downlink's decode rides in its encode, async_delta's in its
+    # merge); its check, timing and launch count (0) stay in the line
     for name in ("fedavg_mix_flat_sharded", "fedavg_agg_flat_sharded",
                  "merge_opt_flat_sharded_mom", "merge_opt_flat_sharded_adam",
-                 "ef_encode_sharded", "dequant_add_sharded",
-                 "dequant_add_rows_sharded"):
+                 "ef_encode_sharded", "dequant_add_rows_sharded",
+                 "ef_encode_dec_sharded", "dequant_mix_sharded"):
         if records[name]["launches"] < 1:
             raise AssertionError(f"{name} never launched in phase 9's runs")
     return records

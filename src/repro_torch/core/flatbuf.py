@@ -12,7 +12,8 @@
   ``fused_merge_opt`` (``merge_opt_flat``) takes the optimizer's step in
   that same pass.  ``merge_rows`` also takes ``EncodedVec``s, quantised
   responses still encoded, and decodes all of them into their rows in one
-  ``dequant_add_rows`` launch.
+  ``dequant_add_rows`` launch; ``delta_vec`` takes one and decodes and
+  merges it in one ``dequant_mix`` launch.
 
 JAX arrays are immutable; these are not.  The only in-place writes on
 the merge path are the mix's (``fused_merge``, ``fused_merge_opt``) into
@@ -87,7 +88,7 @@ class EncodedVec:
     when the response arrived; on a sharded server q and base are
     ``Sharded`` and the scale lies on the home device).  ``merge_rows``
     decodes every one of a merge straight into its row in one launch (one
-    a shard)."""
+    a device), ``delta_vec`` decodes and merges one in one launch."""
     q: object
     scale: torch.Tensor
     base: object
@@ -538,7 +539,23 @@ class FlatServerState:
         ``Sharded`` ones stacked piece by piece into a ``Sharded`` (2,
         N/D); whole ones sliced); returns the packed result (``Sharded``
         with a mesh), written into the server mirror (which is
-        consumed)."""
+        consumed).  ``new_vec`` may be an ``EncodedVec`` encoded against
+        ``base_vec`` itself (a quantised response, its base pinned at
+        arrival): then its decode and the merge are one ``dequant_mix``
+        launch (one a device with a mesh), with no stack."""
+        if isinstance(new_vec, EncodedVec):
+            if new_vec.base is base_vec:
+                server = self._server_buffer(cur_tree)
+                w = self._delta_weights()
+                if self.mesh is None:
+                    return fedavg_agg.dequant_mix(
+                        new_vec.q, new_vec.scale, base_vec, w, server,
+                        out=server)
+                return fedavg_agg.dequant_mix_sharded(
+                    new_vec.q, new_vec.scale, base_vec, w, server,
+                    mesh=self.mesh, out=server)
+            new_vec = topk_quant.dequant_add(new_vec.q, new_vec.scale,
+                                             new_vec.base)
         if self.mesh is None:
             rows = torch.stack([new_vec, base_vec])
         else:

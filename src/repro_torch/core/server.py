@@ -11,14 +11,16 @@ aggregation (staleness-weighted, eq 2.4 family) and the responding worker
 is immediately re-dispatched.
 
 Responses decode straight to packed flat vectors (or wait encoded, to be
-decoded into their rows by the merge) and merge in one kernel
+decoded into their rows by the merge, or, in async_delta's delta merge,
+decoded and merged by one ``dequant_mix`` launch) and merge in one kernel
 pass (``FlatServerState``), followed by the optional server-side
 optimizer (``core/server_opt.py``) in packed space.
 
 Cohorts (``cohort=``): each round samples that many alive workers from a
 seeded ``random.Random``; only cohort members get links, tickets or
 events.  Responses land at arrival in a claimed row of the merge's row
-window (a quantised one decoded there by one ``dequant_add``), the merge
+window (a quantised one decoded there by one ``dequant_add``, or in a
+delta merge by its ``dequant_mix`` before it lands), the merge
 contracts the window, and resident links are LRU-bounded.
 
 Leaf role: under a ``core/topology.Topology`` (``topology_hook``) the
@@ -383,16 +385,18 @@ class AggregationServer:
             return
         # decode straight to a packed flat vector (compressed codecs: base
         # + dequantised delta in one fused pass); where the merge is its
-        # only reader (not a delta merge, no latest-response table), a
-        # quantised response stays encoded until the merge decodes all of
-        # its rows in one launch.  Under a cohort it lands in its claimed
-        # window row now, so it is decoded now.
-        if not self._window and (self.mode == "sync" or not (
-                self.async_delta or self.async_latest_table)):
+        # only reader (no latest-response table), a quantised response
+        # stays encoded until the merge decodes all of its rows in one
+        # launch, or, in a delta merge, until delta_vec decodes and merges
+        # it in one launch.  Under a cohort it lands in its claimed window
+        # row now, so outside a delta merge it is decoded now.
+        delta = self.async_delta and self.mode == "async"
+        if delta or (not self._window and (self.mode == "sync" or not (
+                self.async_delta or self.async_latest_table))):
             weights = link.up_vec_deferred(payload)
         else:
             weights = link.decode_up_vec(payload)
-        if self.async_delta and self.mode == "async":
+        if delta:
             # delta-accumulate in flat-vector space: cur + (new - base);
             # delta codecs already hold the packed base on the link
             # (Sharded on a sharded server, as the pack here is)

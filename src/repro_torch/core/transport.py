@@ -37,11 +37,15 @@ payload.
 Every top-k and int8 encode is one call of ``kernels/topk_quant.ef_encode``
 on the parts of ``x = (new - base) + residual``: the threshold's select,
 the scale, the kept count and the quantising sweep in one launch on the
-card.  Every quantised decode runs ``dequant_add``, or, where the merge
-is the decoded vector's only reader, waits encoded
-(``flatbuf.EncodedVec``) for ``dequant_add_rows`` to decode a whole merge
-at once.  ``int(kept)`` is the one host sync of a top-k encode: the wire
-bytes need it.
+card.  A quantised downlink encode also writes the model its receiver
+will hold, ``base + q * scale``, from the same launch (``ef_encode``'s
+``decoded`` output, the link's next ``tx_base``), so it needs no decode.
+A quantised response waits encoded (``flatbuf.EncodedVec``, its base
+pinned at arrival) where the merge is its only reader: for
+``dequant_add_rows`` to decode a whole merge at once, or for async_delta's
+delta merge, whose ``dequant_mix`` decodes and merges it in one launch.
+Every other quantised decode runs ``dequant_add`` (B4).  ``int(kept)`` is
+the one host sync of a top-k encode: the wire bytes need it.
 
 ``auto`` is a per-dispatch resolver (``core/autotune.py``), not a codec:
 at every encode the link picks the concrete row minimising ``expected
@@ -75,8 +79,8 @@ JAX package's links hold shard-local slices.  The codec runs on the
 pieces: ``ef_encode``'s sharded form selects the (global) threshold over
 the gathered sample and reduces the scale and the kept count across the
 shards' partials, each shard's sweep and each decode (``dequant_add``)
-runs on its own device, and the merge's decode lands each shard's pieces
-in that shard's rows.  The wire bytes are unchanged (``kept`` is the
+runs on its own device (a downlink's inside its encode), and the merge's
+decode lands each shard's pieces in that shard's rows.  The wire bytes are unchanged (``kept`` is the
 global count), and a sharded run equals the unsharded one bit for bit.
 The worker side gathers where it unpacks (``ParamBundle.unpack``).
 """
@@ -186,13 +190,20 @@ def _dequant(q, scale: torch.Tensor):
     return q.to(torch.float32) * scale
 
 
+def _decoded_kw(decoded) -> dict:
+    """``ef_encode``'s decoded output as a keyword, only where one is
+    given (an encode's keywords stay those of its plain version)."""
+    return {} if decoded is None else {"decoded": decoded}
+
+
 def _ef_encode_parts(a, b, c, *, n_params: int, frac: float,
-                     quantize: bool):
+                     quantize: bool, decoded=None):
     """EF top-k(+int8) encode of ``x = (a - b) + c``: ``(data, residual,
-    wire_bytes)``, ``data`` being (q, scale) or the sparsified vector."""
+    wire_bytes)``, ``data`` being (q, scale) or the sparsified vector;
+    ``decoded`` (quantise only) receives ``b + q * scale``."""
     out, resid, _, scale, kept = topk_quant.ef_encode(
         a, b, c, k=topk_k(n_params, frac), n_params=n_params,
-        quantize=quantize)
+        quantize=quantize, **_decoded_kw(decoded))
     kept = int(kept)
     if quantize:
         return (out, scale), resid, bitmap_bytes(n_params) + 4 + kept
@@ -524,13 +535,15 @@ class Link:
 
     # --- shared flat-delta codec stages ---
     def _codec_encode(self, new: Vec, base: Vec, residual,
-                      spec: CodecSpec, frac: Optional[float] = None
-                      ) -> Tuple[Payload, object]:
+                      spec: CodecSpec, frac: Optional[float] = None,
+                      decoded=None) -> Tuple[Payload, object]:
         """Encode the packed flat delta ``(new - base) + residual``
         through ``spec`` at sparsity ``frac`` (the transport's when None);
         returns ``(payload, new_residual)``.  A carried residual folds in
         for every delta codec; for a non-EF spec that happens only at an
-        auto codec seam, and the caller then clears the residual."""
+        auto codec seam, and the caller then clears the residual.  A
+        quantised spec writes ``base + recon`` into ``decoded`` where it is
+        given (``ef_encode``'s decoded output)."""
         t = self.t
         n = t.bundle.n_params
         if frac is None:
@@ -538,12 +551,13 @@ class Link:
         if spec.topk:
             data, resid, wire = _ef_encode_parts(
                 new, base, residual, n_params=n, frac=frac,
-                quantize=spec.quantize)
+                quantize=spec.quantize, decoded=decoded)
             return Payload(spec.name, wire, data), \
                 (resid if spec.ef else residual)
         if spec.quantize:                        # int8: whole delta
             q, _, _, scale, _ = topk_quant.ef_encode(
-                new, base, residual, k=None, n_params=n, quantize=True)
+                new, base, residual, k=None, n_params=n, quantize=True,
+                **_decoded_kw(decoded))
             return Payload(spec.name, n + 4, (q, scale)), residual
         x = new - base
         if residual is not None:
@@ -591,10 +605,17 @@ class Link:
         # EF codecs still emit the residual OUTPUT (the worker's deficit)
         base = self.acked_base
         entry = self._ack.push()             # joins the revert chain
-        payload, new_res = self._codec_encode(vec, base, None, sd, frac)
+        # the worker-visible model after this fetch, the uplink base: a
+        # quantised encode writes it from its own launch
+        dec = None
+        if sd.quantize:
+            dec = base.empty_like() if isinstance(base, psh.Sharded) \
+                else torch.empty_like(base)
+        payload, new_res = self._codec_encode(vec, base, None, sd, frac,
+                                              decoded=dec)
         self._ack.down_residual = entry[1] = new_res
-        # the worker-visible model after this fetch: the uplink base
-        self.tx_base = self._codec_apply(payload.data, sd, base)
+        self.tx_base = dec if sd.quantize else \
+            self._codec_apply(payload.data, sd, base)
         # pin the encode-time base: a peer may advance a shared ack first
         self._pending_down = (payload, entry, base)
         return payload

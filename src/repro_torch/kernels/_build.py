@@ -36,6 +36,8 @@ SIGNATURES = {
     # piece, and n, the number of pieces; then w; W, N; stream
     "fedavg_agg_launch": (_P, _C, _P, _I64, _I64, _P),
     "fedavg_mix_launch": (_P, _C, _P, _I64, _I64, _P),
+    # ops (q, base, server, out a piece), n; scale; w; N; stream
+    "fedavg_dequant_mix_launch": (_P, _C, _P, _P, _I64, _P),
     # ops, n; w; adam; 4 scalars; W, N; stream
     "fedavg_merge_opt_launch": (_P, _C, _P, _C) + (_F,) * 4
     + (_I64, _I64, _P),
@@ -45,15 +47,16 @@ SIGNATURES = {
     # ctas, dynamic shared memory, int* clusters
     "ef_cluster_max_active": (_C, _I64, _P),
     # a, b, c; N, stride, m, k; sweep, quantize; part, n_part; q, recon,
-    # r, thresh, scale, kept; ctas; stream
+    # r, dec, thresh, scale, kept; ctas; stream
     "ef_encode_cluster_launch": (_P,) * 3 + (_I64,) * 4 + (_C, _C)
-    + (_P, _I64) + (_P,) * 6 + (_C, _P),
+    + (_P, _I64) + (_P,) * 7 + (_C, _P),
     # the grid and sharded forms' passes: a, b, c; N, off, stride, m;
     # sample, x, part_max, part_kept, zero; blocks; stream
     "ef_encode_pass1_launch": (_P,) * 3 + (_I64,) * 4 + (_P,) * 5
     + (_C, _P),
-    # x; N; ts; quantize; q, recon, r, part_kept, kept; blocks; stream
-    "ef_encode_pass2_launch": (_P, _I64, _P, _C) + (_P,) * 5 + (_C, _P),
+    # x; N; ts; quantize; q, recon, r, base, dec, part_kept, kept; blocks;
+    # stream
+    "ef_encode_pass2_launch": (_P, _I64, _P, _C) + (_P,) * 7 + (_C, _P),
     # part_max, n_max, part_kept, n_kept; thresh, scale, kept; stream
     "ef_encode_reduce_launch": (_P, _I64, _P, _I64) + (_P,) * 3 + (_P,),
     # host arrays of q, scale and base pointers (q and base a decode's

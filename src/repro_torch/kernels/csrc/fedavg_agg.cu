@@ -8,7 +8,10 @@
 // and, fused behind either, server_opt_step_flat (_opt_mom_kernel,
 // _opt_adam_kernel) -> fedavg_merge_opt_launch: merged = one of the two
 // sums, then d = merged - prev and the momentum or adam step, writing new,
-// m' and v'.  merged never goes to memory.  The shard_map wrappers of the
+// m' and v'.  merged never goes to memory.  In front of the mix,
+// topk_quant.py's dequant_add (_decode_kernel) -> fedavg_dequant_mix_launch:
+// async_delta's delta merge of an int8 response, its decode and the W = 2
+// mix in one pass (see dequant_mix below).  The shard_map wrappers of the
 // same file (fedavg_mix_flat_sharded, fedavg_agg_flat_sharded,
 // server_opt_step_flat_sharded: B7) are these entries over pieces.
 //
@@ -181,6 +184,48 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the delta merge of a quantised response ------------------------------
+//
+// async_delta's merge of an int8 response (q, scale) encoded against base:
+// new = base + q * scale (B4's decode), then B1 over the rows (new, base)
+// at W = 2 with w = [w0, w1, w2] (the delta merge's [1, 1, -1]): acc = 0 +
+// w1 * new, acc = acc + w2 * base, out = acc + w0 * server, each rounded
+// as merge<kScaled> rounds it.  One launch where the chain made three (B4,
+// torch.stack of (new, base), B1), each at the ~6 us launch floor at the
+// MLP's width; base is read once, new never goes to memory: 13 bytes an
+// element (q, base, server in; out) where the chain moved 33.  A piece's
+// operands in the table: q, base, server, out (out may be server).
+enum DqOperand { kDqQ, kDqBase, kDqServer, kDqOut, kDqOperands };
+
+constexpr int kDqThreads = 128;
+
+__device__ __forceinline__ float dq(float b, int8_t q, float s) {
+  return __fadd_rn(b, __fmul_rn((float)q, s));
+}
+
+__device__ __forceinline__ float4 dq(float4 b, char4 q, float s) {
+  return make_float4(dq(b.x, q.x, s), dq(b.y, q.y, s), dq(b.z, q.z, s),
+                     dq(b.w, q.w, s));
+}
+
+// V float4 with Q char4 (16-byte access), or float with int8_t; piece
+// blockIdx.y of the table g; n elements of V a piece
+template <class V, class Q, class T>
+__global__ void __launch_bounds__(kDqThreads)
+    dequant_mix(const __grid_constant__ T g, const float* __restrict__ scale,
+                const float* __restrict__ w, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Q qv = __ldcs(&operand<const Q>(g, kDqQ)[i]);
+  const V bv = __ldcs(&operand<const V>(g, kDqBase)[i]);
+  const V sv = __ldcs(&operand<const V>(g, kDqServer)[i]);
+  const V nv = dq(bv, qv, __ldg(scale));
+  V acc = madd(zero<V>(), __ldg(&w[1]), nv);
+  acc = madd(acc, __ldg(&w[2]), bv);
+  // every input of the element is read: out may be server
+  operand<V>(g, kDqOut)[i] = madd(acc, __ldg(&w[0]), sv);
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
@@ -231,6 +276,33 @@ extern "C" int fedavg_mix_launch(const void* const* ops, int n,
                                  const float* w, long long W, long long N,
                                  cudaStream_t stream) {
   return launch<ServerTerm::kScaled>(ops, n, w, NoOpt{}, W, N, stream);
+}
+
+// async_delta's merge of a quantised response, one launch for n pieces:
+// ops, a host array of n * 4 card pointers, piece by piece (q (N,) int8,
+// base, server, out (N,) f32; out may equal server); scale: 0-d f32; w:
+// (3,) f32, [server weight, new weight, base weight].
+extern "C" int fedavg_dequant_mix_launch(const void* const* ops, int n,
+                                         const float* scale, const float* w,
+                                         long long N, cudaStream_t stream) {
+  if (N <= 0 || n <= 0) return n < 0 ? (int)cudaErrorInvalidValue : 0;
+  bool vec = N % 4 == 0;
+  for (long long k = 0; k < (long long)n * kDqOperands; ++k)
+    vec = vec && (k % kDqOperands == kDqQ
+                      ? (reinterpret_cast<unsigned long long>(ops[k]) & 3) == 0
+                      : aligned16(ops[k]));
+  const long long len = vec ? N / 4 : N;
+  const unsigned gx = (unsigned)((len + kDqThreads - 1) / kDqThreads);
+  return pieces::each<kDqOperands>(ops, n, [&](const auto& t, int count) {
+    using T = std::decay_t<decltype(t)>;
+    const dim3 grid(gx, count);
+    if (vec)
+      dequant_mix<float4, char4, T><<<grid, kDqThreads, 0, stream>>>(
+          t, scale, w, len);
+    else
+      dequant_mix<float, int8_t, T><<<grid, kDqThreads, 0, stream>>>(
+          t, scale, w, len);
+  });
 }
 
 // The merge and the optimizer step in one pass.  server null in every

@@ -17,7 +17,14 @@
 //       thread-block cluster's shared memory;
 //   dequant_add_rows_launch: one merge's W decodes base_i + q_i * scale_i
 //       straight into rows 0..W-1 of the server's row buffer, with the
-//       stale rows after them zeroed, in one launch.
+//       stale rows after them zeroed, in one launch;
+//   the encode's decoded output (dec, quantise only): the cluster sweep
+//       and pass 2 also write b + q * scale, B4's decode of what they just
+//       quantised against b, re-reading b (8 bytes more an element), so a
+//       quantised downlink's encode needs no B4 launch after it.  B4's
+//       other path, async_delta's decode before its delta merge, is folded
+//       into the merge instead (fedavg_agg.cu, dequant_mix); dequant_add
+//       stays for the decodes with no such neighbour.
 // Both decodes take pieces (a sharded server's vectors and row buffer,
 // N/D elements a piece): every piece a device holds in one launch, the
 // piece in blockIdx.y (dequant_add) or blockIdx.z (the rows), its pointers
@@ -88,7 +95,8 @@
 // unsharded encode's.
 //
 // Numerics: the explicit _rn intrinsics keep nvcc from contracting
-// x - q * scale (or base + q * scale) into an FMA, and x / scale is the
+// x - q * scale (or base + q * scale, in every decode: dequant) into an
+// FMA, and x / scale is the
 // correctly rounded division; rintf rounds half to even like jnp.round and
 // torch.round.  The fused encode rounds as the plain chain does on the
 // card: the scale is max(max|x|, 1e-12) times 1/127 rounded to f32, which
@@ -176,6 +184,8 @@ struct EncodeArgs {
   int8_t* q;
   float* recon;
   float* r;
+  float* dec;          // quantize with sweep: b + q * scale as B4 decodes
+                       // it (b re-read), or null
   float* thresh;       // 0-d outputs
   float* scale;
   int* kept;
@@ -259,6 +269,18 @@ __device__ __forceinline__ float mask(float v, float t, float* r) {
   const float rec = fabsf(v) >= t ? v : 0.f;
   *r = __fsub_rn(v, rec);
   return rec;
+}
+
+// B4's decode of one element, b + q * scale: no FMA (decode_kernel's
+// arithmetic, so a fused decode equals the chain that runs B4 after the
+// encode bit for bit)
+__device__ __forceinline__ float dequant(float b, int8_t q, float s) {
+  return __fadd_rn(b, __fmul_rn((float)q, s));
+}
+
+__device__ __forceinline__ float4 dequant4(float4 b, char4 q, float s) {
+  return make_float4(dequant(b.x, q.x, s), dequant(b.y, q.y, s),
+                     dequant(b.z, q.z, s), dequant(b.w, q.w, s));
 }
 
 struct MaxOp {
@@ -460,6 +482,13 @@ __global__ void __launch_bounds__(kSelThreads, 1)
       qq.z = quant(v.z, t, s, &rr.z);
       qq.w = quant(v.w, t, s, &rr.w);
       reinterpret_cast<char4*>(p.q)[j4] = qq;
+      if (p.dec) {
+        const long long j = j4 << 2;
+        const float4 bb = p.vec ? reinterpret_cast<const float4*>(p.b)[j4]
+                                : make_float4(p.b[j], p.b[j + 1], p.b[j + 2],
+                                              p.b[j + 3]);
+        reinterpret_cast<float4*>(p.dec)[j4] = dequant4(bb, qq, s);
+      }
     } else {
       float4 rec;
       rec.x = mask(v.x, t, &rr.x);
@@ -474,10 +503,13 @@ __global__ void __launch_bounds__(kSelThreads, 1)
     const float v = xs[i];
     cnt += fabsf(v) >= t;
     float rr;
-    if (p.quantize)
-      p.q[lo + i] = quant(v, t, s, &rr);
-    else
+    if (p.quantize) {
+      const int8_t qi = quant(v, t, s, &rr);
+      p.q[lo + i] = qi;
+      if (p.dec) p.dec[lo + i] = dequant(p.b[lo + i], qi, s);
+    } else {
       p.recon[lo + i] = mask(v, t, &rr);
+    }
     p.r[lo + i] = rr;
   }
   cnt = block_reduce(cnt, red, AddOp());
@@ -610,9 +642,12 @@ struct Pass2Args {
   int8_t* q;
   float* recon;
   float* r;
+  const float* base;   // quantize: dec = base + q * scale as B4 decodes it,
+  float* dec;          // or both null
   unsigned* part_kept; // per block count of |x| >= thresh, or null
   int* kept;           // the count added here (zeroed by pass 1), or null
-  int vec;             // x, q, recon and r aligned for 16-byte access
+  int vec;             // x, q, recon, r, base and dec aligned for 16-byte
+                       // access
 };
 
 // Pass 2: x read once more (4 bytes an element, four 16-byte loads a thread
@@ -653,6 +688,10 @@ __global__ void __launch_bounds__(kPassThreads, 4)
           qq.z = quant(v[u].z, t, s, &rr.z);
           qq.w = quant(v[u].w, t, s, &rr.w);
           __stcs(reinterpret_cast<char4*>(p.q) + i4, qq);
+          if (p.dec)
+            __stcs(reinterpret_cast<float4*>(p.dec) + i4,
+                   dequant4(__ldcs(reinterpret_cast<const float4*>(p.base)
+                                   + i4), qq, s));
         } else {
           float4 rec;
           rec.x = mask(v[u].x, t, &rr.x);
@@ -670,10 +709,13 @@ __global__ void __launch_bounds__(kPassThreads, 4)
     const float v = p.x[j];
     cnt += fabsf(v) >= t;
     float rr;
-    if (p.quantize)
-      p.q[j] = quant(v, t, s, &rr);
-    else
+    if (p.quantize) {
+      const int8_t qi = quant(v, t, s, &rr);
+      p.q[j] = qi;
+      if (p.dec) p.dec[j] = dequant(p.base[j], qi, s);
+    } else {
       p.recon[j] = mask(v, t, &rr);
+    }
     p.r[j] = rr;
   }
   if (p.part_kept || p.kept) {
@@ -839,25 +881,27 @@ extern "C" int ef_cluster_max_active(int ctas, long long smem,
 
 // The cluster form: x = (a - b) + c over N elements (b, c may be null),
 // the select over x[::stride]'s m elements at rank k (0: threshold 0), and
-// with sweep (stride 1) q or recon, r, scale and kept; thresh always.
-// Without sweep, part (n_part max keys: pass 1's partials) reduced into
-// the scale where given.  All pointers on the card; q/recon, r (N,) and
-// thresh, scale, kept 0-d.
+// with sweep (stride 1) q or recon, r, scale and kept, and with dec (sweep,
+// quantize and b given; 16-byte aligned) the decoded b + q * scale; thresh
+// always.  Without sweep, part (n_part max keys: pass 1's partials)
+// reduced into the scale where given.  All pointers on the card;
+// q/recon, r, dec (N,) and thresh, scale, kept 0-d.
 extern "C" int ef_encode_cluster_launch(
     const float* a, const float* b, const float* c, long long N,
     long long stride, long long m, long long k, int sweep, int quantize,
     const unsigned* part, long long n_part, int8_t* q, float* recon,
-    float* r, float* thresh, float* scale, int* kept, int ctas,
+    float* r, float* dec, float* thresh, float* scale, int* kept, int ctas,
     cudaStream_t stream) {
   const long long smem = ef_cluster_smem(m, ctas);
   if (N <= 0 || m <= 0 || ctas < 1 || ctas > kMaxCtas || k > m || k < 0 ||
       (sweep && (stride != 1 || part)) || (part && n_part < 1) ||
-      smem > kMaxSmem)
+      smem > kMaxSmem ||
+      (dec && (!sweep || !quantize || !b || !aligned16(dec))))
     return (int)cudaErrorInvalidValue;
   const int vec = stride == 1 && aligned16(a) && aligned16(b) &&
                   aligned16(c);
   const EncodeArgs p{a, b, c, N, stride, m, k,
-                     smem / 4, sweep, quantize, vec, q, recon, r,
+                     smem / 4, sweep, quantize, vec, q, recon, r, dec,
                      thresh, scale, kept};
   cudaError_t e = opt_in();
   if (e != cudaSuccess) return (int)e;
@@ -897,17 +941,21 @@ extern "C" int ef_encode_pass1_launch(
 
 // ef_encode_pass2_launch: q (int8) or recon and r (N,) from x (N,), which
 // may be r itself, at the threshold ts[0] and (quantize) the scale ts[1];
+// with quantize, dec = base + q * scale where both are given (N,);
 // per-block counts of |x| >= ts[0] into part_kept (blocks, or null) or
 // added to *kept (or null).
 extern "C" int ef_encode_pass2_launch(
     const float* x, long long N, const float* ts, int quantize, int8_t* q,
-    float* recon, float* r, unsigned* part_kept, int* kept, int blocks,
-    cudaStream_t stream) {
-  if (N <= 0 || blocks < 1 || !ts || !r || (quantize ? !q : !recon))
+    float* recon, float* r, const float* base, float* dec,
+    unsigned* part_kept, int* kept, int blocks, cudaStream_t stream) {
+  if (N <= 0 || blocks < 1 || !ts || !r || (quantize ? !q : !recon) ||
+      (!base != !dec) || (dec && !quantize))
     return (int)cudaErrorInvalidValue;
   const int vec = aligned16(x) && aligned16(r) && aligned16(recon) &&
+                  aligned16(base) && aligned16(dec) &&
                   (reinterpret_cast<uintptr_t>(q) & 3) == 0;
-  const Pass2Args p{x, N, ts, quantize, q, recon, r, part_kept, kept, vec};
+  const Pass2Args p{x, N, ts, quantize, q, recon, r, base, dec, part_kept,
+                    kept, vec};
   ef_pass2<<<blocks, kPassThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }

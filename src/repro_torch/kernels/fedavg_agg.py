@@ -7,14 +7,16 @@ server's scale as ``wvec[0]`` (the form the merge paths call, with an
 in-place ``out``) and ``fedavg_delta_flat`` the mix with ``s = 1``.
 ``merge_opt_flat`` is either merge with the server optimizer's step
 (``server_opt_step_flat``, re-exported here as in the JAX package) in the
-same launch.  On a CUDA tensor they launch ``csrc/fedavg_agg.cu``; on a
+same launch, and ``dequant_mix`` the mix over the rows ``(base + q *
+scale, base)`` with B4's decode of the first in the same launch (the delta
+merge of a quantised response: ``server + (new - base)``).  On a CUDA tensor they launch ``csrc/fedavg_agg.cu``; on a
 CPU tensor they run the plain versions in ``ref.py``.  See the CUDA source
 for the design and its bound.
 
 Each has a form over *pieces* (``fedavg_agg_pieces``, ``fedavg_mix_pieces``,
-``merge_opt_pieces``): equal-width operands on one device, merged by one
-launch (one every ``GROUP_PIECES``); the unsharded wrappers are its one-piece
-case.
+``merge_opt_pieces``, ``dequant_mix_pieces``): equal-width operands on one
+device, merged by one launch (one every ``GROUP_PIECES``); the unsharded
+wrappers are its one-piece case.
 
 Sharded variants (``*_sharded``, the JAX package's ``shard_map``
 wrappers): the same kernels over a 1-D aggregation mesh
@@ -45,7 +47,8 @@ from .server_opt import server_opt_step_flat, server_opt_step_pieces
 
 # kernel launches by wrapper (merge_opt_flat by optimizer form), and the
 # pieces those launches covered: a run shows it went through the kernels
-LAUNCHES = {"agg": 0, "mix": 0, "merge_mom": 0, "merge_adam": 0}
+LAUNCHES = {"agg": 0, "mix": 0, "merge_mom": 0, "merge_adam": 0,
+            "dequant_mix": 0}
 PIECES = dict(LAUNCHES)
 
 Pieces = Sequence[torch.Tensor]
@@ -178,6 +181,54 @@ def fedavg_delta_flat(server: torch.Tensor, deltas: torch.Tensor,
     wvec = torch.cat([torch.ones(1, dtype=torch.float32,
                                  device=weights.device), weights.float()])
     return fedavg_mix_wvec(deltas, wvec, server, out=out)
+
+
+def dequant_mix_pieces(qs: Pieces, scale: torch.Tensor, bases: Pieces,
+                       wvec: torch.Tensor, servers: Pieces,
+                       outs: Optional[Sequence] = None
+                       ) -> List[torch.Tensor]:
+    """``wvec[0] * s + (wvec[1] * (b + q * scale) + wvec[2] * b)`` for
+    each piece triple (q (N,) int8 of ``qs``, b (N,) f32 of ``bases``, s
+    (N,) f32 of ``servers``), all on one device with the 0-d ``scale`` and
+    ``wvec`` (3,): B4's decode and B1 over the rows ``(b + q * scale, b)``
+    in one launch for all the pieces, each rounded as the chain rounds it.
+    ``outs`` None or one entry a piece, that piece's server itself (in
+    place) or None (a new vector).  On the CPU
+    ``ref.reference_dequant_mix``, copied into the ``out`` given."""
+    outs = _none(outs, len(qs))
+    if not use_kernel(*qs, scale, *bases, wvec, *servers):
+        res = [ref.reference_dequant_mix(q, scale, b, s, wvec)
+               for q, b, s in zip(qs, bases, servers)]
+        return [x if o is None else o.copy_(x) for x, o in zip(res, outs)]
+    from ._build import lib
+    N = bases[0].numel()
+    check_cuda_tensor(scale, "scale", torch.float32, 1)
+    check_cuda_tensor(wvec, "wvec", torch.float32, 3)
+    for i, (q, b, s, o) in enumerate(zip(qs, bases, servers, outs)):
+        check_cuda_tensor(q, "q", torch.int8, N)
+        check_cuda_tensor(b, "base", torch.float32, N)
+        check_cuda_tensor(s, "server", torch.float32, N)
+        if o is None:
+            outs[i] = torch.empty(N, dtype=torch.float32, device=s.device)
+        elif o is not s:
+            outs[i] = output_tensor(o, s, "out", (q, b))
+    status = lib().fedavg_dequant_mix_launch(
+        pointer_table(qs, bases, servers, outs), len(qs), scale.data_ptr(),
+        wvec.data_ptr(), N, _stream(bases[0]))
+    check_status(status, "dequant_mix")
+    _count("dequant_mix", len(qs))
+    return outs
+
+
+def dequant_mix(q: torch.Tensor, scale: torch.Tensor, base: torch.Tensor,
+                wvec: torch.Tensor, server: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The delta merge of a quantised response in one pass:
+    ``fedavg_mix_wvec(stack([dequant_add(q, scale, base), base]), wvec,
+    server, out)`` with nothing between the two in memory.  q (N,) int8,
+    scale 0-d f32, base and server (N,) f32, wvec (3,) f32; ``out`` may
+    be ``server`` (the in-place merge) or None."""
+    return dequant_mix_pieces([q], scale, [base], wvec, [server], [out])[0]
 
 
 def _opt_scalars(scalars, adam: bool) -> np.ndarray:
@@ -344,6 +395,21 @@ def fedavg_mix_wvec_sharded(stacked, wvec: torch.Tensor, server, *, mesh,
         lambda r, s, w, o: fedavg_mix_pieces(r, w, s, outs=o),
         mesh, split=(stacked, server), copy=(wvec,), outs=(out,),
         gather=gather)
+
+
+def dequant_mix_sharded(q, scale: torch.Tensor, base, wvec: torch.Tensor,
+                        server, *, mesh, axis: str = psh.AGG_AXIS,
+                        out=None):
+    """``dequant_mix`` over the mesh, one launch a device over the pieces
+    it holds: ``q``, ``base`` and ``server`` (N,) are ``Sharded`` (or
+    whole, then split); ``scale`` and ``wvec`` are copied to each device.
+    ``out`` may be ``server`` (a ``Sharded``: the in-place merge) or None.
+    Returns the ``Sharded`` result."""
+    _check_shardable(base.shape[-1], mesh, axis)
+    return _per_device(
+        lambda q_, b, s, sc, w, o: dequant_mix_pieces(q_, sc, b, w, s,
+                                                      outs=o),
+        mesh, split=(q, base, server), copy=(scale, wvec), outs=(out,))
 
 
 def fedavg_mix_flat_sharded(stacked, weights, server, server_scale, *,

@@ -80,6 +80,19 @@ def reference_dequant_add(q: torch.Tensor, scale, base: torch.Tensor
     return base.float() + q.float() * scale
 
 
+def reference_dequant_mix(q: torch.Tensor, scale, base: torch.Tensor,
+                          server: torch.Tensor, wvec: torch.Tensor
+                          ) -> torch.Tensor:
+    """async_delta's merge of a quantised response, as the chain computes
+    it: ``new = reference_dequant_add(q, scale, base)``, then
+    ``reference_fedavg_mix`` over the rows ``(new, base)`` with weights
+    ``wvec[1:]`` and the server's ``wvec[0]`` (the delta merge's ``[1, 1,
+    -1]``: ``server + (new - base)``)."""
+    new = reference_dequant_add(q, scale, base)
+    return reference_fedavg_mix(torch.stack([new, base.float()]), wvec[1:],
+                                server, wvec[0])
+
+
 def reference_dequant_add_rows(qs, scales, bases, rows: torch.Tensor
                                ) -> torch.Tensor:
     """``rows[i] = bases[i] + qs[i] * scales[i]`` for each of the n
@@ -154,6 +167,19 @@ def reference_ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return q, r, thresh, scale, kept
     recon = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
     return recon, x - recon, thresh, None, kept
+
+
+def reference_ef_encode_decoded(a: torch.Tensor, b: torch.Tensor,
+                                c: Optional[torch.Tensor] = None, *,
+                                k: Optional[int], n_params: int):
+    """A quantised encode and its decode against ``b`` as the chain runs
+    them: ``reference_ef_encode(a, b, c, quantize=True)``, then
+    ``reference_dequant_add(q, scale, b)``, the vector the receiver
+    reconstructs (the downlink's ``tx_base``).  Returns ``(q, residual,
+    thresh, scale, kept, decoded)``."""
+    q, r, thresh, scale, kept = reference_ef_encode(
+        a, b, c, k=k, n_params=n_params, quantize=True)
+    return q, r, thresh, scale, kept, reference_dequant_add(q, scale, b)
 
 
 def shard_samples(size: int, n_shards: int, stride: int):

@@ -8,7 +8,12 @@ error-feedback top-k(+int8) encode (the threshold's select, the scale,
 the kept count and the quantising sweep) in one thread-block cluster
 launch, ``topk_threshold`` that launch's select alone, and
 ``dequant_add_rows`` decodes all of a merge's updates into the server's
-row buffer in one launch.  On a CUDA tensor each launches
+row buffer in one launch.  B4 itself (``dequant_add``) is off the paths
+where a launch beside it already holds its inputs: ``ef_encode``'s
+``decoded`` output writes ``b + q * scale`` from the encode's last pass
+(a quantised downlink hands its receiver's model over with no decode
+launch), and async_delta's decode rides in its delta merge
+(``fedavg_agg.dequant_mix``).  On a CUDA tensor each launches
 ``csrc/topk_quant.cu``; on a CPU tensor each runs its plain version in
 ``ref.py``.  See the CUDA source for the design and its bound.
 
@@ -37,10 +42,12 @@ from .ref import SAMPLE_CAP, THRESH_FLOOR, sample_plan  # noqa: F401
 # kernel launches by wrapper: a run shows it went through the kernels
 # (ef_encode: every launch of an unsharded encode, 1 or 3; ef_encode_sharded:
 # every launch of the sharded encode, each shard's two passes and the
-# select and kept sum on the home device; sample: the shards' pass 1
-# launches of a sharded topk_threshold)
+# select and kept sum on the home device; ef_encode_dec: every launch of an
+# encode that also writes the decoded vector, in any of those forms;
+# sample: the shards' pass 1 launches of a sharded topk_threshold)
 LAUNCHES = {"encode": 0, "decode": 0, "ef_encode": 0, "select": 0,
-            "decode_rows": 0, "ef_encode_sharded": 0, "sample": 0}
+            "decode_rows": 0, "ef_encode_sharded": 0, "sample": 0,
+            "ef_encode_dec": 0}
 # the pieces the decodes' launches covered (one a call unsharded; every
 # piece a device holds of a sharded vector or row buffer)
 PIECES = {"decode": 0, "decode_rows": 0}
@@ -169,12 +176,13 @@ def _on_kernel(shards) -> bool:
 
 
 def _select_cluster(a, b, c, n: int, stride: int, m: int, k: int, sweep,
-                    quantize, q, recon, r, stats, part=None) -> None:
+                    quantize, q, recon, r, stats, part=None,
+                    dec=None) -> None:
     from ._build import lib
     status = lib().ef_encode_cluster_launch(
         _ptr(a), _ptr(b), _ptr(c), n, stride, m, k, int(sweep),
         int(quantize), _ptr(part), 0 if part is None else part.numel(),
-        _ptr(q), _ptr(recon), _ptr(r), stats.data_ptr(),
+        _ptr(q), _ptr(recon), _ptr(r), _ptr(dec), stats.data_ptr(),
         stats.data_ptr() + 4, stats.data_ptr() + 8, CLUSTER_CTAS,
         torch.cuda.current_stream(a.device).cuda_stream)
     check_status(status, "ef_encode (cluster)")
@@ -289,19 +297,26 @@ def ef_reduce(stats: torch.Tensor, *, part_max=None, part_kept=None,
 
 def ef_pass2(x: torch.Tensor, ts: torch.Tensor, *, blocks: int,
              quantize: bool, out: torch.Tensor, r: torch.Tensor,
-             part_kept=None, kept=None) -> None:
+             part_kept=None, kept=None, base=None, dec=None) -> None:
     """Pass 2 of the grid form over one piece, one launch: from x (which
     may be ``r`` itself) at the threshold ``ts[0]`` and, with
     ``quantize``, the scale ``ts[1]``: q (int8) or the masked recon into
-    ``out``, the residual into ``r``, and the count of ``|x| >= ts[0]``
-    per block into ``part_kept`` or added to ``kept``'s kept word.  On
-    CPU tensors ``ref.reference_ef_pass2``."""
-    if not use_kernel(*(t for t in (x, ts, out, r, part_kept, kept)
-                        if t is not None)):
+    ``out``, the residual into ``r``, with ``quantize`` and ``dec`` the
+    decode ``base + q * ts[1]`` (B4's) into ``dec``, and the count of
+    ``|x| >= ts[0]`` per block into ``part_kept`` or added to ``kept``'s
+    kept word.  On CPU tensors ``ref.reference_ef_pass2`` (and
+    ``ref.reference_dequant_add``)."""
+    if (dec is None) != (base is None) or (dec is not None and
+                                           not quantize):
+        raise ValueError("a decoded output needs the base and quantize")
+    if not use_kernel(*(t for t in (x, ts, out, r, part_kept, kept, base,
+                                    dec) if t is not None)):
         o, rr, kd = ref.reference_ef_pass2(x, ts[0],
                                            ts[1] if quantize else None)
         out.copy_(o)
         r.copy_(rr)
+        if dec is not None:
+            dec.copy_(ref.reference_dequant_add(o, ts[1], base))
         _put(part_kept, kd)
         if kept is not None:
             kept_word(kept)[0] += kd
@@ -310,7 +325,7 @@ def ef_pass2(x: torch.Tensor, ts: torch.Tensor, *, blocks: int,
     q, recon = (out, None) if quantize else (None, out)
     status = lib().ef_encode_pass2_launch(
         x.data_ptr(), x.numel(), ts.data_ptr(), int(quantize), _ptr(q),
-        _ptr(recon), r.data_ptr(), _ptr(part_kept),
+        _ptr(recon), r.data_ptr(), _ptr(base), _ptr(dec), _ptr(part_kept),
         None if kept is None else kept.data_ptr() + 8, blocks,
         _stream(x.device))
     check_status(status, "ef_encode (pass 2)")
@@ -336,15 +351,17 @@ def _pass1_home(pieces, home: torch.device, dst, **kw) -> None:
                     t.copy_(u)
 
 
-def _ef_encode_grid(shards, home: torch.device, *, k, n_params, quantize):
+def _ef_encode_grid(shards, home: torch.device, *, k, n_params, quantize,
+                    decs=None):
     """The grid form of ``ef_encode`` over one vector or a sharded one,
     ``shards`` its (a, b, c) pieces in shard order (N/D each), each on its
     own device: a pass 1 a piece, the select (or, for the int8 codec, the
-    reduce) on ``home``, a pass 2 a piece, and for a sharded top-k encode
-    the kept partials summed on ``home`` (one vector: pass 2 adds them into
-    the counter pass 1 zeroed).  Each piece's sample share and partials go
-    straight into the home device's buffers where the piece lies there.
-    Returns ``(outs, residuals, stats, launches)``."""
+    reduce) on ``home``, a pass 2 a piece (with ``decs``, one output a
+    piece, also writing the decode ``b + q * scale``), and for a sharded
+    top-k encode the kept partials summed on ``home`` (one vector: pass 2
+    adds them into the counter pass 1 zeroed).  Each piece's sample share
+    and partials go straight into the home device's buffers where the
+    piece lies there.  Returns ``(outs, residuals, stats, launches)``."""
     D = len(shards)
     S = shards[0][0].numel()
     n = S * D
@@ -407,7 +424,9 @@ def _ef_encode_grid(shards, home: torch.device, *, k, n_params, quantize):
                 pk = pkept[sl] if dev == home else torch.empty(
                     G, dtype=torch.int32, device=dev)
             ef_pass2(x, ts, blocks=G, quantize=quantize, out=out, r=r,
-                     part_kept=pk, kept=stats if one else None)
+                     part_kept=pk, kept=stats if one else None,
+                     base=None if decs is None else shards[d][1],
+                     dec=None if decs is None else decs[d])
         if pk is not None and dev != home:
             with psh.device_guard(home):
                 pkept[sl].copy_(pk)
@@ -421,7 +440,7 @@ def _ef_encode_grid(shards, home: torch.device, *, k, n_params, quantize):
 
 def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
               c: Optional[torch.Tensor] = None, *, k: Optional[int],
-              n_params: int, quantize: bool):
+              n_params: int, quantize: bool, decoded=None):
     """The codec's error-feedback top-k(+int8) encode of ``x = (a - b) +
     c`` (a missing ``b`` or ``c`` skipped), all (N,) f32.  The threshold
     is the k-th largest |x| (exact up to ``SAMPLE_CAP`` parameters, from a
@@ -453,22 +472,38 @@ def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     counted under ``LAUNCHES["ef_encode_sharded"]``.  A mesh of one device
     takes the unsharded form on its one piece (its launches and counter).
     On CPU tensors every form runs the plain versions of its launches
-    (the one-launch form ``ref.reference_ef_encode``)."""
+    (the one-launch form ``ref.reference_ef_encode``).
+
+    ``decoded``, an (N,) f32 output (a ``Sharded`` one on a's mesh), with
+    ``quantize`` and ``b`` given: the same launches also write ``b + q *
+    scale`` there, bit for bit what ``dequant_add(q, scale, b)`` (B4)
+    returns, so a downlink's encode hands its receiver's model over
+    without a decode launch; the cluster form's sweep and the grid form's
+    pass 2 re-read b for it.  Such an encode counts its launches under
+    ``LAUNCHES["ef_encode_dec"]`` instead.  On CPU tensors the plain
+    encode, then ``ref.reference_dequant_add``."""
+    if decoded is not None and (not quantize or b is None):
+        raise ValueError("a decoded output needs quantize and b")
     if isinstance(a, psh.Sharded):
         return _ef_encode_sharded(a, b, c, k=k, n_params=n_params,
-                                  quantize=quantize)
-    parts = [t for t in (a, b, c) if t is not None]
+                                  quantize=quantize, decoded=decoded)
+    parts = [t for t in (a, b, c, decoded) if t is not None]
     on_card = use_kernel(*parts)
     n = a.numel()
     if on_card:
-        for t, name in zip((a, b, c), "abc"):
+        for t, name in zip((a, b, c, decoded), ("a", "b", "c", "decoded")):
             if t is not None:
                 check_cuda_tensor(t, name, torch.float32, n)
+        if decoded is not None and decoded.data_ptr() % 16:
+            raise ValueError("decoded must start on 16 bytes")
     stride, m, ks = (1, n, 0) if k is None else sample_plan(n, k, n_params)
     if stride == 1 and m <= CLUSTER_MAX:
         if not on_card:
-            return ref.reference_ef_encode(a, b, c, k=k, n_params=n_params,
-                                           quantize=quantize)
+            res = ref.reference_ef_encode(a, b, c, k=k, n_params=n_params,
+                                          quantize=quantize)
+            if decoded is not None:
+                decoded.copy_(ref.reference_dequant_add(res[0], res[3], b))
+            return res
         if k is not None and not 1 <= ks <= m:
             raise ValueError(f"k = {k} outside 1..{m}")
         dev = a.device
@@ -479,14 +514,15 @@ def ef_encode(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         stats = torch.empty(3, dtype=torch.float32, device=dev)
         q, recon = (out, None) if quantize else (None, out)
         _select_cluster(a, b, c, n, 1, m, ks, True, quantize, q, recon, r,
-                        stats)
+                        stats, dec=decoded)
         launches = 1
     else:
         (out,), (r,), stats, launches = _ef_encode_grid(
             [(a, b, c)], a.device, k=k, n_params=n_params,
-            quantize=quantize)
+            quantize=quantize, decs=None if decoded is None else [decoded])
     if on_card:
-        LAUNCHES["ef_encode"] += launches
+        LAUNCHES["ef_encode" if decoded is None else "ef_encode_dec"] += \
+            launches
     return (out, r, stats[0], stats[1] if quantize else None,
             kept_word(stats)[0])
 
@@ -531,21 +567,27 @@ def _sharded_select(shards, S: int, mesh, k: int, n_params: int) -> tuple:
     return stats[0], launches
 
 
-def _ef_encode_sharded(a, b, c, *, k, n_params, quantize):
+def _ef_encode_sharded(a, b, c, *, k, n_params, quantize, decoded=None):
     mesh = a.mesh
-    shards, _ = _shard_parts(a, b, c)
+    shards, S = _shard_parts(a, b, c)
+    decs = None if decoded is None else _pieces_like(decoded, a)
+    if decs is not None:
+        for t in decs:
+            check_cuda_tensor(t, "decoded", torch.float32, S)
     if len(shards) == 1:
         # nothing crosses devices: the unsharded encode on the one piece
-        out, r, thresh, scale, kept = ef_encode(*shards[0], k=k,
-                                                n_params=n_params,
-                                                quantize=quantize)
+        out, r, thresh, scale, kept = ef_encode(
+            *shards[0], k=k, n_params=n_params, quantize=quantize,
+            decoded=None if decs is None else decs[0])
         return (psh.Sharded([out], mesh), psh.Sharded([r], mesh), thresh,
                 scale, kept)
     on_card = _on_kernel(shards)
     outs, rs, stats, launches = _ef_encode_grid(
-        shards, mesh.home, k=k, n_params=n_params, quantize=quantize)
+        shards, mesh.home, k=k, n_params=n_params, quantize=quantize,
+        decs=decs)
     if on_card:
-        LAUNCHES["ef_encode_sharded"] += launches
+        LAUNCHES["ef_encode_sharded" if decs is None else
+                 "ef_encode_dec"] += launches
     return (psh.Sharded(outs, mesh), psh.Sharded(rs, mesh), stats[0],
             stats[1] if quantize else None, kept_word(stats)[0])
 

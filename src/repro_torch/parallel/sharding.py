@@ -186,6 +186,10 @@ class Sharded:
         return Sharded([torch.zeros_like(s) for s in self.shards],
                        self.mesh)
 
+    def empty_like(self) -> "Sharded":
+        return Sharded([torch.empty_like(s) for s in self.shards],
+                       self.mesh)
+
     def to_mesh(self) -> "Sharded":
         """Each piece on its own device (a restore moves every tensor of
         a snapshot to the home device first)."""

@@ -34,7 +34,12 @@ row buffer in one launch) bit for bit against their plain versions in
 every output at chip_smoke.py's draws at small sizes (NaN, +-inf and -0.0,
 ties, all zeros, k = 1 and k = n, the strided-sample and grid paths,
 misaligned views), with chip_smoke's controls failing, and a short run
-over top-k+int8 uplinks launching each as the FL path must.
+over top-k+int8 uplinks launching each as the FL path must.  B4 folded
+into its neighbours (``ef_encode``'s decoded output, ``dequant_mix``) bit
+for bit against the chain each replaces on the card (the encode then B4;
+B4, stack, B1) at odd, ragged and large widths, on a misaligned base, at
+2, 4 and 34 pieces, with chip_smoke's controls failing, and short runs
+through them equal in every field to the same runs through the chains.
 """
 import io
 import itertools
@@ -860,27 +865,222 @@ def test_cuda_dequant_add_rows_raises_on_misaligned_base(h100):
 def test_cuda_uplink_run_launches_fused_codec(h100, mode):
     """A short run over top-k+int8 uplinks: one ef_encode launch an encode
     and no B3; in sync one dequant_add_rows launch a merge, in async_delta
-    one B4 launch a merged response."""
+    one dequant_mix launch a merged response (its decode and delta merge),
+    and no B4 or B1."""
     from repro_torch.core import TABLE_4_1, make_setup, run_fl
     card = make_setup(TABLE_4_1["mnist_even"], seed=0, noise=0.25,
                       batch_size=32, het="strong", device=h100)
-    n0 = dict(topk_quant.LAUNCHES)
+    n0 = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
     with chip_smoke.counted_encodes() as encodes:
         h = run_fl(card, epochs_per_round=3, max_rounds=4,
                    transport="topk_ef+int8", transport_down="raw",
                    **({"mode": "sync"} if mode == "sync"
                       else {"mode": "async", "async_delta": True}))
-    got = {k: topk_quant.LAUNCHES[k] - n0[k] for k in n0}
+    now = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
+    got = {k: now[k] - n0[k] for k in n0}
     merges = sum(p.n_updates > 0 for p in h[1:])
     assert got["ef_encode"] == encodes[0] >= merges == 4
-    assert got["encode"] == got["select"] == 0
+    assert got["encode"] == got["select"] == got["decode"] == 0
+    assert got["ef_encode_dec"] == 0
     if mode == "sync":
         # every response of every round merged, each round one launch
         assert encodes[0] == sum(p.n_updates for p in h[1:])
-        assert got["decode_rows"] == merges and got["decode"] == 0
+        assert got["decode_rows"] == merges and got["dequant_mix"] == 0
     else:
-        # an async merge per arriving response, decoded as it arrives
-        assert got["decode_rows"] == 0 and got["decode"] == merges
+        # an async merge per arriving response, decoded in its merge
+        assert got["decode_rows"] == got["mix"] == 0
+        assert got["dequant_mix"] == merges
+
+
+# B4's redesign around its path: ef_encode's decoded output (a quantised
+# downlink) and dequant_mix (async_delta's delta merge), bit for bit
+# against the chain each replaces: (N, n_params), odd and ragged widths,
+# the MLP's, the scalar path's, past the exact threshold's cap, the grid
+# form at stride 4 and at B7's width
+DEC_ENC_CASES = [(1000, 1000), (1001, 1001), (101_888, 101_770),
+                 (101_890, 101_890), (131_584, 131_484), (524_288, 524_188),
+                 (16_777_216, 16_777_216)]
+
+
+def _moved(before):
+    now = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["topk_ef+int8", "int8"])
+@pytest.mark.parametrize("N,n_params", DEC_ENC_CASES)
+def test_cuda_ef_encode_decoded_equals_the_chain(h100, N, n_params, codec):
+    """Every output, the decoded vector too, equal to the encode then B4
+    on the card, under ef_encode_dec alone (1 launch, 3 in the grid
+    form)."""
+    g = torch.Generator(device=h100).manual_seed(N)
+    a, b, *_ = chip_smoke.dec_inputs(g, N)
+    kw = chip_smoke.dec_kw(N, n_params, codec)
+    want = chip_smoke.dec_chain("ef_encode_dec", (a, b), kw)
+    n0 = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
+    dec = torch.empty(N, device=h100)
+    got = (*topk_quant.ef_encode(a, b, **kw, decoded=dec), dec)
+    assert _moved(n0) == {
+        "ef_encode_dec": 3 if chip_smoke.dec_grid(N, kw) else 1}
+    torch.cuda.synchronize()
+    assert chip_smoke.dec_mismatch(got, want) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,n_params", [(29_184, 28_938),
+                                        (524_288, 524_188)])
+def test_cuda_ef_encode_decoded_reads_a_misaligned_base(h100, N, n_params):
+    """A base that does not start on 16 bytes: the cluster sweep's and
+    pass 2's scalar loads of it."""
+    g = torch.Generator(device=h100).manual_seed(1)
+    a = torch.randn(N, device=h100, generator=g)
+    b = torch.randn(N + 1, device=h100, generator=g)[1:]
+    kw = chip_smoke.dec_kw(N, n_params, "topk_ef+int8")
+    dec = torch.empty(N, device=h100)
+    got = (*topk_quant.ef_encode(a, b, **kw, decoded=dec), dec)
+    torch.cuda.synchronize()
+    assert chip_smoke.dec_mismatch(
+        got, chip_smoke.dec_chain("ef_encode_dec", (a, b), kw)) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 1000, 1001, 101_888, 101_890,
+                               16_777_216])
+@pytest.mark.parametrize("w", [chip_smoke.DEC_WVEC, (0.3, 0.5, -0.2)],
+                         ids=["delta", "weighted"])
+def test_cuda_dequant_mix_equals_the_chain(h100, N, w):
+    """dequant_mix fresh and in place (out = server, as the delta merge
+    calls it) equal to B4, stack and B1 on the card, one launch each."""
+    g = torch.Generator(device=h100).manual_seed(N)
+    _, _, q, scale, base, server = chip_smoke.dec_inputs(g, N)
+    wd = torch.tensor(w, dtype=torch.float32, device=h100)
+    want = chip_smoke.dec_chain("dequant_mix", (q, scale, base, server, wd))
+    n0 = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
+    fresh = fedavg_agg.dequant_mix(q, scale, base, wd, server)
+    srv = server.clone()
+    assert fedavg_agg.dequant_mix(q, scale, base, wd, srv, out=srv) is srv
+    assert _moved(n0) == {"dequant_mix": 2}
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(fresh, want)
+    assert chip_smoke.same_bits(srv, want)
+    assert chip_smoke.same_bits(
+        ref.reference_dequant_mix(q, scale, base, server, wd), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4, 34])
+def test_cuda_sharded_decode_forms_equal_the_chain(h100, D):
+    """Both forms on a mesh of D repeating the card, against the
+    unsharded chains: the encode's 2D + 2 launches, the merge one launch
+    over D pieces (two above the 32-piece table, at 34)."""
+    N = 4096 * D
+    rec = chip_smoke.check_shard_fused(h100, sizes=((N, N - 100, None),),
+                                       meshes=(D,), timed=False)
+    assert rec["ef_encode_dec"][0]["launches"] == 2 * D + 2
+    assert rec["dequant_mix"][0]["launches"] == (2 if D > 32 else 1)
+    assert rec["dequant_mix"][0]["pieces"] == D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [None, 2], ids=["unsharded", "mesh2"])
+def test_cuda_delta_vec_of_an_encoded_response_is_one_launch(h100, D,
+                                                             monkeypatch):
+    """``FlatServerState.delta_vec`` on an ``EncodedVec`` (async_delta's
+    quantised response): one ``dequant_mix`` launch (one a device), no B4,
+    no B1 and no ``torch.stack``, bit for bit the chain's result."""
+    from repro_torch.core import flatbuf
+    from repro_torch.parallel import sharding as psh
+    dev = torch.device("cuda", 0)
+    mesh = None if D is None else psh.agg_mesh(devices=(dev,) * D)
+    g = torch.Generator(device=dev).manual_seed(3)
+    template = {"w": torch.randn(256, 100, device=dev, generator=g)}
+    st = flatbuf.FlatServerState(template, mesh=mesh)
+    base = st.pack(template)
+    N = st.bundle.padded_size
+    q = torch.randint(-127, 128, (N,), device=dev, generator=g,
+                      dtype=torch.int8)
+    scale = 0.01 * torch.rand((), device=dev, generator=g)
+    enc = flatbuf.EncodedVec(q if mesh is None else psh.split(q, mesh),
+                             scale, base)
+    whole = base if mesh is None else base.gather()
+    want = chip_smoke.dec_chain("dequant_mix", (
+        q, scale, whole, st.bundle.pack(template),
+        torch.tensor(chip_smoke.DEC_WVEC, device=dev)))
+    stacks, real = [], torch.stack
+    monkeypatch.setattr(torch, "stack",
+                        lambda *a, **k: stacks.append(1) or real(*a, **k))
+    n0 = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
+    got = st.delta_vec(template, enc, base)
+    assert _moved(n0) == {"dequant_mix": 1} and stacks == []
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(got if mesh is None else got.gather(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_checks_catch_their_controls(h100):
+    """chip_smoke's phase 3 checks at small widths, each control (an
+    FMA-contracted decode; the delta merge with its rows swapped) caught."""
+    checks, controls = chip_smoke.check_decode_forms(
+        h100, chip_smoke.DEC_SIZES[:3])
+    assert all(not c["mismatch"] for c in checks)
+    assert len(controls) == 3 and all(controls.values())
+
+
+def _parent_route(monkeypatch):
+    """The parent's chains in place of the fused forms: a decoding
+    encode runs the encode then B4, and a quantised async_delta response
+    is decoded on arrival (B4) and merged through the stack and B1."""
+    from repro_torch.core import transport as ttr
+    real = topk_quant.ef_encode
+
+    def chain(a, b=None, c=None, *, decoded=None, **kw):
+        out = real(a, b, c, **kw)
+        if decoded is not None:
+            dq = topk_quant.dequant_add(out[0], out[3], b)
+            if isinstance(decoded, torch.Tensor):
+                decoded.copy_(dq)
+            else:
+                for d, s in zip(decoded.shards, dq.shards):
+                    d.copy_(s)
+        return out
+    monkeypatch.setattr(topk_quant, "ef_encode", chain)
+    monkeypatch.setattr(ttr.Link, "up_vec_deferred", ttr.Link.decode_up_vec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [None, 2], ids=["unsharded", "mesh2"])
+@pytest.mark.parametrize("run", ["symmetric/sync", "uplink_only/async_delta"])
+def test_cuda_fused_decode_runs_equal_the_chain(h100, run, mesh,
+                                                monkeypatch):
+    """A short run with the fused forms equals, in every field, the same
+    run through the parent's chains on the card; the fused run launches
+    no B4 (the symmetric run's downlink encodes under ef_encode_dec, the
+    async_delta merges under dequant_mix)."""
+    from repro_torch.core import TABLE_4_1, make_setup, run_fl
+    from repro_torch.parallel import sharding as psh
+    dev = torch.device("cuda", 0)
+    card = make_setup(TABLE_4_1["mnist_even"], seed=0, noise=0.25,
+                      batch_size=32, het="strong", device=dev)
+    kw = dict(epochs_per_round=2, max_rounds=4, transport="topk_ef+int8",
+              transport_frac=0.1,
+              server_mesh=None if mesh is None else psh.agg_mesh(
+                  devices=(dev,) * mesh))
+    kw.update({"mode": "sync"} if run == "symmetric/sync" else
+              {"mode": "async", "async_delta": True,
+               "transport_down": "raw"})
+    n0 = {**topk_quant.LAUNCHES, **fedavg_agg.LAUNCHES}
+    fused = run_fl(card, **kw)
+    got = _moved(n0)
+    assert got.get("decode", 0) == 0
+    if run == "symmetric/sync":
+        assert got["ef_encode_dec"] > 0
+    else:
+        assert got["dequant_mix"] == sum(p.n_updates > 0 for p in fused[1:])
+    _parent_route(monkeypatch)
+    chain = run_fl(card, **kw)
+    assert [vars(p) for p in fused] == [vars(p) for p in chain]
 
 
 def _fleet_pair(key, h100, rounds):

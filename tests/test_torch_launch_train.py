@@ -24,13 +24,12 @@ step; the port's resumed steps equal a same-process continuation from
 the checkpoint bit for bit, and differ from the uninterrupted run as
 JAX's do.
 
-``chip_smoke.py``'s phase 15 is rehearsed at REDUCED size: the trainer
-killed after its first checkpoint and resumed in a fresh process, held
-against a continuation in this process; every abstract cell; the depth
-rule of the fl run.
+``chip_smoke.py``'s phase 15 is rehearsed in ``test_torch_launch_phase.py``.
+torch runs on one thread here: beside other test processes its thread
+pool spins (the port's fl run took 8.1 s on eight threads, 1.3 s on
+one).
 """
 import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,19 +43,23 @@ from repro.launch import train as jtrain
 from repro_torch import optim
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import synthetic_token_batches
-from repro_torch.kernels import ref
 from repro_torch.launch import train
 from repro_torch.models import params_from_numpy, train_step
 from repro_torch.tree import leaves
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402
 
 FIRST_TOL = 1e-3
 LOSS_TOL = 5e-4
 PARAM_TOL = 0.025
 NEAR = 1e-3
 SHARE_TOL = 0.05
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def run_jax(monkeypatch, argv):
@@ -256,104 +259,3 @@ def test_trainer_needs_the_card_or_the_cpu_asked_for():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             train.main(["--steps", "1"])
-
-
-def test_chip_smoke_launch_phase_rehearsed_on_cpu(monkeypatch, tmp_path):
-    cpu = torch.device("cpu")
-    monkeypatch.setattr(chip_smoke, "LAUNCH_SIZE", ())
-    # enough steps that the kill lands mid-run on a loaded CPU
-    monkeypatch.setattr(chip_smoke, "LAUNCH_RESUME", [
-        "--steps", "40", "--ckpt-every", "2", "--batch", "4", "--seq", "32"])
-    rec = {}
-    chip_smoke.launch_kill_resume(cpu, tmp_path, rec)
-    assert rec["restored_equal"] and rec["resumed_checkpoints_equal"]
-    assert all(rec["resumed_checkpoints_equal"].values())
-    assert rec["resumed_at"] == rec["killed_after"][-1] < 40
-    assert rec["continuation_losses"] == rec["resumed_losses"]
-    rec = {}
-    chip_smoke.launch_abstract(cpu, rec)
-    assert len(rec["cells"]) == 80
-    assert rec["cells"]["2x16x16/musicgen-medium/train_4k"] == 573_731_844
-    # the fl cut at full width: the deepest whose estimate leaves
-    # LAUNCH_FREE free, monotone in the free bytes
-    monkeypatch.setattr(chip_smoke, "LAUNCH_SIZE", ("--full",))
-    room = chip_smoke.LAUNCH_FREE + chip_smoke.LAUNCH_RESERVE
-    n48 = chip_smoke.fl_peak_estimate(48)
-    assert chip_smoke.fl_depth(n48 + room) == 48
-    assert chip_smoke.fl_depth(n48 + room - 1) == 47
-    d = chip_smoke.fl_depth(80e9)
-    assert chip_smoke.fl_peak_estimate(d) + room <= 80e9 \
-        < chip_smoke.fl_peak_estimate(d + 1) + room
-
-
-def test_chip_smoke_fl_round_check_rehearsed_on_cpu(monkeypatch, tmp_path):
-    """Phase 15's fl run at REDUCED: the trainer's round checked in its own
-    process, and the check rejects a wrong merge."""
-    cpu = torch.device("cpu")
-    monkeypatch.setattr(chip_smoke, "LAUNCH_SIZE", ())
-    fl = chip_smoke.run_train(cpu, tmp_path, "fl", "--mode", "fl", "--pods",
-                              "2", "--steps", "3", "--fl-every", "2",
-                              "--batch", "4", "--seq", "32", check="b2")
-    (b2,) = fl["checked"]
-    assert [r["step"] for r in fl["rounds"]] == [2]
-    assert b2["W"] == 2 and b2["N"] == fl["n_params"]
-    assert b2["equal"] and b2["max_abs_err"] == 0.0
-    assert b2["columns_where_pods_differ"] > 0
-    assert not any(b2["controls_pass"].values())
-    # chunk edges that cut the rows mid-way, and a merge one ulp off
-    monkeypatch.setattr(chip_smoke, "B2_CHUNK", 7)
-    rng = np.random.RandomState(0)
-    rows = torch.from_numpy(rng.randn(3, 50).astype(np.float32))
-    w = torch.tensor([0.5, 0.25, 0.25])
-    good = ref.reference_fedavg(rows, w)
-    ok = chip_smoke.b2_round_check(rows, w, good)
-    assert ok["equal"] and not any(ok["controls_pass"].values())
-    bad = good.clone()
-    bad[45] = torch.nextafter(bad[45], torch.tensor(np.inf))
-    assert not chip_smoke.b2_round_check(rows, w, bad)["equal"]
-
-
-LEAK_CHECK = """
-import gc, sys, weakref
-gc.disable()
-import torch
-from repro_torch import configs, optim
-from repro_torch.core import federated
-from repro_torch.models import init_params
-from repro_torch.tree import leaves
-cfg = configs.get_config("musicgen-medium", reduced=True)
-params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-opt = optim.adamw()
-refs = []
-def update(p, g, s):
-    refs.extend(weakref.ref(t) for t in leaves(g))
-    return opt.update(p, g, s)
-traced = optim.Optimizer(init=opt.init, update=update)
-sp = federated.stack_for_pods(params, 2)
-so = federated.stack_for_pods(opt.init(params), 2)
-batch = {"embeds": torch.randn(4, 32, cfg.d_model, dtype=torch.bfloat16),
-         "labels": torch.zeros((4, 32), dtype=torch.int32)}
-alive = []
-for _ in range(2):
-    refs.clear()
-    federated.fl_local_step(sp, so, batch, cfg=cfg, optimizer=traced,
-                            n_pods=2)
-    alive.append(sum(r() is not None for r in refs))
-print(len(refs), alive)
-"""
-
-
-def test_train_steps_free_their_gradients_without_gc():
-    """With the cyclic garbage collector off, no pod's gradients outlive
-    its ``train_step`` (first step and later: the first one runs torch's
-    lazy imports), so a round's peak holds none (tools/torch_train_memory.py
-    saw 2 B a parameter held when they did)."""
-    import subprocess
-    root = Path(__file__).resolve().parents[1]
-    proc = subprocess.run([sys.executable, "-c", LEAK_CHECK],
-                          env={"PYTHONPATH": str(root / "src"),
-                               "PATH": "/usr/bin:/bin"},
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    n, alive = proc.stdout.split(maxsplit=1)
-    assert int(n) > 0 and alive.strip() == "[0, 0]", proc.stdout
