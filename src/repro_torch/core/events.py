@@ -5,8 +5,10 @@ VMs. Inside one CPU container that heterogeneity cannot physically exist, so
 every paper experiment runs in *simulated time*: training and transmission
 durations come from the same system statistics FogBus2's profiler exposes
 (CPU frequency x availability, data size, link bandwidth), while the actual
-numerics (JAX training steps) execute for real. The engine is deterministic:
-ties break by sequence number, never by wall clock.
+numerics (the workers' PyTorch training steps, the codecs and the merges)
+execute for real. The engine is deterministic: ties break by sequence
+number, never by wall clock.  With tracing on (``repro_torch.tracing``)
+every executed event is an ``fl.event`` span labelled by its callback.
 
 Cancellation is lazy: :meth:`EventLoop.schedule` returns the queued
 :class:`_Event` as a handle, :meth:`EventLoop.cancel` flags it dead
@@ -25,6 +27,8 @@ import heapq
 import itertools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
+
+from repro_torch import tracing
 
 # compaction floor: below this many dead entries the rebuild costs more
 # than the heap overhead it reclaims
@@ -116,7 +120,8 @@ class EventLoop:
                 self._n_cancelled -= 1
                 continue
             self.now = ev.time
-            ev.fn(*ev.args)
+            with tracing.span("fl.event", kind=ev.fn):
+                ev.fn(*ev.args)
             n += 1
             if break_when is not None and break_when():
                 break

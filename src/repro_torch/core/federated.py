@@ -14,11 +14,18 @@ tensor, its plain version on a CPU tensor (the counterpart of the JAX
 package's ``_use_agg_kernel()`` path).  ``fl_round_delta_compressed``
 merges compressed deltas from an anchor through B6 (``fedavg_delta_flat``,
 B1 at server scale 1).
+
+With tracing on (``repro_torch.tracing``) a local step is a ``pods.step``
+span over one ``pods.pod_step`` a pod, and a merge a ``pods.merge`` span
+over ``merge.pack``, ``merge.encode`` (the compressed form),
+``merge.combine`` and ``merge.unpack``; both carry the caching
+allocator's device frees, retries and allocations as counter deltas.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import fedavg_agg
 from repro_torch.models import train_step
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -47,22 +54,25 @@ def fl_local_step(stacked_params, stacked_opt, batch, *, cfg, optimizer,
     else copied back), which are returned with the metrics stacked along
     the pod dim."""
     mets = []
-    for i in range(n_pods):
-        def part(x):
-            x = torch.as_tensor(x)
-            n = x.shape[0] // n_pods
-            return x[i * n:(i + 1) * n]
-        p_i = unstack_pod(stacked_params, i)
-        o_i = unstack_pod(stacked_opt, i)
-        new_p, new_o, met = train_step(
-            p_i, o_i, {k: part(v) for k, v in batch.items()}, cfg=cfg,
-            optimizer=optimizer, n_microbatch=n_microbatch)
-        for tree, new in ((p_i, new_p), (o_i, new_o)):
-            for view, t in zip(leaves(tree), leaves(new)):
-                if t is not view:
-                    view.copy_(t)
-        mets.append(met)
-    metrics = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+    with tracing.span("pods.step", counters=tracing.alloc_counters,
+                      step=tracing.NEXT):
+        for i in range(n_pods):
+            def part(x):
+                x = torch.as_tensor(x)
+                n = x.shape[0] // n_pods
+                return x[i * n:(i + 1) * n]
+            with tracing.span("pods.pod_step", pod=i):
+                p_i = unstack_pod(stacked_params, i)
+                o_i = unstack_pod(stacked_opt, i)
+                new_p, new_o, met = train_step(
+                    p_i, o_i, {k: part(v) for k, v in batch.items()},
+                    cfg=cfg, optimizer=optimizer, n_microbatch=n_microbatch)
+                for tree, new in ((p_i, new_p), (o_i, new_o)):
+                    for view, t in zip(leaves(tree), leaves(new)):
+                        if t is not view:
+                            view.copy_(t)
+            mets.append(met)
+        metrics = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
     return stacked_params, stacked_opt, metrics
 
 
@@ -106,10 +116,16 @@ def fl_round(stacked_params, weights):
     1/|selected|), normalised here; weight 0 removes a pod's contribution,
     and every pod, selected or not, continues from the merge.  One launch
     of B2 over the packed (n_pods, N) f32 buffer on a card."""
-    flat = _pack_pods(stacked_params)
-    merged = fedavg_agg.fedavg_agg_flat(flat, _norm(weights, flat.device))
-    del flat
-    return _unpack_pods(merged, stacked_params)
+    with tracing.span("pods.merge", counters=tracing.alloc_counters,
+                      step=tracing.LAST):
+        with tracing.span("merge.pack"):
+            flat = _pack_pods(stacked_params)
+        with tracing.span("merge.combine"):
+            merged = fedavg_agg.fedavg_agg_flat(flat,
+                                                _norm(weights, flat.device))
+        del flat
+        with tracing.span("merge.unpack"):
+            return _unpack_pods(merged, stacked_params)
 
 
 def fl_round_delta_compressed(stacked_params, anchor_params, weights, *,
@@ -122,13 +138,19 @@ def fl_round_delta_compressed(stacked_params, anchor_params, weights, *,
     .compress(d)[0]``), so a top-k compressor ranks the whole model's
     coordinates globally.  The merge ``anchor + weights @ deltas`` is one
     launch of B6 on a card."""
-    delta = _pack_pods(stacked_params)
-    aflat = torch.cat([l.reshape(-1).to(torch.float32)
-                       for l in leaves(anchor_params)])
-    delta.sub_(aflat[None])                # flat - anchor, in place
-    cdelta = compressor(delta)
-    del delta
-    merged = fedavg_agg.fedavg_delta_flat(aflat, cdelta,
-                                          _norm(weights, aflat.device))
-    del cdelta
-    return _unpack_pods(merged, stacked_params)
+    with tracing.span("pods.merge", counters=tracing.alloc_counters,
+                      step=tracing.LAST):
+        with tracing.span("merge.pack"):
+            delta = _pack_pods(stacked_params)
+            aflat = torch.cat([l.reshape(-1).to(torch.float32)
+                               for l in leaves(anchor_params)])
+            delta.sub_(aflat[None])        # flat - anchor, in place
+        with tracing.span("merge.encode"):
+            cdelta = compressor(delta)
+        del delta
+        with tracing.span("merge.combine"):
+            merged = fedavg_agg.fedavg_delta_flat(
+                aflat, cdelta, _norm(weights, aflat.device))
+        del cdelta
+        with tracing.span("merge.unpack"):
+            return _unpack_pods(merged, stacked_params)

@@ -47,6 +47,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import tracing
+
 from . import aggregation as agg
 from . import flatbuf
 from . import server_opt as server_opt_mod
@@ -228,7 +230,9 @@ class AggregationServer:
         self._dispatch_round()
 
     def _accuracy(self) -> float:
-        return float(self.eval_fn(self.weights))
+        # after the merge's version bump: the round whose merge it scores
+        with tracing.span("fl.eval", round=self.version - 1):
+            return float(self.eval_fn(self.weights))
 
     def _finish(self):
         self.done = True
@@ -308,8 +312,9 @@ class AggregationServer:
         self._round_open = True
         base_version = self.version
         rid = self._round_id
-        down_b = {wid: self._send_train(wid, base_version)
-                  for wid in selected}
+        with tracing.span("fl.dispatch", round=base_version):
+            down_b = {wid: self._send_train(wid, base_version)
+                      for wid in selected}
         if self.mode == "sync":
             # straggler timeout: aggregate with whatever arrived; priced on
             # the actual encoded dispatch down plus the codec'd response up
@@ -505,14 +510,18 @@ class AggregationServer:
         if self._window:
             # cache entries carry claimed row indices: the merge contracts
             # the window with each weight scattered to its row
-            self.weights = self._flat.merge_window(
-                self.weights, [u.weights for u in self._cache], ws, alpha)
+            with tracing.span("fl.merge", round=self.version):
+                self.weights = self._flat.merge_window(
+                    self.weights, [u.weights for u in self._cache], ws,
+                    alpha)
             if not (self.mode == "async" and self.async_latest_table):
                 # merged rows are dead (latest-table workers keep theirs)
                 self._release_rows()
         else:
-            self.weights = self._flat.merge_rows(
-                self.weights, [u.weights for u in self._cache], ws, alpha)
+            with tracing.span("fl.merge", round=self.version):
+                self.weights = self._flat.merge_rows(
+                    self.weights, [u.weights for u in self._cache], ws,
+                    alpha)
         # the pointer names the *model*: overwrite in place, uid stays stable
         self.warehouse.put(self.weights, uid=self.pointer.uid)
         n_upd = len(self._cache)

@@ -93,6 +93,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import topk_quant
 from repro_torch.parallel import sharding as psh
 
@@ -580,6 +581,10 @@ class Link:
         return self.t.spec_down.delta
 
     def encode_down(self, weights_tree) -> Payload:
+        with tracing.span("fl.encode_down", worker=self.worker_id):
+            return self._encode_down(weights_tree)
+
+    def _encode_down(self, weights_tree) -> Payload:
         t = self.t
         sd, frac = t.resolve_down(self)
         if not sd.delta:
@@ -686,6 +691,10 @@ class Link:
         return self.t.expected_up_bytes()
 
     def encode_up(self, new_tree) -> Payload:
+        with tracing.span("fl.encode_up", worker=self.worker_id):
+            return self._encode_up(new_tree)
+
+    def _encode_up(self, new_tree) -> Payload:
         t = self.t
         spec, frac = t.resolve_up(self)
         if not spec.delta:                       # raw: ship the dict as-is
@@ -713,15 +722,17 @@ class Link:
         """Payload -> packed flat f32 vector of the worker's new absolute
         weights (lands in the server's (W, N) row buffer)."""
         spec = CODECS[payload.codec]
-        if not spec.delta:
-            return self.t.pack(payload.data)
-        return self._codec_apply(payload.data, spec, self.tx_base)
+        with tracing.span("fl.decode_up", worker=self.worker_id):
+            if not spec.delta:
+                return self.t.pack(payload.data)
+            return self._codec_apply(payload.data, spec, self.tx_base)
 
     def up_vec_deferred(self, payload: Payload):
         """``decode_up_vec`` for a response whose only reader is the merge:
         a quantised delta stays encoded as ``flatbuf.EncodedVec``, its base
         pinned now (a later dispatch moves ``tx_base``), for
-        ``merge_rows`` to decode with the rest of its merge."""
+        ``merge_rows`` to decode with the rest of its merge (inside the
+        merge's span, not a decode's).  Anything else decodes now."""
         spec = CODECS[payload.codec]
         if spec.delta and spec.quantize:
             q, scale = payload.data

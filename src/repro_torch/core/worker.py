@@ -22,6 +22,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from repro_torch import tracing
+
 from .estimator import WorkerProfile
 from .events import EventLoop
 from .transport import Link, Payload, resume_transmit, transmit
@@ -171,10 +173,12 @@ class FLWorker:
         self._after_fetch(server_pointer, weights, base_version, epochs,
                           link, on_done, 0.0)
 
-    def _train(self, weights, epochs: int):
+    def _train(self, weights, epochs: int, base_version: int):
         if len(self.data["x"]):
-            return self.train_fn(weights, self.data["x"],
-                                 self.data["y"], epochs)
+            with tracing.span("fl.train", round=base_version,
+                              worker=self.worker_id):
+                return self.train_fn(weights, self.data["x"],
+                                     self.data["y"], epochs)
         return weights              # no local data: echo (setup-3 zeros)
 
     def _after_fetch(self, server_pointer: Pointer, weights,
@@ -218,7 +222,7 @@ class FLWorker:
             if self.profile.failed or not self.accepts(server_pointer):
                 self.busy = False
                 return
-            up = link.encode_up(self._train(weights, epochs))
+            up = link.encode_up(self._train(weights, epochs, base_version))
             if up.wire_bytes != up_bytes:
                 raise RuntimeError(f"uplink size {up.wire_bytes} != the "
                                    f"upfront {up_bytes}")
@@ -244,7 +248,7 @@ class FLWorker:
             if self.profile.failed or not self.accepts(server_pointer):
                 self.busy = False
                 return
-            up = link.encode_up(self._train(weights, epochs))
+            up = link.encode_up(self._train(weights, epochs, base_version))
             ticket = self.warehouse.issue_ticket(self.warehouse.put(up))
             self._inflight[server_pointer] = (ticket, up, link)
             t_up = self.true_t_transmit(up.wire_bytes)

@@ -37,7 +37,7 @@ import torch
 import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.parallel import sharding
 from repro_torch.tree import leaves, unflatten
 
@@ -501,9 +501,24 @@ def train_step(params, opt_state, batch, *, cfg, optimizer, aux_weight=0.01,
     does) and the step is the one ``grad_specs=None`` computes."""
     if grad_specs is not None:
         _check_spec_tree(params, grad_specs)
+    with tracing.span("step.fwd_bwd"):
+        loss, metrics, grads = _grads(params, cfg, batch, aux_weight,
+                                      n_microbatch)
+    with tracing.span("step.optimizer"):
+        params, opt_state = optimizer.update(params, grads, opt_state)
+    # the metrics' norm of the gradients (the clip computed its own)
+    with tracing.span("step.grad_norm"):
+        metrics = dict(metrics, loss=loss,
+                       grad_norm=optimizer.global_norm(grads))
+    return params, opt_state, metrics
+
+
+def _grads(params, cfg, batch, aux_weight, n_microbatch: int):
+    """(loss, metrics, grads) of the whole batch, or of its
+    ``n_microbatch`` sequential microbatches: f32 sums of their gradients
+    divided by their number, their losses and metrics averaged."""
     if n_microbatch <= 1:
-        loss, metrics, grads = _value_and_grad(params, cfg, batch,
-                                               aux_weight)
+        return _value_and_grad(params, cfg, batch, aux_weight)
     else:
         def split(x, i):
             x = torch.as_tensor(x)
@@ -526,10 +541,7 @@ def train_step(params, opt_state, batch, *, cfg, optimizer, aux_weight=0.01,
         loss = torch.stack(losses).mean()
         metrics = {k: torch.stack([m[k] for m in metss]).mean()
                    for k in metss[0]}
-    params, opt_state = optimizer.update(params, grads, opt_state)
-    metrics = dict(metrics, loss=loss,
-                   grad_norm=optimizer.global_norm(grads))
-    return params, opt_state, metrics
+        return loss, metrics, grads
 
 
 def prefill_step(params, batch, *, cfg, max_len: Optional[int] = None):
