@@ -57,7 +57,15 @@ and prints no result):
    shapes with q at 8x the scale of k and v, elementwise within one bf16
    ulp of the plain output plus 1e-4 in bf16 and 2e-5 in f32, and the
    check must fail against a plain version given a fault: no softcap, the
-   window 32 keys wider, KV head h % Kv); the WKV recurrence (B9) at
+   window 32 keys wider, KV head h % Kv); the training pair
+   (``flash_attention_train``, ``check_flash_train``) at
+   ``TRAIN_FLASH_SHAPES`` under autograd, o, dq, dk and dv within
+   ``TRAIN_FLASH_LIMIT`` of the plain versions, lse within
+   ``TRAIN_LSE_LIMIT``, the same bits a second time, each of
+   ``TRAIN_FLASH_FAULTS`` (dS as one bf16 term, the last diagonal tile
+   skipped) failing, timed in turns with ``mha_chunked`` under autograd,
+   its launches in the kernels line summed over phases 14-16; the WKV
+   recurrence (B9) at
    rwkv6-3b's width (2 x 8192 tokens, 40 heads of 64) at ops.wkv's chunk
    of 16 in bf16 and f32 and at three small f32 shapes, elementwise within
    ``WKV_TOL``, and in the model's form (chunk 64, from a nonzero s0,
@@ -332,7 +340,11 @@ follow the numerics).
    against steps the card runs.  Phase 15's single-mode step at 48 layers
    (8 x 128 tokens, parameters and AdamW state resident), traced on fake
    CPU tensors whole and extrapolated, then profiled: the trace's flops
-   against the profiler's matmuls that ran, ``peak_estimate_bytes``
+   against the profiler's matmuls that ran and the training pair's,
+   counted from its launches (``train_pair_flops``), the estimate taken
+   along the route that ran (the trace's ``mha_chunked`` products for the
+   pair's calls replaced by the pair's; the trace's own gap reported as
+   ``route_flops_gap``), ``peak_estimate_bytes``
    against ``max_memory_allocated`` over the step, each within
    ``DRY_LIMITS``, the ``DRY_CONTROLS`` estimates outside them, the
    device time at least max(t_compute_s, t_memory_s); one ``fl_round`` on
@@ -592,6 +604,33 @@ N_TIMED_FLASH = 10
 # B7's at 17.2 GB (~0.03 s, 18 cases): their yardstick readings take 3
 # runs after 1 warm-up, not 10 after 5 (~35 s at 15 calls each)
 N_TIMED_PLAIN, WARM_PLAIN = 3, 1
+# The training pair (flash_attention_train: the forward with lse, the
+# backward's two launches) is checked in phase 3 at these (B, S, H, Kv, D):
+# musicgen-medium's pods (8 x 1024, 24 heads of 64; the benchmark's pod
+# cells) and yi-9b's pods (head dim 128, GQA 32 / 4).  Its limit, as
+# ||kernel - plain|| / ||plain|| over each of o, dq, dk and dv: both sides
+# compute in f32 from the same bf16 operands and round once, so they differ
+# where another summation order flips a rounding.  Sound readings on an
+# H100 (these shapes and smaller, S 64 to 1024): o up to 8.5e-5, dq 8.9e-5,
+# dk 2.0e-4, dv 1.6e-4, lse 9.5e-7 absolute.  Controls (TRAIN_FLASH_FAULTS,
+# the plain versions given the fault, against the kernel): dS as one bf16
+# term reads 2.5e-3-2.7e-3 in dq and dk, the last diagonal tile skipped
+# 0.019 and more in every output at S = 1024.  The limit lies between,
+# ~3.5x from each.
+TRAIN_FLASH_SHAPES = {"musicgen-medium pods": (8, 1024, 24, 24, 64),
+                      "yi-9b pods": (2, 1024, 32, 4, 128)}
+TRAIN_FLASH_LIMIT, TRAIN_LSE_LIMIT = 7e-4, 1e-5
+# fault -> the outputs (of o, dq, dk, dv) it must move beyond the limit
+TRAIN_FLASH_FAULTS = {"dS one bf16 term": ("dq", "dk"),
+                      "last diagonal tile skipped": ("o", "dq", "dk", "dv")}
+# the (S x S x D) products the pair runs a tile of the causal band (64
+# queries x 64 keys, a head): the forward S = Q K^T and P V; the backward's
+# first launch S, dP and dQ over dS's hi and lo terms (4), its second S,
+# dP, dV and dK over hi and lo (5), 9 over the two launches it counts
+TRAIN_PRODUCTS = {"flash_train_fwd": 2, "flash_train_bwd": 9}
+# the products a forward and a backward need (S, P V; S, dP, dV, dQ, dK),
+# over the causal triangle: the timed pair's bound
+TRAIN_BOUND_PRODUCTS = 2 + 5
 # The LM phase: gemma2-2b at full width and depth, cut from
 # SHAPES["prefill_32k"] (32 prompts of 32,768 tokens) to 2 of 8192, then
 # LM_DECODE greedy decode steps; the card-vs-CPU repeat keeps the width
@@ -730,6 +769,103 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def train_pair_flops(launches, B, S, H, D) -> float:
+    """FLOP the training pair ran over ``launches`` (its LAUNCHES keys ->
+    launches) at (B, S, H, D): ``TRAIN_PRODUCTS`` over every tile of the
+    causal band, a head; the backward's two launches run 9 between them."""
+    from repro_torch.kernels.ref import TRAIN_TILE
+    n = S // TRAIN_TILE
+    per = 2.0 * TRAIN_TILE * TRAIN_TILE * D * B * H * (n * (n + 1) // 2)
+    return per * (TRAIN_PRODUCTS["flash_train_fwd"]
+                  * launches.get("flash_train_fwd", 0)
+                  + TRAIN_PRODUCTS["flash_train_bwd"]
+                  * launches.get("flash_train_bwd", 0) / 2)
+
+
+def train_pair_bound(B, S, H, Kv, D):
+    """The pair's least time for a forward and a backward on the card:
+    ``TRAIN_BOUND_PRODUCTS`` causal products at the bf16 rate, or its
+    bytes (the forward reads q, k, v and writes o; the backward reads q,
+    k, v, o, dO and writes dq, dk, dv; all bf16) at the HBM rate.  Returns
+    (ms, "bytes" or "operations", flops)."""
+    flops = TRAIN_BOUND_PRODUCTS * 2.0 * B * H * D * attention_pairs(S, 0)
+    n_bytes = 2 * B * S * D * (6 * H + 6 * Kv)
+    return (*bound_ms(n_bytes, flops, BF16_FLOPS), flops)
+
+
+def train_pair_check(q, k, v, do) -> dict:
+    """The training pair on (q, k, v) with output gradient ``do`` against
+    its plain versions: ``gaps`` (||kernel - plain|| / ||plain|| of o, dq,
+    dk and dv; the backward's plain version given the kernel's o and lse),
+    ``lse`` (max |kernel - plain|), ``max_abs_err`` (over the four),
+    ``launches`` (of one forward and one backward call), ``same_bits`` (a
+    second forward and backward give the first's bits) and ``controls``
+    (each TRAIN_FLASH_FAULTS fault: the same gaps against the faulty plain
+    versions).  ``train_pair_problems`` says what it finds wrong."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    keys = ("flash_train_fwd", "flash_train_bwd")
+    n0 = {c: fa.LAUNCHES[c] for c in keys}
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention_train(*ins)
+    o.backward(do)
+    if q.is_cuda:
+        torch.cuda.synchronize(q.device)
+    launches = {c: fa.LAUNCHES[c] - n0[c] for c in keys}
+    got = dict(zip(("o", "dq", "dk", "dv"),
+                   (o.detach(), *(t.grad for t in ins))))
+    o2, lse = fa._train_fwd(q, k, v)
+    again = fa._train_bwd(q, k, v, got["o"], lse, do)
+    same = torch.equal(o2, got["o"]) and all(
+        torch.equal(a, got[n]) for a, n in zip(again, ("dq", "dk", "dv")))
+    po, plse = ref.reference_flash_train_fwd(q, k, v)
+    plain = dict(zip(("o", "dq", "dk", "dv"),
+                     (po, *ref.reference_flash_train_bwd(
+                         q, k, v, got["o"], lse, do))))
+    out = {"gaps": {n: rel_l2(got[n], plain[n]) for n in got},
+           "lse": max_err(lse, plse),
+           "max_abs_err": max(max_err(got[n], plain[n]) for n in got),
+           "launches": launches, "same_bits": same, "controls": {}}
+    del plain, po, plse
+    tile = q.shape[1] // ref.TRAIN_TILE - 1
+    for fault, moved in TRAIN_FLASH_FAULTS.items():
+        if fault == "dS one bf16 term":
+            bad = dict(zip(("dq", "dk", "dv"), ref.reference_flash_train_bwd(
+                q, k, v, got["o"], lse, do, split_ds=False)))
+        else:
+            bad = dict(zip(("dq", "dk", "dv"), ref.reference_flash_train_bwd(
+                q, k, v, got["o"], lse, do, skip_tile=tile)))
+            bad["o"], _ = ref.reference_flash_train_fwd(q, k, v,
+                                                        skip_tile=tile)
+        out["controls"][fault] = {n: rel_l2(got[n], bad[n]) for n in moved}
+        del bad
+    return out
+
+
+def train_pair_problems(res) -> list:
+    """What ``train_pair_check`` finds wrong: an output or lse beyond its
+    limit, other bits a second time, a fault that stays within the limit,
+    launches other than a forward's one and a backward's two."""
+    bad = [f"{n} {g:.3g}" for n, g in res["gaps"].items()
+           if not g <= TRAIN_FLASH_LIMIT]
+    if not res["lse"] <= TRAIN_LSE_LIMIT:
+        bad.append(f"lse {res['lse']:.3g}")
+    if not res["same_bits"]:
+        bad.append("a second run gave other bits")
+    bad += [f"control {fault} passes in {n} ({g:.3g})"
+            for fault, gaps in res["controls"].items()
+            for n, g in gaps.items() if not g > TRAIN_FLASH_LIMIT]
+    if res["launches"] != {"flash_train_fwd": 1, "flash_train_bwd": 2}:
+        bad.append(f"launches {res['launches']}")
+    return bad
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in f64."""
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).norm() / want.norm())
+
+
 def attention_pairs(S: int, window: int) -> int:
     """(query, key) pairs a causal (windowed) attention over S positions
     needs: query i sees min(i + 1, window) keys."""
@@ -789,6 +925,25 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def pair_launches(counters) -> int:
+    """The training pair's launches in a LAUNCHES dict of
+    ``flash_attention`` (or a trainer's summary of it)."""
+    return sum(counters.get(k, 0)
+               for k in ("flash_train_fwd", "flash_train_bwd"))
+
+
+def train_pair_launches(pods_rec, launch_rec, dry_rec) -> int:
+    """The training pair's launches that phases 14-16 counted and checked
+    (each run zeroes the counters first, so they are read from the
+    records): phase 14's training runs and its pods' two local steps,
+    phase 15's three trainer processes, phase 16's profiled step."""
+    return (sum(pair_launches(pods_rec[arch]["launches"]) for arch in TRAIN)
+            + pair_launches(pods_rec["fl"]["launches_round"])
+            + sum(pair_launches(launch_rec[run]["launches"].get(
+                "flash_attention", {})) for run in ("single", "fl", "resume"))
+            + pair_launches(dry_rec["train"]["profile"]["pair_launches"]))
+
+
 def launch_counters():
     """Counter key -> the wrapper module's LAUNCHES dict."""
     from repro_torch.kernels import (fedavg_agg, flash_attention,
@@ -807,6 +962,8 @@ def launch_counters():
             "mom": server_opt.LAUNCHES, "adam": server_opt.LAUNCHES,
             "flash": flash_attention.LAUNCHES,
             "flash_wgmma": flash_attention.LAUNCHES,
+            "flash_train_fwd": flash_attention.LAUNCHES,
+            "flash_train_bwd": flash_attention.LAUNCHES,
             "wkv": rwkv6_kernel.LAUNCHES}
 
 
@@ -1179,6 +1336,7 @@ def check_kernels(dev):
     records.update(check_codec_fused(dev, timer))
     records.update(check_decode_fused(dev, timer))
     records["flash_attention"] = check_flash(dev, timer)
+    records["flash_attention_train"] = check_flash_train(dev, timer)
     records.update(check_wkv(dev, timer))
     # the comparison launches above do not count toward the paths' runs:
     # each run sets every counter to 0 before it starts
@@ -2025,6 +2183,70 @@ def check_flash(dev, timer):
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shapes": shapes}
+
+
+def check_flash_train(dev, timer):
+    """The training pair at every TRAIN_FLASH_SHAPES shape through
+    ``flash_attention_train`` (``train_pair_check``: its outputs and
+    gradients against the plain versions within TRAIN_FLASH_LIMIT, the
+    same bits a second time, TRAIN_FLASH_FAULTS beyond the limit), then a
+    forward and a backward timed in turns with ``mha_chunked``'s under
+    autograd (chunked, pair, pair, chunked), beside the plain versions and
+    ``train_pair_bound``.  Returns the record of musicgen-medium's pods,
+    the others under "shapes"."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = []
+    for label, (B, S, H, Kv, D) in TRAIN_FLASH_SHAPES.items():
+        q, k, v, do = (torch.randn(B, S, n, D, device=dev, generator=g)
+                       .to(torch.bfloat16) for n in (H, Kv, Kv, H))
+        res = train_pair_check(q, k, v, do)
+        print(f"check flash_attention_train {label}: ||kernel - plain|| / "
+              f"||plain|| {res['gaps']}, lse {res['lse']:.3g} (limits "
+              f"{TRAIN_FLASH_LIMIT:g}, {TRAIN_LSE_LIMIT:g}), same bits "
+              f"{res['same_bits']}, launches {res['launches']}; controls "
+              f"{res['controls']}")
+        bad = train_pair_problems(res)
+        if bad:
+            raise AssertionError(f"flash_attention_train {label}: {bad}")
+
+        def grad_of(fn):
+            def run():
+                ins = [t.detach().requires_grad_() for t in (q, k, v)]
+                fn(*ins).backward(do)
+            return run
+
+        def plain():
+            o, lse = ref.reference_flash_train_fwd(q, k, v)
+            ref.reference_flash_train_bwd(q, k, v, o, lse, do)
+        ms, chunked_ms, turns = timer.turns(
+            grad_of(fa.flash_attention_train),
+            grad_of(attention.mha_chunked), N_TIMED_FLASH)
+        b_ms, b_by, flops = train_pair_bound(B, S, H, Kv, D)
+        rec = {"shape": label, "B": B, "S": S, "H": H, "Kv": Kv, "D": D,
+               **res, "ms": ms, "chunked_ms": chunked_ms, "turns": turns,
+               "plain_ms": timer(plain, N_TIMED_PLAIN, WARM_PLAIN),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
+        print(f"time flash_attention_train {label}: forward and backward "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"{TRAIN_BOUND_PRODUCTS} causal products), mha_chunked under "
+              f"autograd {chunked_ms:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})")
+        shapes.append(rec)
+        del q, k, v, do
+    main = shapes[0]
+    return {"name": "flash_attention_train", "route": "cuda", "ok": True,
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro_torch/models/attention.py mha_chunked "
+                        "under autograd",
+            "launches": 0,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "chunked_ms": main["chunked_ms"],
+            "shapes": shapes}
 
 
 def wkv_inputs(g, B, S, H, K, dt):
@@ -5709,6 +5931,26 @@ def _train_batch(cfg, dev, B, S, seed=0):
     return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
 
 
+def train_attn_launches(dev, cfg, seq, passes) -> dict:
+    """The training kernel pair's launches on ``dev`` over ``passes``
+    forward-and-backward passes of ``cfg`` at length ``seq``: a forward
+    launch an attention layer (two with remat: the forward and its
+    recomputation) and a backward's two launches a layer, where
+    attention's "xla" route takes the pair (``attention.fused_route``:
+    bf16, head dim 64 or 128, no window, no softcap, on the card); {}
+    where it takes mha_chunked."""
+    from repro_torch.models import attention
+    n_attn = {"attn": cfg.n_layers, "rwkv6": 0,
+              "mamba2": cfg.n_shared_attn_applications()}[cfg.block_type]
+    q, kv = (torch.empty(1, seq, n, cfg.hd, dtype=torch.bfloat16,
+                         device=dev) for n in (cfg.n_heads, cfg.n_kv_heads))
+    if not n_attn or not attention.fused_route(
+            q, kv, kv, window=cfg.window, softcap=cfg.attn_softcap):
+        return {}
+    return {"flash_train_fwd": passes * n_attn * (2 if cfg.remat else 1),
+            "flash_train_bwd": 2 * passes * n_attn}
+
+
 def reduced_step_gaps(arch, dev, cpu="cpu"):
     """The first AdamW ``train_step`` of ``arch``'s REDUCED config on
     ``dev`` against the same step on ``cpu``; the MoE control (the CPU at
@@ -5797,7 +6039,9 @@ def train_check(gaps, arch):
 def run_train_arch(dev, arch, rec):
     """Full-width training of one arch (cut depth), counters at 0 before
     and read after: B8 and B9 never launch (the configs' attn_impl "xla";
-    no kernel has a backward)."""
+    neither has a backward); the training kernel pair launches where
+    attention's route takes it (``train_attn_launches``: phi3.5-moe's
+    head dim 128, not zamba2's 112)."""
     from repro_torch import configs, models, optim
     from repro_torch.tree import leaves
     spec = TRAIN[arch]
@@ -5845,8 +6089,10 @@ def run_train_arch(dev, arch, rec):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{arch}: the loss did not fall: {losses}")
     used = {k: v for k, v in launches.items() if v}
-    if used:
-        raise AssertionError(f"{arch}: kernels launched in training: {used}")
+    want = train_attn_launches(dev, cfg, TRAIN_SEQ, TRAIN_STEPS + 1)
+    if used != want:
+        raise AssertionError(f"{arch}: kernels launched in training: {used},"
+                             f" expected {want}")
     del params, st
     torch.cuda.empty_cache()
 
@@ -5969,7 +6215,9 @@ def run_pods_fl(dev, rec):
           f"launches {after_round['agg']} B2, {after_comp['ef_encode']} "
           f"ef_encode, {after_comp['mix']} B6; max_memory_allocated "
           f"{peak / 2**30:.3f} GiB")
-    want_round = {"agg": 1}
+    # the two local steps' attention (each pod's train_step) and B2
+    want_round = {"agg": 1, **train_attn_launches(dev, cfg, PODS_SEQ,
+                                                  2 * PODS_N)}
     want_comp = {"ef_encode": 3, "mix": 1}
     for got, want, what in ((after_round, want_round, "two local steps and "
                              "fl_round"),
@@ -6064,8 +6312,22 @@ LAUNCH_RESUME_LAYERS = 2
 LAUNCH_RESUME = ["--steps", "12", "--ckpt-every", "4", "--batch", "8",
                  "--seq", "128", "--lr", LAUNCH_LR]
 LAUNCH_TIMEOUT_S = 600.0
-# training runs at attn_impl "xla": fl mode's one round is the only launch
+# training runs at attn_impl "xla": fl mode's one round is B2's only
+# launch; attention launches the training kernel pair (launch_kernels)
 LAUNCH_KERNELS_FL = {"fedavg_agg": {"agg": 1}}
+
+
+def launch_kernels(dev, n_layers, steps, pods=1, fl=False) -> dict:
+    """The kernels a trainer run launches (``used_kernels``): the training
+    pair in every step of every pod (``train_attn_launches``), and in fl
+    mode ``LAUNCH_KERNELS_FL``."""
+    seq = int(LAUNCH_SINGLE[LAUNCH_SINGLE.index("--seq") + 1])
+    attn = train_attn_launches(torch.device(dev), launch_cfg(n_layers), seq,
+                               steps * pods)
+    out = dict(LAUNCH_KERNELS_FL) if fl else {}
+    if attn:
+        out["flash_attention"] = attn
+    return out
 
 
 # B2's output is compared with its plain version in chunks of this many
@@ -6308,6 +6570,7 @@ def launch_kill_resume(dev, work, rec):
                 "checkpoint_bytes": nbytes, "resumed_at": res["start_step"],
                 "restored_equal": restored_equal,
                 "resumed_losses": res["losses"],
+                "launches": res["launches"],
                 "continuation_losses": losses,
                 "resumed_checkpoints_equal": ckpt_equal,
                 "reader_s": res["step_s"]})
@@ -6322,9 +6585,10 @@ def launch_kill_resume(dev, work, rec):
             or losses != res["losses"]:
         raise AssertionError("launch: the resumed run is not the "
                              "continuation of its checkpoint")
-    if used_kernels(res):
+    want = launch_kernels(dev, LAUNCH_RESUME_LAYERS, len(res["losses"]))
+    if used_kernels(res) != want:
         raise AssertionError(f"launch: the resumed run launched "
-                             f"{used_kernels(res)}")
+                             f"{used_kernels(res)}, expected {want}")
 
 
 def _device_bytes(dev):
@@ -6405,9 +6669,10 @@ def run_launch(dev, rec):
         if not all(math.isfinite(x) for x in losses) or fall < LAUNCH_FALL:
             raise AssertionError(f"launch single: losses {losses} not "
                                  f"finite and falling")
-        if used_kernels(single):
+        want = launch_kernels(dev, LAUNCH_LAYERS, len(losses))
+        if used_kernels(single) != want:
             raise AssertionError(f"launch single launched "
-                                 f"{used_kernels(single)}")
+                                 f"{used_kernels(single)}, expected {want}")
 
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info()
@@ -6437,9 +6702,11 @@ def run_launch(dev, rec):
         if [r["step"] for r in fl["rounds"]] != [2] or \
                 not all(r["pods_equal"] for r in fl["rounds"]):
             raise AssertionError(f"launch fl: rounds {fl['rounds']}")
-        if used_kernels(fl) != LAUNCH_KERNELS_FL:
+        want = launch_kernels(dev, depth, len(fl["losses"]), pods=2,
+                              fl=True)
+        if used_kernels(fl) != want:
             raise AssertionError(f"launch fl launched {used_kernels(fl)}, "
-                                 f"expected {LAUNCH_KERNELS_FL}")
+                                 f"expected {want}")
         if not all(math.isfinite(x) for x in fl["losses"]):
             raise AssertionError(f"launch fl: losses {fl['losses']}")
         if left < LAUNCH_FREE:
@@ -6463,7 +6730,11 @@ def run_launch(dev, rec):
 # width and depth on DRY_BATCH x DRY_SEQ tokens with its parameters and
 # AdamW state resident, counted on fake CPU tensors (traced whole, and
 # extrapolated from 1, 2 and 3 layers) and then run on the card: the
-# trace's flops against the profiler's (``with_flops``), the memory
+# trace's flops against the profiler's (``with_flops``) and the training
+# pair's, which the profiler cannot see inside the kernels, counted from
+# its launches (the trace, on CPU tensors, counts mha_chunked's products
+# for those calls: ``dry_gaps`` takes the estimate along the pair's route
+# and ``dry_train`` reports the trace's own gap), the memory
 # summary's peak_estimate_bytes against max_memory_allocated over the step
 # (above what was allocated before the parameters), and the profiler's
 # device time at least max(t_compute_s, t_memory_s).  (d): one fl_round on
@@ -6621,10 +6892,33 @@ def dry_estimates(cfg, opt) -> dict:
     return est
 
 
+def chunked_attention_flops(cfg, B, S) -> float:
+    """The matmul FLOP of one causal ``mha_chunked`` forward on ``cfg``'s
+    heads at B x S (two einsums over every 512 x 512 block pair its band
+    visits): what the dry run's trace, whose fake CPU tensors take
+    mha_chunked, counts for an attention call that the training pair
+    takes on the card; its backward counts twice as much (two products an
+    einsum)."""
+    qb = kb = min(512, S)
+    flops = 0.0
+    for qs in range(0, S, qb):
+        n_k = min(-(-min(S, qs + qb) // kb) * kb, S)
+        flops += 2 * 2.0 * B * cfg.n_heads * qb * n_k * cfg.hd
+    return flops
+
+
 def dry_gaps(est, measured_peak, prof) -> dict:
-    """|estimate / measured - 1| of each estimate's flops (against the
-    profiler's matmuls that ran) and peak."""
-    return {label: {"flops": _rel(e["flops"], prof["matmul_flops_ran"]),
+    """|estimate / measured - 1| of each estimate's flops and peak.  The
+    measured flops are the profiler's matmuls that ran and the training
+    pair's, counted from its launches (``pair_flops``: the profiler sees
+    no products inside a hand-written kernel).  The estimate is taken
+    along the route that ran: the trace counts mha_chunked's products for
+    the attention calls the pair took, so those (``route_chunked_flops``)
+    give way to the pair's for the same calls (``route_pair_flops``)."""
+    ran = prof["matmul_flops_ran"] + prof.get("pair_flops", 0.0)
+    shift = prof.get("route_pair_flops", 0.0) - \
+        prof.get("route_chunked_flops", 0.0)
+    return {label: {"flops": _rel(e["flops"] + shift, ran),
                     "peak": _rel(e["peak_estimate_bytes"], measured_peak)}
             for label, e in est.items()}
 
@@ -6687,15 +6981,36 @@ def dry_train(dev, rec):
         measured_peak = hlo_cost.trace(lambda st, b: step(), state, batch,
                                        fake=False).peak_bytes
         wall = time.perf_counter() - t0
+    from repro_torch.kernels import flash_attention as fa
+    n0 = dict(fa.LAUNCHES)
     prof = profiled(dev, step)
+    pair = {k: fa.LAUNCHES[k] - n0[k]
+            for k in ("flash_train_fwd", "flash_train_bwd")}
+    want = train_attn_launches(dev, cfg, DRY_SEQ, 1)
+    if {k: v for k, v in pair.items() if v} != want:
+        raise AssertionError(f"dryrun: the profiled step launched the "
+                             f"training pair {pair}, expected {want}")
+    shape = (DRY_BATCH, DRY_SEQ, cfg.n_heads, cfg.hd)
+    prof["pair_launches"] = pair
+    prof["pair_flops"] = train_pair_flops(pair, *shape)
+    # the calls the route sends to the pair, as the trace counts them (a
+    # forward's products once, a backward's, whose two launches the
+    # counter holds, twice) and as the pair runs them
+    f_fwd = chunked_attention_flops(cfg, DRY_BATCH, DRY_SEQ)
+    prof["route_chunked_flops"] = f_fwd * (
+        want.get("flash_train_fwd", 0) + want.get("flash_train_bwd", 0))
+    prof["route_pair_flops"] = train_pair_flops(want, *shape)
     del state, batch
     gc_collect_cuda(dev)
 
     full = est["full trace"]
     bound = max(full["t_compute_s"], full["t_memory_s"])
     gaps = dry_gaps(est, measured_peak, prof)
+    # the trace's own count against what ran: the gap the route opens
+    route_gap = _rel(full["flops"], prof["matmul_flops_ran"]
+                     + prof["pair_flops"])
     rec.update({"arch": cfg.name, "n_layers": cfg.n_layers,
-                "batch": DRY_BATCH, "seq": DRY_SEQ, "estimates": est,
+                "route_flops_gap": route_gap, "batch": DRY_BATCH, "seq": DRY_SEQ, "estimates": est,
                 "analysis_s": analysis_s, "measured_peak_bytes":
                     measured_peak, "step_wall_s": wall, "profile": prof,
                 "bound_s": bound, "gaps": gaps, "limits": DRY_LIMITS,
@@ -6705,7 +7020,11 @@ def dry_train(dev, rec):
           f"{est['extrapolated']['flops']:.6e}), profiler: the matmuls that "
           f"ran {prof['matmul_flops_ran']:.6e} (all {prof['matmul_flops']:.6e}"
           f", {prof['matmuls_aborted']} aborted by remat's early stop; every"
-          f" op {prof['flops']:.6e}); peak estimate "
+          f" op {prof['flops']:.6e}), the training pair's "
+          f"{prof['pair_flops']:.6e} from its launches "
+          f"{prof['pair_launches']} (the trace counts "
+          f"{prof['route_chunked_flops']:.6e} of mha_chunked for those calls:"
+          f" its flops {route_gap:.6f} off what ran); peak estimate "
           f"{full['peak_estimate_bytes']:,} (extrapolated "
           f"{est['extrapolated']['peak_estimate_bytes']:,}), measured "
           f"{measured_peak:,}; controls "
@@ -6813,6 +7132,8 @@ def dryrun_line(rec) -> dict:
         "trace_flops": est.get("full trace", {}).get("flops"),
         "extrapolated_flops": est.get("extrapolated", {}).get("flops"),
         "profiler_flops": t.get("profile", {}).get("matmul_flops_ran"),
+        "pair_flops": t.get("profile", {}).get("pair_flops"),
+        "route_flops_gap": t.get("route_flops_gap"),
         "profiler_flops_all_ops": t.get("profile", {}).get("flops"),
         "peak_estimate_bytes":
             est.get("full trace", {}).get("peak_estimate_bytes"),
@@ -6993,6 +7314,11 @@ def main() -> int:
                                  "phase 16")
         records["fedavg_agg_flat"]["launches"] += agg
         print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
+        pair = train_pair_launches(pods_rec, launch_rec, dry_rec)
+        if pair < 1:
+            raise AssertionError("flash_attention_train never launched in "
+                                 "phases 14-16")
+        records["flash_attention_train"]["launches"] = pair
     finally:
         if cpu is not None:
             cpu.close()

@@ -96,17 +96,19 @@ def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
 
 
 def no_grad_inputs(what: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise when ``records_grad(*tensors)``.  The kernels are forward
-    only (the JAX package has no backward for its Pallas kernels either),
-    and an output written by a kernel carries no gradient path: a
+    """Raise when ``records_grad(*tensors)``.  B8 and B9 are forward only
+    (the JAX package has no backward for its Pallas kernels either), and
+    an output written by such a kernel carries no gradient path: a
     ``backward()`` through it would silently drop the inputs' gradients.
-    Run under ``torch.no_grad()``, or take the model's plain training
-    route."""
+    Run under ``torch.no_grad()``, or take the model's training route
+    (attention's training kernel pair, ``flash_attention_train``, or the
+    plain ops)."""
     if records_grad(*tensors):
         raise RuntimeError(
             f"{what} is forward only: an input requires grad while autograd "
             f"records, and the kernel has no backward; call it under "
-            f"torch.no_grad() (the training paths take the plain routes)")
+            f"torch.no_grad() (the training paths take "
+            f"flash_attention_train or the plain routes)")
 
 
 def check_status(status: int, what: str) -> None:

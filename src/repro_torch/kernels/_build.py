@@ -72,6 +72,10 @@ SIGNATURES = {
     + (_I64, _I64, _F, _F, _I64, _P),
     # dtype, D -> 1 when the launch runs the tensor-core body
     "flash_attention_wgmma_body": (_I64, _I64),
+    # the training pair: q, k, v, o, lse; B, S, H, Kv, D; scale; stream
+    "flash_train_fwd_launch": (_P,) * 5 + (_I64,) * 5 + (_F, _P),
+    # q, k, v, o, dout, lse, dlt, dq, dk, dv; B, S, H, Kv, D; scale; stream
+    "flash_train_bwd_launch": (_P,) * 10 + (_I64,) * 5 + (_F, _P),
     # r, k, v, w, u, s0, y, state, ds, ea; B, S, H, K, chunk; 15 strides;
     # dtype; stream
     "wkv_launch": (_P,) * 10 + (_I64,) * 5 + (_I64,) * 15 + (_I64, _P),

@@ -10,6 +10,9 @@
 //   online softmax with (m, l, acc) and P in f32;
 //   out = acc / max(l, 1e-30), in q's dtype.
 //
+// The training pair (causal attention with a backward, flash_train_*_launch)
+// is described at namespace tr, below; it replaces no TPU kernel.
+//
 // Two bodies.  flash_attention_launch picks one by dtype and head_dim alone
 // (wgmma_body), never on a failure:
 //   bf16 with D in {64, 112, 128, 256}  ->  flash_wgmma, on the tensor cores;
@@ -389,6 +392,7 @@ struct Args {
   long long o_sb, o_ss, o_sh;              // strides in elements
   int S, T, H, B, rep, n_qb, causal, window;
   float scale, softcap, inv_softcap;
+  float* lse;          // the training form's rows' log-sum-exp, (B, H, S)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -544,6 +548,40 @@ __device__ __forceinline__ void pv(float (&d)[32], const uint32_t (&a)[4],
     mma_rs(d, a, db);
 }
 
+// An accumulator tile x (64 x 64, f32) as wgmma A fragments (16 columns
+// kk each): register r of kk holds row row + 8 (r % 2), columns 16 kk +
+// 8 (r / 2) + cq, + 1, the accumulator's 8-column group 2 kk + r / 2.
+// frags rounds x to bf16 once; split_frags keeps it to f32 accuracy as
+// hi = bf16(x) and lo = bf16(x - hi), |x - hi - lo| <= 2^-16 |x|.
+__device__ __forceinline__ int frag_elem(int kk, int r) {
+  return 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+}
+__device__ __forceinline__ void frags(const float (&x)[32],
+                                      uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = frag_elem(kk, r);
+      f[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x[e], x[e + 1]));
+    }
+}
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = frag_elem(kk, r);
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(x[e], x[e + 1]);
+      const __nv_bfloat162 l2 = __floats2bfloat162_rn(
+          x[e] - __low2float(h2), x[e + 1] - __high2float(h2));
+      hi[kk][r] = bf16x2_bits(h2);
+      lo[kk][r] = bf16x2_bits(l2);
+    }
+}
+
 // The KV tiles [lo, hi) that the query rows [r0, r0 + rows) can see.
 __device__ __forceinline__ void band(const Args& a, int r0, int rows,
                                      int& lo, int& hi) {
@@ -552,7 +590,7 @@ __device__ __forceinline__ void band(const Args& a, int r0, int rows,
   lo = a.window > 0 ? max(0, (r0 - a.window + 1) / kBK) : 0;
 }
 
-template <int D>
+template <int D, bool kTrain>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -709,19 +747,12 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
       // P as wgmma A fragments, p = p_hi + p_lo: for keys 16 kk .. 16 kk +
       // 15, register r holds row row + 8 (r % 2), keys 16 kk + 8 (r / 2) +
       // cq, + 1: the accumulator's 8-column group 2 kk + r / 2
+      // (the training form: P rounded to bf16 once, p_hi alone)
       uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int e = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
-          const __nv_bfloat162 hi2 =
-              __floats2bfloat162_rn(sc[e], sc[e + 1]);
-          const __nv_bfloat162 lo2 = __floats2bfloat162_rn(
-              sc[e] - __low2float(hi2), sc[e + 1] - __high2float(hi2));
-          phi[kk][r] = bf16x2_bits(hi2);
-          plo[kk][r] = bf16x2_bits(lo2);
-        }
+      if constexpr (kTrain)
+        frags(sc, phi);
+      else
+        split_frags(sc, phi, plo);
 
       // O += p_hi V + p_lo V: V's 16 keys kk at 2048 kk bytes, its
       // 64-column chunk c at c * kChunk (D = 112's second chunk: n48)
@@ -732,18 +763,21 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
         for (int c = 0; c < NC; ++c)
           pv(o[c], phi[kk], sw128_desc(vs + c * kChunk + kk * 2048, kChunk),
              64 * c + 64 > D);
+      if constexpr (!kTrain) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          pv(o[c], plo[kk], sw128_desc(vs + c * kChunk + kk * 2048, kChunk),
-             64 * c + 64 > D);
+          for (int c = 0; c < NC; ++c)
+            pv(o[c], plo[kk],
+               sw128_desc(vs + c * kChunk + kk * 2048, kChunk),
+               64 * c + 64 > D);
+      }
       wg_commit();
       wg_wait_all();
 #pragma unroll
       for (int c = 0; c < NC; ++c) hold(o[c]);
       hold(phi);
-      hold(plo);
+      if constexpr (!kTrain) hold(plo);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(bars + 8 * (ST + s));   // release stage s
@@ -758,6 +792,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     const int qpos = row + 8 * r;
     if (qpos >= a.S) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    if (kTrain && (lane & 3) == 0)
+      a.lse[((long long)b * a.H + h) * a.S + qpos] = m[r] + logf(den);
     __nv_bfloat16* orow = og + qpos * a.o_ss + cq;
     // the 8-column groups below D (D = 112: 6 of chunk 1's 8)
 #pragma unroll
@@ -800,10 +836,19 @@ EncodeTiled encode_tiled() {
 
 // (B, S, heads, D) bf16 with unit stride along D as a 4-d map {D, heads,
 // S, B} whose box is 64 columns x 64 rows of one head, 128-byte swizzled;
-// columns >= D, rows >= S are zero-filled
+// columns >= D, rows >= S are zero-filled.
+// cuTensorMapEncodeTiled encodes in the calling thread's current context; a
+// host thread that has made no runtime call yet has none (the encode
+// fails with CUDA_ERROR_INVALID_CONTEXT): autograd's worker thread can
+// reach the training pair's backward so.  So the thread is first bound to
+// the device that holds ptr, which makes its primary context current.
 int make_map(CUtensorMap* map, const void* ptr, long long D,
              long long heads, long long S, long long B, long long s_b,
              long long s_s, long long s_h) {
+  cudaPointerAttributes at;
+  cudaError_t err = cudaPointerGetAttributes(&at, ptr);
+  if (err == cudaSuccess) err = cudaSetDevice(at.device);
+  if (err != cudaSuccess) return (int)err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -820,25 +865,527 @@ int make_map(CUtensorMap* map, const void* ptr, long long D,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, bool kTrain = false>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, Args a, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::SMEM;
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_wgmma<D, kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   a.n_qb = (a.S + Cfg<D>::BQ - 1) / Cfg<D>::BQ;
   const unsigned grid = (unsigned)a.n_qb * a.H * a.B;
-  flash_wgmma<D><<<grid, Cfg<D>::THREADS, smem, stream>>>(tq, tk, tv, a);
+  flash_wgmma<D, kTrain><<<grid, Cfg<D>::THREADS, smem, stream>>>(tq, tk,
+                                                                   tv, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// The training pair: causal attention under autograd, bf16 q/k/v at D 64
+// and 128, S a multiple of 64, every operand contiguous (B, S, heads, D).
+//
+// Forward: flash_wgmma<D, true> (above): P rounded to bf16 once before
+// P V, as mha_chunked and the reference round it, and the rows'
+// log-sum-exp, lse = m + log(l), written f32 (B, H, S) for the backward.
+//
+// Backward, two launches in stream order, no atomics, every sum in a
+// fixed order (bit for bit run to run):
+//   flash_bwd_dq, a block per (query tile of 64 WGS rows, head, batch):
+//     D = rowsum(dO o O) in f32 (written (B, H, S) for the next launch),
+//     then over the KV tiles its rows see: S = Q K^T, dP = dO V^T (both
+//     from shared memory), P = exp(S scale - lse), dS = P (dP - D), and
+//     dQ += dS K as two wgmmas over dS's hi and lo bf16 terms (dS to f32
+//     accuracy, as the parent's autograd multiplies an f32 dS); dQ =
+//     scale dQ, cast to bf16 once.
+//   flash_bwd_dkv, a block per (KV tile of 64 WGS keys, KV head, batch):
+//     K and V stay in shared memory; over the query heads of the KV head
+//     and the query tiles that see its keys: S^T = K Q^T, dP^T = V dO^T,
+//     P^T = exp(S^T scale - lse), dV += bf16(P^T) dO, dS^T = P^T (dP^T -
+//     D), dK += dS^T Q over hi and lo; dK = scale dK and dV cast to bf16
+//     once, so GQA's sum over query heads stays in f32 registers.
+// Every product is a wgmma m64n64k16 with f32 accumulation on bf16
+// operands: the QK^T-shaped ones K-major from shared memory (as B8's S),
+// the P V-shaped ones with A from registers (the accumulator's layout,
+// frags / split_frags) and B MN-major (the transpose bit, as B8's V).
+// Bound: operations.  At musicgen-medium's shape (B 8, S 1024, H 24, D 64)
+// a causal GEMM is ~1.4e10 FLOP; the forward does 2 and the backward 9
+// (S and dP twice, dV, dQ and dK over hi and lo).
+namespace tr {
+
+using tc::kBK;
+using tc::kChunk;
+using tc::kRows;
+
+template <int D>
+struct DqCfg {
+  static constexpr int WGS = D >= 128 ? 2 : 3;
+  static constexpr int CONSUMER_REGS = WGS == 2 ? 240 : 160;
+  static constexpr int PRODUCER_REGS = WGS == 2 ? 24 : 32;
+  static constexpr int BQ = kRows * WGS;
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static constexpr int NC = D / 64;
+  static constexpr int STAGES = 4;
+  static constexpr int TILE = NC * kChunk;         // 64 rows of D
+  static constexpr int STAGE_BYTES = 2 * TILE;     // K and V
+  static constexpr size_t SMEM = 1024 + 2 * WGS * TILE +
+                                 STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+};
+
+template <int D>
+struct DkvCfg {
+  // dK and dV take 2 D / 2 registers a thread: two consumers of 240
+  static constexpr int WGS = 2;
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int BK = kRows * WGS;           // keys per block
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static constexpr int NC = D / 64;
+  static constexpr int STAGES = 4;
+  static constexpr int TILE = NC * kChunk;
+  static constexpr int STAGE_BYTES = 2 * TILE;     // Q and dO
+  static constexpr int ROW_BYTES = 2 * kRows * 4;  // lse and D of 64 rows
+  static constexpr size_t SMEM = 1024 + 2 * WGS * TILE +
+                                 STAGES * (STAGE_BYTES + ROW_BYTES) +
+                                 8 * (2 * STAGES + 1);
+};
+
+struct Args {
+  const __nv_bfloat16* o;        // (B, S, H, D)
+  const __nv_bfloat16* dout;     // (B, S, H, D)
+  const float* lse;              // (B, H, S)
+  float* dlt;                    // (B, H, S): rowsum(dO o O)
+  __nv_bfloat16* dq;             // (B, S, H, D)
+  __nv_bfloat16* dk;             // (B, S, Kv, D)
+  __nv_bfloat16* dv;             // (B, S, Kv, D)
+  int S, H, Kv, B, rep, n_blk;
+  float scale;
+};
+
+// count bytes from global to shared memory, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// acc (64 x 64) (+)= A B^T over D / 16 k-steps, A and B 64-row tiles of D
+// columns in shared memory, K-major (B8's S = Q K^T)
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    const uint32_t off = (j / 4) * kChunk + (j % 4) * 32;
+    tc::mma_ss(acc, tc::sw128_desc(a + off, 16), tc::sw128_desc(b + off, 16),
+               j > 0);
+  }
+}
+
+// acc[c] += A B for every 64-column chunk c of B: A (64 x 64) as fragments,
+// B 64 rows of D columns in shared memory, MN-major (B8's P V)
+template <int NC>
+__device__ __forceinline__ void mma_cols(float (&acc)[NC][32],
+                                         const uint32_t (&f)[4][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      tc::mma_rs(acc[c], f[kk],
+                 tc::sw128_desc(b + c * kChunk + kk * 2048, kChunk));
+}
+
+// this thread's two rows (row, row + 8) of a 64-column tile, as bf16 pairs
+// scaled by s, stored at base + pos * ld (pos the row's position)
+template <int NC>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ld,
+                                           int row, int cq,
+                                           const float (&acc)[NC][32],
+                                           float s) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat16* p = base + (long long)(row + 8 * r) * ld + cq;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(p + 64 * c + 8 * j) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * s,
+                                  acc[c][4 * j + 2 * r + 1] * s);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using C = DqCfg<D>;
+  constexpr int NC = C::NC, ST = C::STAGES, kWGs = C::WGS, kBQ = C::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (tc::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                          // kWGs Q tiles
+  const uint32_t do_s = q_s + kWGs * C::TILE;         // kWGs dO tiles
+  const uint32_t kv_s = do_s + kWGs * C::TILE;        // ST x (K, V)
+  const uint32_t bars = kv_s + ST * C::STAGE_BYTES;   // full, empty, Q
+  const uint32_t qbar = bars + 16 * ST;
+
+  // block -> (query tile, head, batch), longest band first
+  const int hb = a.H * a.B, bid = blockIdx.x;
+  const int qt = a.n_blk - 1 - bid / hb;
+  const int h = (bid % hb) % a.H, b = (bid % hb) / a.H, kvh = h / a.rep;
+  const int q0 = qt * kBQ;
+  const int n_valid = min(kWGs, (a.S - q0) / kRows);
+  // the causal band of the block's rows: KV tiles [0, hi_b)
+  const int hi_b = (q0 + kRows * n_valid) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      tc::mbar_init(bars + 8 * s, 1);
+      tc::mbar_init(bars + 8 * (ST + s), kWGs * 4);
+    }
+    tc::mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kWGs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     C::PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x == kWGs * 128) {
+      tc::mbar_expect_tx(qbar, 2 * n_valid * C::TILE);
+      for (int w = 0; w < n_valid; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tc::tma_load(q_s + w * C::TILE + c * kChunk, &tq, qbar, 64 * c, h,
+                       q0 + kRows * w, b);
+          tc::tma_load(do_s + w * C::TILE + c * kChunk, &tdo, qbar, 64 * c,
+                       h, q0 + kRows * w, b);
+        }
+      for (int t = 0; t < hi_b; ++t) {
+        const int s = t % ST, r = t / ST;
+        if (r > 0) tc::mbar_wait(bars + 8 * (ST + s), (r - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t ks = kv_s + s * C::STAGE_BYTES;
+        tc::mbar_expect_tx(full, C::STAGE_BYTES);
+        for (int c = 0; c < NC; ++c) {
+          tc::tma_load(ks + c * kChunk, &tk, full, 64 * c, kvh, t * kBK, b);
+          tc::tma_load(ks + C::TILE + c * kChunk, &tv, full, 64 * c, kvh,
+                       t * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                   C::CONSUMER_REGS)
+               : "memory");
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r0 = q0 + kRows * wg;
+  const bool valid = wg < n_valid;
+  const int hi = valid ? r0 / kBK + 1 : 0;   // the last holds the diagonal
+  const int row = r0 + 16 * warp + lane / 4, cq = 2 * (lane % 4);
+  const long long ld = (long long)a.H * D;   // a position's row, elements
+  const long long hrow = ((long long)b * a.H + h) * a.S;   // lse, dlt
+
+  // D = rowsum(dO o O) and lse of rows row and row + 8: each lane of the
+  // quad reads a quarter of the row, the quad sums (the same bits on all)
+  float dl[2] = {0.0f, 0.0f}, ls[2] = {0.0f, 0.0f};
+  if (valid) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pos = row + 8 * r;
+      const long long off =
+          ((long long)b * a.S + pos) * ld + (long long)h * D + (lane % 4) *
+          (D / 4);
+      const uint4* op = reinterpret_cast<const uint4*>(a.o + off);
+      const uint4* gp = reinterpret_cast<const uint4*>(a.dout + off);
+      float acc = 0.0f;
+#pragma unroll
+      for (int u = 0; u < D / 32; ++u) {
+        const uint4 x = op[u], y = gp[u];
+        const __nv_bfloat162* xs =
+            reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* ys =
+            reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fx = __bfloat1622float2(xs[e]);
+          const float2 fy = __bfloat1622float2(ys[e]);
+          acc = fmaf(fx.x, fy.x, acc);
+          acc = fmaf(fx.y, fy.y, acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dl[r] = acc;
+      if ((lane & 3) == 0) a.dlt[hrow + pos] = acc;
+      ls[r] = a.lse[hrow + pos];
+    }
+  }
+
+  float dq[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[c][i] = 0.0f;
+  if (valid) tc::mbar_wait(qbar, 0);
+  const uint32_t qa = q_s + wg * C::TILE, da = do_s + wg * C::TILE;
+
+  for (int t = 0; t < hi_b; ++t) {
+    const int s = t % ST;
+    tc::mbar_wait(bars + 8 * s, (t / ST) & 1);
+    if (t < hi) {
+      const uint32_t ks = kv_s + s * C::STAGE_BYTES, vs = ks + C::TILE;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+      tc::wg_fence();
+      mma_rows<D>(sc, qa, ks);
+      mma_rows<D>(dp, da, vs);
+      tc::wg_commit();
+      tc::wg_wait_all();
+      tc::hold(sc);
+      tc::hold(dp);
+
+      // sc[4j + e]: row row + 8 (e / 2), key 64 t + 8 j + cq + e % 2
+      const bool diag = t == hi - 1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, rr = e >> 1;
+          float p = expf(sc[i] * a.scale - ls[rr]);
+          if (diag && kBK * t + 8 * j + cq + (e & 1) > row + 8 * rr)
+            p = 0.0f;
+          sc[i] = p * (dp[i] - dl[rr]);
+        }
+      uint32_t shi[4][4], slo[4][4];
+      tc::split_frags(sc, shi, slo);
+      tc::wg_fence();
+      mma_cols<NC>(dq, shi, ks);
+      mma_cols<NC>(dq, slo, ks);
+      tc::wg_commit();
+      tc::wg_wait_all();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) tc::hold(dq[c]);
+      tc::hold(shi);
+      tc::hold(slo);
+    }
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(bars + 8 * (ST + s));
+  }
+
+  if (!valid) return;
+  store_rows<NC>(a.dq + (long long)b * a.S * ld + (long long)h * D, ld, row,
+                 cq, dq, a.scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS, 1)
+    flash_bwd_dkv(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using C = DkvCfg<D>;
+  constexpr int NC = C::NC, ST = C::STAGES, kWGs = C::WGS, kBKB = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base;                          // kWGs K tiles
+  const uint32_t v_s = k_s + kWGs * C::TILE;          // kWGs V tiles
+  const uint32_t st_s = v_s + kWGs * C::TILE;         // ST x (Q, dO)
+  const uint32_t row_s = st_s + ST * C::STAGE_BYTES;  // ST x (lse, D)
+  const uint32_t bars = row_s + ST * C::ROW_BYTES;    // full, empty, K/V
+  const uint32_t kvbar = bars + 16 * ST;
+  const float* rows_f = reinterpret_cast<const float*>(smem_raw +
+                                                       (row_s - raw));
+
+  // block -> (KV tile, KV head, batch), longest band (first keys) first
+  const int hb = a.Kv * a.B, bid = blockIdx.x;
+  const int kt = bid / hb;
+  const int g = (bid % hb) % a.Kv, b = (bid % hb) / a.Kv;
+  const int k0 = kt * kBKB;
+  const int n_valid = min(kWGs, (a.S - k0) / kRows);
+  // the query tiles that see the block's keys: [qt_lo, n_q), each head
+  const int qt_lo = k0 / kRows, n_q = a.S / kRows, n_qt = n_q - qt_lo;
+  const int n_it = a.rep * n_qt;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      tc::mbar_init(bars + 8 * s, 1);
+      tc::mbar_init(bars + 8 * (ST + s), kWGs * 4);
+    }
+    tc::mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kWGs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     C::PRODUCER_REGS)
+                 : "memory");
+    if (threadIdx.x == kWGs * 128) {
+      tc::mbar_expect_tx(kvbar, 2 * n_valid * C::TILE);
+      for (int w = 0; w < n_valid; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tc::tma_load(k_s + w * C::TILE + c * kChunk, &tk, kvbar, 64 * c, g,
+                       k0 + kRows * w, b);
+          tc::tma_load(v_s + w * C::TILE + c * kChunk, &tv, kvbar, 64 * c, g,
+                       k0 + kRows * w, b);
+        }
+      for (int i = 0; i < n_it; ++i) {
+        const int h = g * a.rep + i / n_qt, qt = qt_lo + i % n_qt;
+        const int s = i % ST, r = i / ST;
+        if (r > 0) tc::mbar_wait(bars + 8 * (ST + s), (r - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t qs = st_s + s * C::STAGE_BYTES;
+        const uint32_t rs = row_s + s * C::ROW_BYTES;
+        const long long hrow = ((long long)b * a.H + h) * a.S + qt * kRows;
+        tc::mbar_expect_tx(full, C::STAGE_BYTES + C::ROW_BYTES);
+        for (int c = 0; c < NC; ++c) {
+          tc::tma_load(qs + c * kChunk, &tq, full, 64 * c, h, qt * kRows, b);
+          tc::tma_load(qs + C::TILE + c * kChunk, &tdo, full, 64 * c, h,
+                       qt * kRows, b);
+        }
+        bulk_load(rs, a.lse + hrow, kRows * 4, full);
+        bulk_load(rs + kRows * 4, a.dlt + hrow, kRows * 4, full);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                   C::CONSUMER_REGS)
+               : "memory");
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int kr0 = k0 + kRows * wg;
+  const bool valid = wg < n_valid;
+  const int q_first = kr0 / kRows;   // its first query tile: the diagonal
+  const int key = kr0 + 16 * warp + lane / 4, cq = 2 * (lane % 4);
+
+  float dk[NC][32], dv[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.0f;
+  if (valid) tc::mbar_wait(kvbar, 0);
+  const uint32_t ka = k_s + wg * C::TILE, va = v_s + wg * C::TILE;
+
+  for (int i = 0; i < n_it; ++i) {
+    const int qt = qt_lo + i % n_qt, s = i % ST;
+    tc::mbar_wait(bars + 8 * s, (i / ST) & 1);
+    if (valid && qt >= q_first) {
+      const uint32_t qs = st_s + s * C::STAGE_BYTES, dos = qs + C::TILE;
+      const float* lsp = rows_f + s * (C::ROW_BYTES / 4);
+      const float* dlp = lsp + kRows;
+      float st[32], dp[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) st[j] = dp[j] = 0.0f;
+      tc::wg_fence();
+      mma_rows<D>(st, ka, qs);
+      mma_rows<D>(dp, va, dos);
+      tc::wg_commit();
+      tc::wg_wait_all();
+      tc::hold(st);
+      tc::hold(dp);
+
+      // st[4j + e]: key key + 8 (e / 2), query 64 qt + 8 j + cq + e % 2
+      const bool diag = qt == q_first;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e, col = 8 * j + cq + (e & 1);
+          float p = expf(st[x] * a.scale - lsp[col]);
+          if (diag && key + 8 * (e >> 1) > kRows * qt + col) p = 0.0f;
+          st[x] = p;
+          dp[x] = p * (dp[x] - dlp[col]);
+        }
+      uint32_t pf[4][4], shi[4][4], slo[4][4];
+      tc::frags(st, pf);
+      tc::split_frags(dp, shi, slo);
+      tc::wg_fence();
+      mma_cols<NC>(dv, pf, dos);
+      mma_cols<NC>(dk, shi, qs);
+      mma_cols<NC>(dk, slo, qs);
+      tc::wg_commit();
+      tc::wg_wait_all();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tc::hold(dk[c]);
+        tc::hold(dv[c]);
+      }
+      tc::hold(pf);
+      tc::hold(shi);
+      tc::hold(slo);
+    }
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(bars + 8 * (ST + s));
+  }
+
+  if (!valid) return;
+  const long long ld = (long long)a.Kv * D;
+  const long long off = (long long)b * a.S * ld + (long long)g * D;
+  store_rows<NC>(a.dk + off, ld, key, cq, dk, a.scale);
+  store_rows<NC>(a.dv + off, ld, key, cq, dv, 1.0f);
+}
+
+template <typename Kernel>
+int opt_in(Kernel kernel, size_t smem, bool& done) {
+  if (done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  done = true;
+  return 0;
+}
+
+template <int D>
+int launch_bwd(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, const CUtensorMap& tdo, Args a,
+               cudaStream_t stream) {
+  static bool dq_in = false, dkv_in = false;
+  int st = opt_in(flash_bwd_dq<D>, DqCfg<D>::SMEM, dq_in);
+  if (st == 0) st = opt_in(flash_bwd_dkv<D>, DkvCfg<D>::SMEM, dkv_in);
+  if (st != 0) return st;
+  a.n_blk = (a.S + DqCfg<D>::BQ - 1) / DqCfg<D>::BQ;
+  flash_bwd_dq<D><<<(unsigned)a.n_blk * a.H * a.B, DqCfg<D>::THREADS,
+                    DqCfg<D>::SMEM, stream>>>(tq, tk, tv, tdo, a);
+  st = (int)cudaGetLastError();
+  if (st != 0) return st;
+  const unsigned n_kb = (a.S + DkvCfg<D>::BK - 1) / DkvCfg<D>::BK;
+  flash_bwd_dkv<D><<<n_kb * a.Kv * a.B, DkvCfg<D>::THREADS,
+                     DkvCfg<D>::SMEM, stream>>>(tq, tk, tv, tdo, a);
+  return (int)cudaGetLastError();
+}
+
+// a contiguous (B, S, heads, D) bf16 tensor's map
+int contiguous_map(CUtensorMap* map, const void* p, long long B, long long S,
+                   long long heads, long long D) {
+  return tc::make_map(map, p, D, heads, S, B, S * heads * D, heads * D, D);
+}
+
+bool shape_ok(long long B, long long S, long long H, long long Kv,
+              long long D) {
+  return B > 0 && S > 0 && S % kRows == 0 && Kv > 0 && H % Kv == 0 &&
+         (D == 64 || D == 128) && B * H * S < (1ll << 31);
+}
+
+}  // namespace tr
 
 // The one rule that picks the body.
 bool wgmma_body(long long dtype, long long D) {
@@ -898,4 +1445,51 @@ extern "C" int flash_attention_launch(
 // 1 when flash_attention_launch runs flash_wgmma for this dtype and D.
 extern "C" int flash_attention_wgmma_body(long long dtype, long long D) {
   return wgmma_body(dtype, D) ? 1 : 0;
+}
+
+// The training pair (namespace tr above).  q, o: (B,S,H,D); k, v:
+// (B,S,Kv,D); all bf16 and contiguous, D 64 or 128, S a multiple of 64,
+// causal, positions from 0.  Forward: o and lse (B,H,S) f32.
+extern "C" int flash_train_fwd_launch(const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      long long B, long long S, long long H,
+                                      long long Kv, long long D, float scale,
+                                      cudaStream_t stream) {
+  if (!tr::shape_ok(B, S, H, Kv, D)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int st = tr::contiguous_map(&tq, q, B, S, H, D);
+  if (st == 0) st = tr::contiguous_map(&tk, k, B, S, Kv, D);
+  if (st == 0) st = tr::contiguous_map(&tv, v, B, S, Kv, D);
+  if (st != 0) return st;
+  tc::Args a{static_cast<__nv_bfloat16*>(o), S * H * D, H * D, D,
+             (int)S, (int)S, (int)H, (int)B, (int)(H / Kv), 0, 1, 0, scale,
+             0.0f, 0.0f, static_cast<float*>(lse)};
+  return D == 64 ? tc::launch<64, true>(tq, tk, tv, a, stream)
+                 : tc::launch<128, true>(tq, tk, tv, a, stream);
+}
+
+// Backward: dq (B,S,H,D), dk and dv (B,S,Kv,D) written whole; dlt (B,H,S)
+// f32 scratch (rowsum(dO o O), written by the first launch, read by the
+// second).
+extern "C" int flash_train_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dlt, void* dq, void* dk,
+    void* dv, long long B, long long S, long long H, long long Kv,
+    long long D, float scale, cudaStream_t stream) {
+  if (!tr::shape_ok(B, S, H, Kv, D)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int st = tr::contiguous_map(&tq, q, B, S, H, D);
+  if (st == 0) st = tr::contiguous_map(&tk, k, B, S, Kv, D);
+  if (st == 0) st = tr::contiguous_map(&tv, v, B, S, Kv, D);
+  if (st == 0) st = tr::contiguous_map(&tdo, dout, B, S, H, D);
+  if (st != 0) return st;
+  const tr::Args a{static_cast<const __nv_bfloat16*>(o),
+                   static_cast<const __nv_bfloat16*>(dout),
+                   static_cast<const float*>(lse), static_cast<float*>(dlt),
+                   static_cast<__nv_bfloat16*>(dq),
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), (int)S, (int)H, (int)Kv,
+                   (int)B, (int)(H / Kv), 0, scale};
+  return D == 64 ? tr::launch_bwd<64>(tq, tk, tv, tdo, a, stream)
+                 : tr::launch_bwd<128>(tq, tk, tv, tdo, a, stream);
 }

@@ -475,6 +475,107 @@ def reference_flash_attention(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
+TRAIN_TILE = 64          # the training pair's tile of queries and keys
+
+
+def _train_mask(pos: torch.Tensor, kpos: torch.Tensor,
+                skip_tile: Optional[int]) -> torch.Tensor:
+    """Causal mask of the training pair; ``skip_tile``, a fault for the
+    checks, drops the diagonal tile (query tile = key tile = skip_tile)."""
+    mask = pos[:, None] >= kpos[None, :]
+    if skip_tile is not None:
+        mask &= ~((pos[:, None] // TRAIN_TILE == skip_tile)
+                  & (kpos[None, :] // TRAIN_TILE == skip_tile))
+    return mask
+
+
+def reference_flash_train_fwd(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *,
+                              skip_tile: Optional[int] = None):
+    """The plain version of the training pair's forward: causal attention,
+    positions from 0, (o, lse).
+
+    The kernel's arithmetic, tile by tile over 64 keys: ``s = (q k^T) *
+    1/sqrt(D)`` in f32 from the exactly converted operands (the scale
+    after the product, as ``mha_chunked``); the online softmax's (m, l)
+    in f32; P rounded to bf16 once, relative to the running max, before
+    ``P V`` (as ``mha_chunked`` rounds it relative to its block's); ``o =
+    acc / l`` in q's dtype and ``lse = m + log(l)`` f32 (B, H, S).
+    q: (B,S,H,D); k, v: (B,S,Kv,D); head h reads KV head ``h // (H//Kv)``.
+    """
+    B, S, H, D = q.shape
+    Kv = k.shape[2]
+    rep = H // Kv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(D)
+    qf = q.to(f32).reshape(B, S, Kv, rep, D)
+    m = torch.full((B, Kv, rep, S), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Kv, rep, S), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Kv, rep, S, D), dtype=f32, device=q.device)
+    pos = torch.arange(S, device=q.device)
+    for k0 in range(0, S, TRAIN_TILE):
+        kb = k[:, k0:k0 + TRAIN_TILE].to(f32)
+        vb = v[:, k0:k0 + TRAIN_TILE].to(f32)
+        s = torch.einsum("bsgrd,bkgd->bgrsk", qf, kb) * scale
+        s = torch.where(_train_mask(pos, pos[k0:k0 + TRAIN_TILE], skip_tile),
+                        s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrsk,bkgd->bgrsd", p.to(torch.bfloat16).to(f32), vb)
+        m = m_new
+    den = torch.clamp(l, min=1e-30)
+    o = (acc / den[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return o.to(q.dtype), (m + torch.log(den)).reshape(B, H, S)
+
+
+def reference_flash_train_bwd(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              split_ds: bool = True,
+                              skip_tile: Optional[int] = None):
+    """The plain version of the training pair's backward: (dq, dk, dv).
+
+    The kernels' arithmetic in f32 from the bf16 operands: ``P = exp(s -
+    lse)`` (masked: 0), ``dV = bf16(P)^T dO``, ``dP = dO V^T``, ``D =
+    rowsum(dO o O)``, ``dS = P (dP - D)`` taken to f32 accuracy as ``hi =
+    bf16(dS)`` plus ``lo = bf16(dS - hi)`` (whose sum is exact in f32, so
+    one product stands for the kernels' two), ``dQ = scale dS K``, ``dK =
+    scale dS^T Q``; GQA sums dK and dV over the query heads of a KV head
+    in f32; each cast to its input's dtype once.  ``split_ds=False`` (dS
+    as one bf16 term) and ``skip_tile`` are faults for the checks."""
+    B, S, H, D = q.shape
+    Kv = k.shape[2]
+    rep = H // Kv
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    qf, dof = q.to(f32), do.to(f32)
+    kr = k.to(f32).repeat_interleave(rep, dim=2)
+    vr = v.to(f32).repeat_interleave(rep, dim=2)
+    pos = torch.arange(S, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    p = torch.where(_train_mask(pos, pos, skip_tile),
+                    torch.exp(s - lse[..., None]), 0.0)
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(bf16).to(f32), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    dlt = (dof * o.to(f32)).sum(-1).permute(0, 2, 1)          # (B,H,S)
+    ds = p * (dp - dlt[..., None])
+    del p, dp
+    hi = ds.to(bf16).to(f32)
+    if split_ds:
+        hi = hi + (ds - hi).to(bf16).to(f32)
+    del ds
+    dq = torch.einsum("bhqk,bkhd->bqhd", hi, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", hi, qf) * scale
+
+    def per_kv(t):
+        return t.reshape(B, S, Kv, rep, D).sum(dim=3)
+    return (dq.to(q.dtype), per_kv(dk).to(k.dtype), per_kv(dv).to(v.dtype))
+
+
 def reference_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The sequential WKV recurrence, the ground truth of the chunked forms

@@ -1,16 +1,23 @@
 """Attention: GQA with RoPE, sliding windows, gemma2 logit soft-capping
 (port of ``repro/models/attention.py``).
 
-Three execution paths, selected as in the JAX package:
-  * ``mha_chunked`` — blockwise attention with an online softmax in plain
-    PyTorch, the counterpart of ``attn_impl="xla"``.  Block bounds are
-    static per query block, so causal and window structure skips KV
-    blocks.  The training path: plain ops, so autograd differentiates it
-    (with ``cfg.remat`` the model recomputes each block in backward).
+Execution paths, selected as in the JAX package:
+  * ``attn_impl="xla"``, the training path (and the "xla" prefill):
+    causal attention over bf16 q/k/v on the card at a head dim and length
+    the training kernel pair takes (``fused_route``: no softcap, no
+    window) runs as that pair, ``kernels.flash_attention_train``, a
+    forward and a backward kernel under autograd; everything else,
+    every CPU run included, runs ``mha_chunked`` — blockwise attention
+    with an online softmax in plain PyTorch, which autograd
+    differentiates.  Block bounds are static per query block, so causal
+    and window structure skips KV blocks.  With ``cfg.remat`` the model
+    recomputes each block in backward either way.  Each call counts
+    ``attn.fused`` or ``attn.chunked`` in ``repro_torch.tracing``.
   * ``decode_attention`` — one token over a (ring-buffered) KV cache.
   * the flash-attention kernel B8 (``repro_torch.kernels.flash_attention``)
     for ``attn_impl="pallas"`` or ``"pallas_interpret"``: a CUDA tensor
-    launches the kernel, a CPU tensor runs its plain version.
+    launches the kernel, a CPU tensor runs its plain version; forward
+    only.
 
 Weights stay 3-D ``(d_model, heads, head_dim)``, the JAX package's layout.
 Scores are f32: a bf16 product is computed as the f32 product of its
@@ -23,8 +30,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.kernels import flash_attention as fa
+from repro_torch import resolve_device, tracing
+from repro_torch.kernels import flash_attention as fa, use_kernel
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 
 from .layers import apply_rope, dense_init
@@ -192,6 +199,27 @@ def decode_attention(q, cache, *, window=0, softcap_val=0.0, cur_pos=None):
 # Full attention block application
 # ---------------------------------------------------------------------------
 
+# the counters attn_apply's "xla" route adds to, one a call
+ROUTE_COUNTERS = ("attn.fused", "attn.chunked")
+
+
+def route_counts() -> dict:
+    """The route's counters in the recording in progress (``tracing``)."""
+    return tracing.counts(ROUTE_COUNTERS)
+
+
+def fused_route(q, k, v, *, window: int, softcap: float) -> bool:
+    """Whether causal attention over (q, k, v), positions from 0, takes the
+    training kernel pair: no window, no softcap, one dtype, shapes the pair
+    takes (``flash_attention.training_shape``: bf16, head dim 64 or 128,
+    T == S a multiple of 64), on the card (``use_kernel``).  Never on the
+    CPU."""
+    return (not window and not softcap and q.device.type == "cuda"
+            and q.dtype == k.dtype == v.dtype
+            and fa.training_shape(q.dtype, q.shape, k.shape, v.shape)
+            and use_kernel(q, k, v))
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B,S,D) x (D,heads,hd) -> (B,S,heads,hd) in x's dtype."""
     D, n, hd = w.shape
@@ -229,8 +257,13 @@ def attn_apply(params, x, *, cfg, window: int = 0, rope_theta=None,
     k = apply_rope(k, pos, theta)
     impl = impl or cfg.attn_impl
     if impl == "xla":
-        out = mha_chunked(q, k, v, causal=True, window=window,
-                          softcap_val=cfg.attn_softcap)
+        if fused_route(q, k, v, window=window, softcap=cfg.attn_softcap):
+            tracing.count("attn.fused")
+            out = fa.flash_attention_train(q, k, v)
+        else:
+            tracing.count("attn.chunked")
+            out = mha_chunked(q, k, v, causal=True, window=window,
+                              softcap_val=cfg.attn_softcap)
     elif impl in ("pallas", "pallas_interpret"):
         out = fa.flash_attention(q, k, v, causal=True, window=window,
                                  softcap=cfg.attn_softcap)

@@ -17,10 +17,14 @@ A decode step writes its state IN PLACE (the KV caches through
 that same state.
 
 Training (``loss_fn``, ``train_step``) runs at the configs'
-``attn_impl="xla"``, as JAX's does: the kernels are forward only and
-raise under autograd (``kernels.no_grad_inputs``); rwkv6's recurrence
-takes the plain ``wkv_chunked`` whenever autograd records.  With
-``cfg.remat`` each block of a training forward is recomputed in backward
+``attn_impl="xla"``, as JAX's does.  There, causal attention on the card
+at the shapes the training kernel pair takes (bf16, head dim 64 or 128,
+no softcap, no window) runs as that pair, a forward and a backward kernel
+under autograd (``attention.fused_route``); other attention runs the
+plain ``mha_chunked``.  B8 and B9 are forward only and raise under
+autograd (``kernels.no_grad_inputs``); rwkv6's recurrence takes the plain
+``wkv_chunked`` whenever autograd records.  With ``cfg.remat`` each block
+of a training forward is recomputed in backward
 (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
@@ -501,7 +505,7 @@ def train_step(params, opt_state, batch, *, cfg, optimizer, aux_weight=0.01,
     does) and the step is the one ``grad_specs=None`` computes."""
     if grad_specs is not None:
         _check_spec_tree(params, grad_specs)
-    with tracing.span("step.fwd_bwd"):
+    with tracing.span("step.fwd_bwd", counters=attn_mod.route_counts):
         loss, metrics, grads = _grads(params, cfg, batch, aux_weight,
                                       n_microbatch)
     with tracing.span("step.optimizer"):

@@ -313,6 +313,15 @@ def count(name: str, n: int = 1) -> None:
     rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def counts(names) -> dict:
+    """The counters ``names`` of the recording in progress, 0 where not
+    yet counted (a span's ``counters`` sampler); nothing when off."""
+    rec = _REC
+    if rec is None:
+        return {}
+    return {n: rec.counters.get(n, 0) for n in names}
+
+
 def alloc_counters() -> dict:
     """The caching allocator's device frees (each ``cudaFree``
     synchronises the device), allocation retries and device allocations

@@ -14,6 +14,7 @@ ulp is 2^-8 relative) and ``mha_chunked``, ``naive_attention`` and
 """
 import math
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -363,3 +364,182 @@ def test_decode_attention_bf16_matches_jax():
                                  cur_pos=19)
     assert got.dtype == torch.bfloat16
     assert _gap(got, expect) < BF16_TOL
+
+
+# ---------------- the training pair (flash_attention_train) ----------------
+# On the CPU flash_attention_train runs the kernels' plain versions
+# (ref.reference_flash_train_fwd / _bwd) under autograd; the card tests hold
+# the kernels against them.  Against mha_chunked's autograd the plain
+# arithmetic differs only in where bf16 rounds: P relative to the running
+# max of 64 keys (mha_chunked: of 512) and normalised before the rounding
+# in backward (mha_chunked: after), and each gradient cast to bf16 once.
+# Readings at these shapes: o up to 7.2e-4 and the gradients up to 3.5e-3
+# of the norm (the card read up to 1.28e-3 and 3.9e-3 at S = 1024), one
+# bf16 ulp (2^-8) of the norm; a skipped diagonal tile reads 0.13-0.38.
+TRAIN_O_TOL, TRAIN_GRAD_TOL = 2.0 ** -9, 2.0 ** -7
+
+
+def _rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm())
+
+
+def _train_inputs(seed, B, S, H, Kv, D):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, S, n, D).astype(
+        np.float32)).to(torch.bfloat16) for n in (H, Kv, Kv, H))
+    return (q * 2).to(torch.bfloat16), k, v, do
+
+
+@pytest.mark.parametrize("B,S,H,Kv,D", [(2, 128, 4, 4, 64),
+                                        (2, 192, 4, 2, 64),
+                                        (1, 128, 4, 1, 128)],
+                         ids=["mha", "gqa", "mqa-128"])
+def test_train_plain_matches_mha_chunked_autograd(B, S, H, Kv, D):
+    """flash_attention_train's output and gradients on the CPU (the plain
+    versions: lse, D = rowsum(dO o O), bf16 P, dS as hi + lo) against
+    mha_chunked's under autograd, at H = Kv and with GQA."""
+    q, k, v, do = _train_inputs(20 + Kv, B, S, H, Kv, D)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_train(*ins)
+    out.backward(do)
+    chk = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = tattn.mha_chunked(*chk)
+    want.backward(do)
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, want) < TRAIN_O_TOL
+    for a, b in zip(ins, chk):
+        assert a.grad.dtype == torch.bfloat16
+        assert _rel(a.grad, b.grad) < TRAIN_GRAD_TOL
+    # the plain forward's lse is the log-sum-exp of the masked scores
+    _, lse = ref.reference_flash_train_fwd(q, k, v)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(H // Kv, dim=2))
+    s = s / math.sqrt(D)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                      float("-inf"))
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("fault", ["skip_tile", "split_ds"])
+def test_train_plain_faults_move_the_gradients(fault):
+    """The card checks' two faulty plain versions: a skipped diagonal tile
+    moves every output far beyond mha_chunked's gap; a single bf16 dS moves
+    dq and dk by ~2.6e-3 of their norm (the card's limit is 7e-4)."""
+    q, k, v, do = _train_inputs(30, 2, 128, 4, 2, 64)
+    o, lse = ref.reference_flash_train_fwd(q, k, v)
+    good = ref.reference_flash_train_bwd(q, k, v, o, lse, do)
+    if fault == "skip_tile":
+        bad_o, _ = ref.reference_flash_train_fwd(q, k, v, skip_tile=1)
+        assert _rel(bad_o, o) > 0.05
+        bad = ref.reference_flash_train_bwd(q, k, v, o, lse, do, skip_tile=1)
+        assert all(_rel(a, b) > 0.05 for a, b in zip(bad, good))
+    else:
+        bad = ref.reference_flash_train_bwd(q, k, v, o, lse, do,
+                                            split_ds=False)
+        assert all(_rel(a, b) > 1.5e-3 for a, b in zip(bad[:2], good[:2]))
+        assert torch.equal(bad[2], good[2])
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("musicgen", True), ("head 128 gqa", True), ("head 112", False),
+    ("head 32", False), ("f32", False), ("f16", False), ("T!=S", False),
+    ("S % 64", False), ("H % Kv", False), ("3-d", False)])
+def test_train_route_by_shape_and_dtype(case, takes):
+    """The training pair's shapes (training_shape): bf16, head dim 64 or
+    128, T == S a multiple of 64, H % Kv == 0."""
+    B, S, H, Kv, D, dt = 2, 1024, 24, 24, 64, torch.bfloat16
+    if case == "head 128 gqa":
+        H, Kv, D = 32, 4, 128
+    elif case == "head 112":
+        D = 112
+    elif case == "head 32":
+        D = 32
+    elif case == "f32":
+        dt = torch.float32
+    elif case == "f16":
+        dt = torch.float16
+    elif case == "S % 64":
+        S = 1000
+    elif case == "H % Kv":
+        Kv = 5
+    qs, ks = (B, S, H, D), (B, S, Kv, D)
+    if case == "T!=S":
+        ks = (B, S // 2, Kv, D)
+    if case == "3-d":
+        qs = qs[1:]
+    assert fa.training_shape(dt, qs, ks, ks) is takes
+
+
+@pytest.mark.parametrize("window,cap,on_card,fused", [
+    (0, 0.0, True, True), (32, 0.0, True, False), (0, 50.0, True, False),
+    (0, 0.0, False, False)])
+def test_train_route_by_softcap_window_and_device(monkeypatch, window, cap,
+                                                 on_card, fused):
+    """attn_apply's "xla" route: the pair only on the card (a CUDA device
+    that ``use_kernel`` takes) with no window and no softcap; every CPU
+    tensor takes mha_chunked.  The card's operands are stand-ins with a
+    CUDA device, a dtype and a shape, ``use_kernel`` answering for an
+    sm_90 card."""
+    q, k, v, _ = _train_inputs(40, 1, 64, 2, 2, 64)
+    assert tattn.fused_route(q, k, v, window=0, softcap=0.0) is False
+    if on_card:
+        q, k, v = (types.SimpleNamespace(device=torch.device("cuda", 0),
+                                         dtype=t.dtype, shape=t.shape)
+                   for t in (q, k, v))
+        monkeypatch.setattr(tattn, "use_kernel", lambda *a: True)
+    assert tattn.fused_route(q, k, v, window=window, softcap=cap) is fused
+
+
+def test_train_pair_check_rehearsed_on_cpu():
+    """chip_smoke's check of the pair (phase 3 and the card tests) on the
+    CPU, where the wrapper runs the plain versions: every gap 0, the same
+    bits twice, both faults beyond the limit in the outputs they move, and
+    the one problem it reports that no kernel launched."""
+    q, k, v, do = _train_inputs(42, 2, 128, 4, 2, 64)
+    res = chip_smoke.train_pair_check(q, k, v, do)
+    assert set(res["gaps"].values()) == {0.0} and res["lse"] == 0.0
+    assert res["same_bits"]
+    assert {f: set(g) for f, g in res["controls"].items()} == {
+        f: set(moved) for f, moved in chip_smoke.TRAIN_FLASH_FAULTS.items()}
+    assert chip_smoke.train_pair_problems(res) == [
+        "launches {'flash_train_fwd': 0, 'flash_train_bwd': 0}"]
+
+
+def test_train_wrapper_refuses_what_the_pair_does_not_take():
+    q, k, v, _ = _train_inputs(41, 1, 64, 2, 2, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention_train(q[:, :, :, :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError):
+        fa.flash_attention_train(q.float(), k.float(), v.float())
+
+
+def test_train_route_counts_every_call_on_cpu():
+    """Under tracing, each "xla" attention call counts attn.chunked on the
+    CPU (attn.fused never), and a train step's step.fwd_bwd span keeps both
+    counters: a call a layer, twice with remat (the forward and its
+    recomputation); no kernel launches."""
+    from repro_torch import configs, models, optim, tracing
+    cfg = configs.get_config("musicgen-medium", reduced=True)
+    params = models.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"embeds": torch.from_numpy(rng.randn(2, 64, cfg.d_model).astype(
+        np.float32)).to(torch.bfloat16),
+             "labels": torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                    (2, 64)))}
+    n0 = dict(fa.LAUNCHES)
+    opt = optim.adamw(1e-3)
+    tracing.start()
+    try:
+        models.train_step(params, opt.init(params), batch, cfg=cfg,
+                          optimizer=opt)
+    finally:
+        rec = tracing.stop()
+    assert cfg.remat
+    want = {"attn.fused": 0, "attn.chunked": 2 * cfg.n_layers}
+    assert rec.counters == {"attn.chunked": 2 * cfg.n_layers}
+    fwd_bwd, = [s for s in rec.spans if s.name == "step.fwd_bwd"]
+    assert fwd_bwd.counters == want
+    assert fa.LAUNCHES == n0
+    assert tattn.route_counts() == {}                   # tracing off

@@ -40,6 +40,13 @@ for bit against the chain each replaces on the card (the encode then B4;
 B4, stack, B1) at odd, ragged and large widths, on a misaligned base, at
 2, 4 and 34 pieces, with chip_smoke's controls failing, and short runs
 through them equal in every field to the same runs through the chains.
+The training kernel pair (``flash_attention_train``) within chip_smoke's
+``TRAIN_FLASH_LIMIT`` of its plain versions in o, dq, dk and dv (the norm
+of the difference over the plain output's; both sides compute in f32 and
+round once) and ``TRAIN_LSE_LIMIT`` in lse, bit for bit run to run, with
+dS as one bf16 term and a skipped diagonal tile failing; a 2-layer
+musicgen-medium step through it within the benchmark contract's gaps of
+the same step through ``mha_chunked``.
 """
 import io
 import itertools
@@ -382,7 +389,7 @@ def test_cuda_flash_attention_matches_plain(h100, B, S, H, Kv, D, dtype,
     # every launch counts under "flash"; the tensor-core body's also under
     # "flash_wgmma"
     wgmma = int(dtype == torch.bfloat16 and D in chip_smoke.WGMMA_DIMS)
-    assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
+    assert flash_attention.LAUNCHES == {**n0, "flash": n0["flash"] + 1,
                                         "flash_wgmma": n0["flash_wgmma"]
                                         + wgmma}
     assert got.dtype == dtype and got.shape == q.shape
@@ -417,7 +424,7 @@ def test_cuda_flash_attention_non_causal_matches_plain(h100, B, S, H, Kv, D,
     plain = ref.reference_flash_attention(q, k, v, causal=False,
                                           window=window, softcap=cap)
     torch.cuda.synchronize()
-    assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
+    assert flash_attention.LAUNCHES == {**n0, "flash": n0["flash"] + 1,
                                         "flash_wgmma": n0["flash_wgmma"] + 1}
     _assert_flash_close(got, plain)
     # a control: the causal plain version differs beyond the limit
@@ -449,7 +456,7 @@ def _strided_views_match_plain(dev, B, S, H, Kv, D):
     got = flash_attention.flash_attention(q, k, v, softcap=50.0)
     plain = ref.reference_flash_attention(q, k, v, softcap=50.0)
     torch.cuda.synchronize()
-    assert flash_attention.LAUNCHES == {"flash": n0["flash"] + 1,
+    assert flash_attention.LAUNCHES == {**n0, "flash": n0["flash"] + 1,
                                         "flash_wgmma": n0["flash_wgmma"] + 1}
     _assert_flash_close(got, plain)
 
@@ -482,7 +489,7 @@ def test_cuda_flash_body_at_head_dim_112(h100):
         n0 = dict(flash_attention.LAUNCHES)
         flash_attention.flash_attention(q, k, v)
         assert flash_attention.LAUNCHES == {
-            "flash": n0["flash"] + 1,
+            **n0, "flash": n0["flash"] + 1,
             "flash_wgmma": n0["flash_wgmma"] + wgmma}
 
 
@@ -508,7 +515,7 @@ def test_cuda_prefill_launches_flash_once_per_layer(h100, arch, head_dim):
     toks = _t(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 96)))
     n0 = dict(flash_attention.LAUNCHES)
     wgmma = cfg.n_layers if head_dim == 64 else 0
-    after_prefill = {"flash": n0["flash"] + cfg.n_layers,
+    after_prefill = {**n0, "flash": n0["flash"] + cfg.n_layers,
                      "flash_wgmma": n0["flash_wgmma"] + wgmma}
     lg, st = models.prefill_step(card, {"tokens": toks[:, :64].to(h100)},
                                  cfg=cfg, max_len=96)
@@ -1444,3 +1451,128 @@ def test_cuda_lm_zoo_prefill_matches_cpu(h100, arch):
         lc, sc = models.serve_step(params, sc, toks[:, t:t + 1], t, cfg=cfg)
     err = (lg.float().cpu() - lc.float()).abs().max() / lc.float().abs().max()
     assert float(err) < 0.04
+
+
+# The training pair (flash_attention_train: the forward with lse, the
+# backward's two launches) against its plain versions, with chip_smoke's
+# check (train_pair_check) and limits (TRAIN_FLASH_LIMIT, TRAIN_LSE_LIMIT,
+# set there from readings on an H100), at musicgen-medium's pods' shape,
+# hd 128 with GQA and two short cases (a ragged last block of query rows,
+# GQA at hd 64).
+TRAIN_FLASH_CASES = [(8, 1024, 24, 24, 64), (2, 1024, 8, 2, 128),
+                     (1, 320, 4, 4, 128), (2, 192, 4, 2, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,D", TRAIN_FLASH_CASES)
+def test_cuda_flash_train_matches_plain(h100, B, S, H, Kv, D):
+    """The training pair's o, lse, dq, dk and dv within the limits of its
+    plain versions; a second forward and backward give the same bits; the
+    plain versions with dS as one bf16 term, and with the last diagonal
+    tile skipped, exceed them; a forward call is one launch, a backward
+    call two."""
+    g = torch.Generator(device=h100).manual_seed(S + D + Kv)
+    q, k, v, do = (torch.randn(B, S, n, D, device=h100, generator=g)
+                   .to(torch.bfloat16) for n in (H, Kv, Kv, H))
+    n0 = dict(flash_attention.LAUNCHES)
+    res = chip_smoke.train_pair_check(q, k, v, do)
+    assert chip_smoke.train_pair_problems(res) == [], res
+    assert res["launches"] == {"flash_train_fwd": 1, "flash_train_bwd": 2}
+    # the check's own second forward and backward count too
+    assert flash_attention.LAUNCHES == {
+        **n0, "flash_train_fwd": n0["flash_train_fwd"] + 2,
+        "flash_train_bwd": n0["flash_train_bwd"] + 4}
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_map_kernels_run_on_a_new_thread(h100):
+    """B8's tensor-core body and both halves of the training pair encode
+    their TMA maps with cuTensorMapEncodeTiled, which needs a current
+    context: on a host thread that has made no CUDA call yet (autograd's
+    worker thread on its first backward) each launch still runs, and
+    gives the bits it gives on this thread."""
+    import threading
+    g = torch.Generator(device=h100).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 256, n, 64, device=h100, generator=g)
+                   .to(torch.bfloat16) for n in (4, 2, 2, 4))
+    calls = {
+        "b8": lambda: (flash_attention.flash_attention(
+            q, k, v, causal=True, window=0, softcap=0.0),),
+        "train_fwd": lambda: flash_attention._train_fwd(q, k, v),
+        "train_bwd": lambda: flash_attention._train_bwd(
+            q, k, v, *flash_attention._train_fwd(q, k, v), do)}
+    for name, call in calls.items():
+        # first here, so that the thread's allocations come from the
+        # caching allocator and it makes no CUDA call before the launch
+        here = call()
+        torch.cuda.synchronize(h100)
+        got = {}
+
+        def run():
+            try:
+                got["out"] = call()
+                torch.cuda.synchronize(h100)
+            except Exception as e:   # reported on the test's thread
+                got["err"] = e
+        th = threading.Thread(target=run)
+        th.start()
+        th.join()
+        assert "err" not in got, (name, got.get("err"))
+        assert all(torch.equal(a, b) for a, b in zip(got["out"], here)), name
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_through_the_pair_matches_chunked(h100,
+                                                          monkeypatch):
+    """musicgen-medium at full width cut to 2 layers, 2 x 1024 frames: the
+    loss and each leaf's gradient norm through the training pair within
+    the benchmark contract's gaps (fedbench/limits, loss_gap and grad1_gap)
+    of the same step through mha_chunked; the pair runs on every attention
+    call (a forward and remat's recomputation a layer, a backward a
+    layer, two launches) and mha_chunked on none."""
+    import json
+    from repro_torch import configs, models, tracing
+    from repro_torch.models import attention, transformer
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from fedbench import compare
+    limits = json.loads((Path(__file__).resolve().parents[1] / "fedbench"
+                         / "limits" / "musicgen-pods.raw-h10.json")
+                        .read_text())
+    cfg = configs.get_config("musicgen-medium").replace(n_layers=2)
+    params = models.init_params(torch.Generator(device=h100).manual_seed(0),
+                                cfg, device=h100)
+    g = torch.Generator(device=h100).manual_seed(1)
+    batch = {"embeds": torch.randn(2, 1024, cfg.d_model, device=h100,
+                                   generator=g).to(torch.bfloat16),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 1024),
+                                     device=h100, generator=g)}
+
+    def step():
+        loss, _, grads = transformer._value_and_grad(params, cfg, batch,
+                                                     0.01)
+        flat = dict(compare_leaves(grads))
+        return float(loss), {k: float(t.float().norm())
+                             for k, t in flat.items()}
+    n0 = dict(flash_attention.LAUNCHES)
+    tracing.start(h100)
+    try:
+        fused_loss, fused = step()
+    finally:
+        rec = tracing.stop()
+    torch.cuda.synchronize()
+    assert rec.counters == {"attn.fused": 2 * cfg.n_layers}
+    assert flash_attention.LAUNCHES == {
+        **n0, "flash_train_fwd": n0["flash_train_fwd"] + 2 * cfg.n_layers,
+        "flash_train_bwd": n0["flash_train_bwd"] + 2 * cfg.n_layers}
+    monkeypatch.setattr(attention, "fused_route", lambda *a, **k: False)
+    chunk_loss, chunk = step()
+    assert compare.rel_gap(fused_loss, chunk_loss) <= limits["loss_gap"]
+    assert compare.gap_of_norms(fused, chunk) <= limits["grad1_gap"]
+
+
+def compare_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from compare_leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tree[k]
